@@ -1,0 +1,41 @@
+"""nmf_tpu_torch — the PyTorch/CUDA build of the nmf_tpu NMF framework.
+
+A second package beside the JAX package ``nmf_tpu``, with the same module
+layout and public names, written for one NVIDIA Hopper card: plain tensor
+code is PyTorch, and the sparse products run hand-written CUDA kernels
+(``csrc/``).  It imports ``torch`` and ``numpy`` only.
+
+Ported so far: the ``nnmf`` front door for Fast-HALS coordinate descent
+(``alg="cd"``) with random or custom initialization, on dense tensors and on
+the tiled sparse store (``ops.sparse_format.build_tiled``).  Entry points run
+on the card unless the caller passes ``device="cpu"``.
+"""
+
+from . import config
+from .init.initialization import randinit
+from .models.common import Result, Trace, nmf_checksize, solve, stop_condition
+from .models.coorddesc import CoordinateDescent
+from .models.interface import nnmf, solve_replicates
+from .ops.objectives import mse_objective, sqL2dist
+from .utils.numeric import adddiag, normalize1, normalize1_cols, projectnn
+
+__version__ = "0.1.0"
+
+__all__ = [
+    "nnmf",
+    "Result",
+    "Trace",
+    "solve",
+    "solve_replicates",
+    "stop_condition",
+    "nmf_checksize",
+    "CoordinateDescent",
+    "randinit",
+    "mse_objective",
+    "sqL2dist",
+    "adddiag",
+    "normalize1",
+    "normalize1_cols",
+    "projectnn",
+    "config",
+]

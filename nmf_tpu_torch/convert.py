@@ -1,0 +1,71 @@
+"""Carrying state across from the JAX package.
+
+A tiled store or a pair of factors built by ``nmf_tpu`` crosses over as plain
+numpy: the caller turns each array field into ``np.ndarray`` (``np.asarray``)
+and hands the dicts to these functions, which never see a JAX object.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+
+from . import config
+from .ops.sparse_format import (
+    TiledCSR,
+    TiledSideC,
+    row_panel_index,
+    side_from_numpy,
+    to_tensor,
+)
+
+__all__ = ["tiled_from_numpy", "factors_from_numpy"]
+
+_SIDE_FIELDS = tuple(
+    f for f in TiledSideC.__dataclass_fields__
+    if f not in ("panel_ptr", "panel_chunks", "dpanel_ptr", "dpanel_blocks")
+)
+_TOP_ARRAYS = ("row_idx", "col_idx", "values", "row_perm", "row_rank",
+               "col_perm", "col_rank", "stats")
+
+
+def _unpack_bytes(words):
+    """Row panels stored four to an int32 word (byte lanes) -> one int32
+    each, flat."""
+    w = np.asarray(words, np.int32).reshape(-1)
+    return ((w[:, None] >> (8 * np.arange(4, dtype=np.int32))) & 0xFF).reshape(-1)
+
+
+def _side(d) -> dict:
+    if d.get("n_qchunks") or d.get("span", 1) != 1:
+        raise NotImplementedError(
+            "a store with quad-tail chunks or wide tail tiles is not ported yet"
+        )
+    f = {name: d.get(name) for name in _SIDE_FIELDS}
+    f["chunk_rp"] = _unpack_bytes(f["chunk_rp"])
+    if f["dblk_rp"] is not None:
+        f["dblk_rp"] = _unpack_bytes(f["dblk_rp"])
+    f.update(row_panel_index(f))
+    return f
+
+
+def tiled_from_numpy(d, device=config.DEFAULT_DEVICE) -> TiledCSR:
+    """The port's ``TiledCSR`` on ``device`` from the fields of an ``nmf_tpu``
+    ``TiledCSR`` given as a dict: ``fwd`` and ``bwd`` are dicts of that
+    side's fields, every array a numpy array, every count an int.  The
+    byte-packed ``chunk_rp`` / ``dblk_rp`` are unpacked to one int32 per chunk
+    / block and the row-panel index is derived."""
+    dev = config.resolve_device(device)
+    top = {name: to_tensor(d.get(name), dev) for name in _TOP_ARRAYS}
+    return TiledCSR(
+        fwd=side_from_numpy(_side(d["fwd"]), dev),
+        bwd=side_from_numpy(_side(d["bwd"]), dev),
+        shape=tuple(int(s) for s in d["shape"]),
+        build_opts=None if d.get("build_opts") is None else tuple(d["build_opts"]),
+        **top,
+    )
+
+
+def factors_from_numpy(W, H, device=config.DEFAULT_DEVICE):
+    """``(W, H)`` as tensors on ``device`` from numpy arrays."""
+    dev = config.resolve_device(device)
+    return to_tensor(np.asarray(W), dev), to_tensor(np.asarray(H), dev)

@@ -1,0 +1,622 @@
+"""Tiled sparse store for the sparse-dense products.
+
+The matrix is cut into (128-row x 128-col) tiles, grouped into row *stripes*.
+Tiles fall into three classes by their nonzero count:
+
+* **dense store** — tiles with at least ``dense_tile_nnz`` nonzeros are kept
+  as plain 128x128 blocks in (col, row) layout;
+* **chunk store** — other tiles have their nonzeros padded into 128-slot
+  chunks holding ``(local_col << 7 | local_row, value)``; chunks are stored
+  flat, grouped by (stripe, col panel), each group padded to a multiple of
+  ``group`` chunks (a *window*);
+* **COO band** — tiles with at most ``coo_tail_nnz`` nonzeros skip the tile
+  machinery and are kept as row-sorted COO triples.
+
+Both orientations are prebuilt (for ``X @ D`` and ``X' @ D``), plus CSR-order
+COO arrays and permutations mapping CSR-order values into each orientation's
+slots, so a value refresh (``with_values``) is a gather and a scatter.
+
+The built arrays equal those of the JAX package's ``build_tiled`` on the same
+input, with two differences that belong to the card: ``chunk_rp`` and
+``dblk_rp`` hold one int32 per chunk / block (no byte packing), and each side
+carries a *row-panel index* — for every 128-row output panel the list of
+chunks and of dense blocks that add into it — which is what lets one thread
+block own one output panel.
+
+The binning is numpy on the host; the built arrays are tensors on ``device``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .. import config
+from ..io.loader import (
+    chunk_fill,
+    class_extract,
+    dense_scatter,
+    gather3,
+    gather3k,
+    stable_argsort,
+    tile_key,
+)
+
+TILE = 128  # row-panel height == col-panel width == chunk capacity
+DENSE_GROUP = 8  # dense-tile blocks per window (same stripe and col panel)
+
+__all__ = [
+    "TILE",
+    "DENSE_GROUP",
+    "TiledSideC",
+    "TiledCSR",
+    "build_tiled",
+]
+
+_REFRESH_MAPS = ("perm", "inv", "dense_nnz", "dense_slot", "coo_nnz")
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledSideC:
+    """One orientation of the store: only *nonempty* tiles carry chunks.
+
+    ``win_stripe`` / ``win_panel`` (and the ``dblk_*`` twins) carry a final
+    sentinel entry (-1 / 0), and stripes without any tile own one all-padding
+    window: both are kept so the arrays compare equal with the JAX package's;
+    the kernels here walk the row-panel index and never look at them."""
+
+    coords: torch.Tensor  # (nwin*group, TILE) int32: ``lcol << 7 | lrow``
+    vals: torch.Tensor  # (nwin*group, TILE) float32
+    chunk_rp: torch.Tensor  # (nwin*group,) int32: row panel in stripe, per chunk
+    win_panel: torch.Tensor  # (nwin+1,) int32 col panel per window
+    win_stripe: torch.Tensor  # (nwin+1,) int32 stripe per window (-1 sentinel)
+    perm: torch.Tensor | None  # (nnz,) int64: CSR-order entry -> flat slot
+    n_stripes: int = 1
+    n_colpanels: int = 1
+    n_windows: int = 1
+    group: int = 8
+    panels_per_stripe: int = 1
+    rows: int = 0
+    cols: int = 0
+    # (nchunks*TILE,) CSR-order nnz index per chunk slot (padding slots point
+    # one past the end): value refreshes are a gather
+    inv: torch.Tensor | None = None
+    # dense store: ``dvals[b]`` is block b in (col, row) layout
+    dvals: torch.Tensor | None = None  # (ndblk, TILE, TILE) float32
+    dblk_panel: torch.Tensor | None = None  # (nwin_d+1,) int32
+    dblk_stripe: torch.Tensor | None = None  # (nwin_d+1,) int32, -1 sentinel
+    dblk_rp: torch.Tensor | None = None  # (ndblk,) int32, per block
+    n_dblocks: int = 0  # padded block count (DENSE_GROUP-multiple)
+    # dense-store refresh: dvals.flat[dense_slot] = new[dense_nnz]
+    dense_nnz: torch.Tensor | None = None
+    dense_slot: torch.Tensor | None = None
+    # COO band, in tiling (renumbered) coordinates, sorted by this side's row
+    coo_rows: torch.Tensor | None = None  # (n_coo,) int32
+    coo_cols: torch.Tensor | None = None  # (n_coo,) int32
+    coo_vals: torch.Tensor | None = None  # (n_coo,) float32
+    coo_nnz: torch.Tensor | None = None  # CSR-order nnz id per band entry
+    n_coo: int = 0
+    # row-panel index: chunks ``panel_chunks[panel_ptr[r]:panel_ptr[r+1]]``
+    # add into global row panel r (= stripe * panels_per_stripe + chunk_rp);
+    # all-padding chunks are left out.  ``dpanel_*`` is the same over the
+    # dense blocks.
+    panel_ptr: torch.Tensor | None = None  # (n_stripes*pps + 1,) int32
+    panel_chunks: torch.Tensor | None = None  # (n real chunks,) int32
+    dpanel_ptr: torch.Tensor | None = None  # (n_stripes*pps + 1,) int32
+    dpanel_blocks: torch.Tensor | None = None  # (n real blocks,) int32
+
+
+@dataclasses.dataclass(frozen=True)
+class TiledCSR:
+    """Both orientations + CSR-order COO arrays."""
+
+    fwd: TiledSideC  # X tiling (p x n)
+    bwd: TiledSideC  # X' tiling (n x p)
+    row_idx: torch.Tensor | None  # (nnz,) int32, CSR order, ORIGINAL coords
+    col_idx: torch.Tensor | None  # (nnz,) int32
+    values: torch.Tensor | None  # (nnz,)
+    # degree-sort renumbering (None = natural order): the tilings are built
+    # in renumbered coordinates so head rows/cols pack into dense tiles;
+    # ``*_perm[sorted] = original``, ``*_rank[original] = sorted``
+    row_perm: torch.Tensor | None = None
+    row_rank: torch.Tensor | None = None
+    col_perm: torch.Tensor | None = None
+    col_rank: torch.Tensor | None = None
+    shape: tuple[int, int] = (0, 0)
+    # (stripe_tiles, layout, group, dense_tile_nnz, quad_tail_nnz, quad_seg,
+    # coo_tail_nnz) the matrix was built with
+    build_opts: tuple | None = None
+    # (sum, sum of squares, min) of the values: sq_norm/total_sum/all_nonneg
+    # run without touching the (nnz,) values array, which ``slim()`` drops
+    stats: torch.Tensor | None = None
+
+    @property
+    def dtype(self):
+        return self.fwd.vals.dtype
+
+    @property
+    def device(self):
+        return self.fwd.vals.device
+
+    @property
+    def nnz(self):
+        return self.values.shape[0]
+
+    @property
+    def ndim(self):
+        return 2
+
+    def slim(self):
+        """Device-light view for MSE-family solves: drops the CSR-order
+        refresh maps and the COO arrays, none of which the products or the
+        Gram-identity objective touch, keeping the kernel operands, the
+        degree permutations and ``stats``.  ``with_values`` raises on a
+        slimmed instance."""
+        strip = dict.fromkeys(_REFRESH_MAPS)
+        return dataclasses.replace(
+            self,
+            fwd=dataclasses.replace(self.fwd, **strip),
+            bwd=dataclasses.replace(self.bwd, **strip),
+            row_idx=None,
+            col_idx=None,
+            values=None,
+        )
+
+    def with_values(self, new_values):
+        """Same pattern, new values (CSR order): refreshes both orientations.
+        The chunk region is an inverse-perm gather (padding slots fill with
+        0), the dense store an O(nnz_dense) scatter."""
+
+        def refresh(side):
+            if side.inv is None or (side.n_dblocks and side.dense_nnz is None) or (
+                side.n_coo and side.coo_nnz is None
+            ):
+                raise ValueError(
+                    "with_values needs the refresh maps, but this TiledCSR "
+                    "was slim()-med; rebuild with build_tiled"
+                )
+            v32 = new_values.to(torch.float32)
+            filled = torch.cat([v32, v32.new_zeros(1)])
+            kw = {"vals": filled[side.inv.long()].reshape(side.vals.shape)}
+            if side.n_dblocks:
+                flat = v32.new_zeros(side.dvals.numel())
+                flat[side.dense_slot.long()] = v32[side.dense_nnz.long()]
+                kw["dvals"] = flat.reshape(side.dvals.shape)
+            if side.n_coo:
+                kw["coo_vals"] = v32[side.coo_nnz.long()]
+            return dataclasses.replace(side, **kw)
+
+        v32 = new_values.to(torch.float32)
+        return dataclasses.replace(
+            self,
+            fwd=refresh(self.fwd),
+            bwd=refresh(self.bwd),
+            values=new_values,
+            stats=torch.stack([v32.sum(), (v32 * v32).sum(), v32.min()]),
+        )
+
+    def transpose(self):
+        return dataclasses.replace(
+            self,
+            fwd=self.bwd,
+            bwd=self.fwd,
+            row_idx=self.col_idx,
+            col_idx=self.row_idx,
+            row_perm=self.col_perm,
+            row_rank=self.col_rank,
+            col_perm=self.row_perm,
+            col_rank=self.row_rank,
+            shape=(self.shape[1], self.shape[0]),
+        )
+
+
+def _uniq_sorted(a, counts=False, index=False, inverse=False):
+    """np.unique for an already-sorted key array: one O(n) neighbour-diff
+    scan instead of a re-sort.  Returns (uniq, [first_index], [counts],
+    [inverse]) per the flags."""
+    n = len(a)
+    if n == 0:
+        z = np.zeros(0, np.int64)
+        out = [a] + [z] * (index + counts + inverse)
+        return tuple(out) if len(out) > 1 else a
+    change = np.empty(n, bool)
+    change[0] = True
+    np.not_equal(a[1:], a[:-1], out=change[1:])
+    first = np.flatnonzero(change)
+    out = [a[first]]
+    if index:
+        out.append(first)
+    if counts:
+        out.append(np.diff(np.append(first, n)))
+    if inverse:
+        out.append(np.cumsum(change) - 1)
+    return tuple(out) if len(out) > 1 else out[0]
+
+
+def _by_panel(panel_of_item, real, n_panels):
+    """CSR-style index of the ``real`` items by their global row panel:
+    ``(ptr, items)`` with items of one panel in increasing item order, so the
+    order of summation inside a panel is fixed by the store."""
+    items = np.flatnonzero(real)
+    pan = panel_of_item[items]
+    o = np.argsort(pan, kind="stable")
+    ptr = np.zeros(n_panels + 1, np.int64)
+    np.cumsum(np.bincount(pan, minlength=n_panels), out=ptr[1:])
+    return ptr.astype(np.int32), items[o].astype(np.int32)
+
+
+def row_panel_index(f):
+    """The row-panel index of one side from its stored arrays (numpy, in a
+    dict keyed like ``TiledSideC``).  A chunk or block takes part when it
+    holds any entry of the pattern — read off the refresh maps where the
+    side has them, else off the stored values, where an all-zero chunk or
+    block adds nothing either way."""
+    pps, group = f["panels_per_stripe"], f["group"]
+    n_panels = f["n_stripes"] * pps
+    nchunks = f["coords"].shape[0]
+    stripe = np.repeat(f["win_stripe"][:-1].astype(np.int64), group)
+    panel = stripe * pps + f["chunk_rp"]
+    if f.get("inv") is not None and f.get("perm") is not None:
+        # padding slots point one past the last CSR-order entry
+        real = (f["inv"].reshape(nchunks, TILE) != len(f["perm"])).any(1)
+    else:
+        real = (f["vals"] != 0).any(1) | (f["coords"] != 0).any(1)
+    out = dict(zip(("panel_ptr", "panel_chunks"), _by_panel(panel, real, n_panels)))
+    if f["n_dblocks"]:
+        dstripe = np.repeat(f["dblk_stripe"][:-1].astype(np.int64), DENSE_GROUP)
+        dpanel = dstripe * pps + f["dblk_rp"]
+        if f.get("dense_slot") is not None:
+            dreal = np.zeros(f["n_dblocks"], bool)
+            dreal[f["dense_slot"] // (TILE * TILE)] = True
+        else:
+            dreal = (f["dvals"] != 0).any((1, 2))
+        out.update(
+            zip(("dpanel_ptr", "dpanel_blocks"), _by_panel(dpanel, dreal, n_panels))
+        )
+    return out
+
+
+def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,
+                        dense_thresh=None, coo_tail_nnz=None):
+    """Bin (row, col, val) into the store for one orientation; returns a dict
+    of numpy arrays and ints keyed like ``TiledSideC``.
+
+    ``dense_thresh``: tiles with at least this many nonzeros are stored as
+    dense 128x128 blocks instead of chunks.  ``coo_tail_nnz``: tiles with at
+    most this many nonzeros go to the COO band."""
+    if coo_tail_nnz is not None:
+        if coo_tail_nnz < 1:
+            raise ValueError("coo_tail_nnz must be >= 1")
+        if dense_thresh and coo_tail_nnz >= dense_thresh:
+            raise ValueError("coo_tail_nnz must be < dense_tile_nnz")
+    if group % 8:
+        raise ValueError(f"group must be a multiple of 8, got {group}")
+    n_rowpanels = -(-p // TILE)
+    n_colpanels = -(-n // TILE)
+    stripe_tiles = min(stripe_tiles, n_rowpanels)
+    if stripe_tiles > 256:
+        # kept from the JAX package (its row panels are byte-packed) so both
+        # packages accept the same inputs
+        raise ValueError(
+            f"stripe_tiles (clamped to {stripe_tiles}) must be <= 256"
+        )
+    n_stripes = -(-n_rowpanels // stripe_tiles)
+
+    # stable argsort of the fused tile key == lexsort((rps, cp, stripe))
+    key = tile_key(rows, cols, n_colpanels, stripe_tiles)
+    order = stable_argsort(key)
+    a_rows, a_cols, a_vals, akey = gather3k(order, rows, cols, vals, key)
+
+    tiles_all, counts_all = _uniq_sorted(akey, counts=True)
+    if dense_thresh and len(tiles_all):
+        tile_dense = counts_all >= dense_thresh
+    else:
+        tile_dense = np.zeros(len(tiles_all), bool)
+    if coo_tail_nnz and len(tiles_all):
+        tile_coo = (~tile_dense) & (counts_all <= coo_tail_nnz)
+    else:
+        tile_coo = np.zeros(len(tiles_all), bool)
+
+    # ---- class partition: tiles are contiguous runs of the sorted arrays,
+    # so one pass copies each tile's run into its class's contiguous region
+    # (dense | chunk | COO), carrying the CSR ids (``order``) along
+    t_first_all = np.cumsum(counts_all) - counts_all
+    cls = np.ones(len(tiles_all), np.int8)  # 1 = chunk store
+    cls[tile_dense] = 0
+    cls[tile_coo] = 2
+    dst = np.empty(len(tiles_all), np.int64)
+    sizes = []
+    dbase = 0
+    for cclass in range(3):
+        m = cls == cclass
+        cc = counts_all[m]
+        dst[m] = dbase + np.cumsum(cc) - cc
+        sizes.append(int(cc.sum()))
+        dbase += sizes[-1]
+    ar_p, ac_p, av_p, ids_p = class_extract(
+        t_first_all, counts_all, dst, a_rows, a_cols, a_vals, order
+    )
+    nd_nnz, nr_nnz, nc_nnz = sizes
+    b_r = nd_nnz
+    b_c = b_r + nr_nnz
+    s_rows, s_cols, s_vals = ar_p[b_r:b_c], ac_p[b_r:b_c], av_p[b_r:b_c]
+    ids_res = ids_p[b_r:b_c]
+
+    # the chunk partition is still tile-sorted, so the per-tile ranges come
+    # straight from the classification
+    rmask = cls == 1
+    tiles = tiles_all[rmask]
+    counts = counts_all[rmask]
+    t_first = np.cumsum(counts) - counts
+    nchunks_tile = -(-counts // TILE)
+    gkey_tile = tiles // stripe_tiles  # (stripe * n_colpanels + col panel)
+
+    if len(tiles):
+        g_uniq, g_first = _uniq_sorted(gkey_tile, index=True)
+        chunks_per_group = np.add.reduceat(nchunks_tile, g_first)
+    else:
+        g_uniq = np.zeros(0, np.int64)
+        chunks_per_group = np.zeros(0, np.int64)
+    padded_per_group = -(-chunks_per_group // group) * group
+
+    # stripes without any chunk own one all-padding window at col panel 0
+    # (the JAX package's kernel flushes every stripe; kept for equal arrays)
+    missing = np.setdiff1d(np.arange(n_stripes, dtype=np.int64), g_uniq // n_colpanels)
+    if len(missing):
+        g_uniq = np.concatenate([g_uniq, missing * n_colpanels])
+        padded_per_group = np.concatenate(
+            [padded_per_group, np.full(len(missing), group, np.int64)]
+        )
+        o2 = np.argsort(g_uniq, kind="stable")
+        g_uniq, padded_per_group = g_uniq[o2], padded_per_group[o2]
+
+    group_base = np.concatenate([[0], np.cumsum(padded_per_group)])[:-1]
+    total_chunks = int(padded_per_group.sum()) if len(padded_per_group) else group
+    if not len(padded_per_group):  # fully empty matrix, single dummy window
+        g_uniq = np.zeros(1, np.int64)
+        padded_per_group = np.full(1, group, np.int64)
+        group_base = np.zeros(1, np.int64)
+    n_windows = total_chunks // group
+
+    coords = np.zeros((total_chunks, TILE), np.int32)
+    out_vals = np.zeros((total_chunks, TILE), np.float32)
+    chunk_rp = np.zeros(total_chunks, np.int32)
+
+    if len(tiles):
+        # tile -> global chunk base: group base + exclusive cumsum within group
+        cs = np.cumsum(nchunks_tile) - nchunks_tile
+        _, gf, ginv = _uniq_sorted(gkey_tile, index=True, inverse=True)
+        within = cs - cs[gf][ginv]
+        grp_of_tile = np.searchsorted(g_uniq, gkey_tile)
+        tile_chunk_base = group_base[grp_of_tile] + within
+
+        res_slots = chunk_fill(
+            t_first, counts, tile_chunk_base, s_rows, s_cols, s_vals,
+            TILE, coords.reshape(-1), out_vals.reshape(-1),
+        )
+
+        # row panel of every (non-padding) chunk
+        tot = int(nchunks_tile.sum())
+        expand = np.arange(tot) - np.repeat(cs, nchunks_tile)
+        all_chunk_idx = np.repeat(tile_chunk_base, nchunks_tile) + expand
+        chunk_rp[all_chunk_idx] = np.repeat(tiles % stripe_tiles, nchunks_tile).astype(
+            np.int32
+        )
+    else:
+        res_slots = np.zeros(0, np.int64)
+    nchunk_slots = total_chunks * TILE
+
+    # ---- dense store: blocks grouped DENSE_GROUP per window (same stripe
+    # and col panel; groups zero-padded)
+    d_tiles = tiles_all[tile_dense]
+    if len(d_tiles):
+        DG = DENSE_GROUP
+        gkey_d = d_tiles // stripe_tiles  # (stripe * n_colpanels + cp)
+        gd_uniq, gd_counts = _uniq_sorted(gkey_d, counts=True)
+        padded_d = -(-gd_counts // DG) * DG
+        miss_d = np.setdiff1d(
+            np.arange(n_stripes, dtype=np.int64), gd_uniq // n_colpanels
+        )
+        if len(miss_d):
+            gd_uniq = np.concatenate([gd_uniq, miss_d * n_colpanels])
+            padded_d = np.concatenate([padded_d, np.full(len(miss_d), DG, np.int64)])
+            od = np.argsort(gd_uniq, kind="stable")
+            gd_uniq, padded_d = gd_uniq[od], padded_d[od]
+        base_d = np.concatenate([[0], np.cumsum(padded_d)])[:-1]
+        ndblk = int(padded_d.sum())
+
+        # block position of each real dense tile: group base + rank within
+        # group (tiles are key-sorted, so rank = index - group's first index)
+        grp_of_tile_d = np.searchsorted(gd_uniq, gkey_d)
+        first_of_grp = np.searchsorted(gkey_d, gd_uniq)
+        within = np.arange(len(d_tiles)) - first_of_grp[grp_of_tile_d]
+        blk_pos = base_d[grp_of_tile_d] + within
+
+        dvals = np.zeros((ndblk, TILE, TILE), np.float32)
+        b_of_nnz = np.repeat(blk_pos, counts_all[tile_dense])
+        dlrow = (ar_p[:b_r] % TILE).astype(np.int64)
+        dlcol = (ac_p[:b_r] % TILE).astype(np.int64)
+        # (col, row) layout: out_panel += block' @ D_panel
+        dense_scatter(dvals, b_of_nnz, dlcol, dlrow, av_p[:b_r])
+
+        dblk_rp = np.zeros(ndblk, np.int32)
+        dblk_rp[blk_pos] = d_tiles % stripe_tiles
+        win_per_d = (padded_d // DG).astype(np.int64)
+        dblk_stripe = np.append(
+            np.repeat((gd_uniq // n_colpanels).astype(np.int32), win_per_d), -1
+        ).astype(np.int32)
+        dblk_panel = np.append(
+            np.repeat((gd_uniq % n_colpanels).astype(np.int32), win_per_d), 0
+        ).astype(np.int32)
+        dense_local = b_of_nnz * TILE * TILE + dlcol * TILE + dlrow
+    else:
+        ndblk = 0
+        dvals = dblk_stripe = dblk_panel = dblk_rp = None
+        dense_local = None
+
+    # ---- COO band (tiles <= coo_tail_nnz), sorted by this side's row
+    n_coo = nc_nnz
+    if n_coo:
+        c_rows = ar_p[b_c:]
+        c_cols = ac_p[b_c:]
+        oc = stable_argsort(c_rows.astype(np.int64) * n + c_cols)
+        coo_rows = c_rows[oc].astype(np.int32)
+        coo_cols = c_cols[oc].astype(np.int32)
+        coo_vals = av_p[b_c:][oc].astype(np.float32)
+        pos = np.empty(n_coo, np.int64)
+        pos[oc] = np.arange(n_coo)
+    else:
+        coo_rows = coo_cols = coo_vals = None
+        pos = None
+
+    # perm + per-region refresh maps straight from the class partition
+    nnz_total = len(akey)
+    idt = np.int32 if nnz_total < 2**31 - 1 else np.int64
+    cobase = nchunk_slots + ndblk * TILE * TILE
+    perm = np.empty(nnz_total, np.int64)
+    inv = np.full(nchunk_slots, nnz_total, idt)
+    if nr_nnz:
+        perm[ids_res] = res_slots
+        inv[res_slots] = ids_res.astype(idt, copy=False)
+    if ndblk and nd_nnz:
+        perm[ids_p[:b_r]] = nchunk_slots + dense_local
+    if ndblk:
+        dense_nnz = ids_p[:b_r].astype(idt, copy=False)
+        sdt = np.int32 if ndblk * TILE * TILE < 2**31 - 1 else np.int64
+        dense_slot = dense_local.astype(sdt)
+    else:
+        dense_nnz = dense_slot = None
+    if n_coo:
+        perm[ids_p[b_c:]] = cobase + pos
+        coo_ids = ids_p[b_c:][oc].astype(idt, copy=False)
+    else:
+        coo_ids = None
+
+    win_per_group = (padded_per_group // group).astype(np.int64)
+    win_stripe = np.repeat((g_uniq // n_colpanels).astype(np.int32), win_per_group)
+    win_panel = np.repeat((g_uniq % n_colpanels).astype(np.int32), win_per_group)
+    win_stripe = np.append(win_stripe, -1).astype(np.int32)
+    win_panel = np.append(win_panel, 0).astype(np.int32)
+
+    f = dict(
+        coords=coords, vals=out_vals, chunk_rp=chunk_rp, win_panel=win_panel,
+        win_stripe=win_stripe, perm=perm, n_stripes=n_stripes,
+        n_colpanels=n_colpanels, n_windows=n_windows, group=group,
+        panels_per_stripe=stripe_tiles, rows=p, cols=n, inv=inv, dvals=dvals,
+        dblk_panel=dblk_panel, dblk_stripe=dblk_stripe, dblk_rp=dblk_rp,
+        n_dblocks=ndblk, dense_nnz=dense_nnz, dense_slot=dense_slot,
+        coo_rows=coo_rows, coo_cols=coo_cols, coo_vals=coo_vals,
+        coo_nnz=coo_ids, n_coo=n_coo,
+    )
+    f.update(row_panel_index(f))
+    return f
+
+
+def to_tensor(a, device):
+    """A numpy array (or None) as a tensor on ``device``."""
+    if a is None:
+        return None
+    a = np.ascontiguousarray(a)
+    if not a.flags.writeable:  # torch refuses to alias read-only memory
+        a = a.copy()
+    return torch.from_numpy(a).to(device)
+
+
+def side_from_numpy(f, device) -> TiledSideC:
+    """``TiledSideC`` on ``device`` from a dict of numpy arrays and ints."""
+    return TiledSideC(**{
+        name: to_tensor(v, device) if isinstance(v, np.ndarray) else v
+        for name, v in f.items()
+    })
+
+
+def build_tiled(
+    rows, cols, vals, shape, *, stripe_tiles: int = 32, layout: str = "compact",
+    group: int = 16, order: str = "degree", dense_tile_nnz: int | None = None,
+    tail_span: int = 1, quad_tail_nnz: int | None = None, quad_seg: int = 32,
+    coo_tail_nnz: int | None = None, device=config.DEFAULT_DEVICE,
+) -> TiledCSR:
+    """Build both tiling orientations from COO data (deduped) on ``device``.
+
+    ``stripe_tiles`` row panels make one stripe and ``group`` chunks one
+    window: both only shape the stored arrays (they are what the JAX
+    package's ``build_tiled`` takes, and the stores compare equal).
+
+    ``order="degree"`` renumbers rows and columns by descending degree before
+    binning, so power-law data packs its head into dense tiles instead of
+    scattering tail nonzeros one per 128-slot chunk; the products gather and
+    scatter factor rows through the stored permutations.
+    ``order="natural"`` keeps original coordinates.
+
+    ``tail_span > 1`` (wide tail tiles) and ``quad_tail_nnz`` (the quad-tail
+    store) are not ported yet and raise ``NotImplementedError``.
+    """
+    if tail_span != 1:
+        raise NotImplementedError(
+            f"tail_span={tail_span!r} is not ported yet (wide tail tiles); "
+            "use tail_span=1"
+        )
+    if quad_tail_nnz is not None:
+        raise NotImplementedError(
+            f"quad_tail_nnz={quad_tail_nnz!r} is not ported yet (the "
+            "quad-tail store and its kernels); use quad_tail_nnz=None"
+        )
+    if layout != "compact":
+        raise ValueError(f"layout={layout!r} is not supported: use 'compact'")
+    dev = config.resolve_device(device)
+    p, n = shape
+    rows = np.asarray(rows, np.int32)
+    cols = np.asarray(cols, np.int32)
+    vals = np.asarray(vals, np.float32)
+    # == lexsort((cols, rows))
+    so = stable_argsort(rows.astype(np.int64) * n + cols)
+    rows, cols, vals = gather3(so, rows, cols, vals)
+
+    row_perm = row_rank = col_perm = col_rank = None
+    rows_t, cols_t = rows, cols
+    if order == "degree":
+        rdeg = np.bincount(rows, minlength=p)
+        cdeg = np.bincount(cols, minlength=n)
+        row_perm = np.argsort(-rdeg, kind="stable").astype(np.int32)
+        col_perm = np.argsort(-cdeg, kind="stable").astype(np.int32)
+        row_rank = np.empty(p, np.int32)
+        row_rank[row_perm] = np.arange(p, dtype=np.int32)
+        col_rank = np.empty(n, np.int32)
+        col_rank[col_perm] = np.arange(n, dtype=np.int32)
+        rows_t = row_rank[rows]
+        cols_t = col_rank[cols]
+
+    fwd = _build_side_compact(
+        rows_t, cols_t, vals, p, n, stripe_tiles, group, dense_tile_nnz,
+        coo_tail_nnz,
+    )
+    bwd = _build_side_compact(
+        cols_t, rows_t, vals, n, p, stripe_tiles, group, dense_tile_nnz,
+        coo_tail_nnz,
+    )
+    stats = np.asarray(
+        [
+            vals.sum(dtype=np.float64),
+            (vals.astype(np.float64) ** 2).sum(),
+            vals.min() if len(vals) else 0.0,
+        ],
+        np.float32,
+    )
+    dv = lambda a: to_tensor(a, dev)
+    return TiledCSR(
+        side_from_numpy(fwd, dev),
+        side_from_numpy(bwd, dev),
+        dv(rows),
+        dv(cols),
+        dv(vals),
+        dv(row_perm),
+        dv(row_rank),
+        dv(col_perm),
+        dv(col_rank),
+        (p, n),
+        (stripe_tiles, layout, group, dense_tile_nnz, quad_tail_nnz, quad_seg,
+         coo_tail_nnz),
+        stats=dv(stats),
+    )

@@ -1,0 +1,38 @@
+"""Small numeric utilities: plain functions on tensors."""
+
+from __future__ import annotations
+
+import torch
+
+__all__ = ["adddiag", "normalize1", "normalize1_cols", "projectnn", "safe_div"]
+
+
+def adddiag(A, a):
+    """Return ``A + a*I``."""
+    m, n = A.shape
+    if m != n:
+        raise ValueError("A must be square.")
+    return A + a * torch.eye(m, dtype=A.dtype, device=A.device)
+
+
+def normalize1(a):
+    """Scale ``a`` so its entries sum to one."""
+    return a / a.sum()
+
+
+def normalize1_cols(a):
+    """Scale each column of ``a`` to sum to one."""
+    return a / a.sum(dim=0, keepdim=True)
+
+
+def projectnn(A):
+    """Project all entries onto the non-negative orthant."""
+    return A.clamp_min(0)
+
+
+def safe_div(num, den):
+    """``num / den`` with 0 where ``den == 0`` (guards the 0/0 in the
+    convergence diagnostic)."""
+    pos = den > 0
+    return torch.where(pos, num / torch.where(pos, den, torch.ones_like(den)),
+                       torch.zeros_like(num))

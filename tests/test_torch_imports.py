@@ -1,0 +1,131 @@
+"""The PyTorch build stands alone: it imports neither ``jax`` nor the JAX
+package, and its entry points default to the card and refuse to run without
+one."""
+
+import pathlib
+import re
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import nmf_tpu_torch as nt
+from nmf_tpu_torch import config, convert
+from nmf_tpu_torch.ops.sparse_format import build_tiled
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+PORT_SOURCES = sorted(
+    p for p in (ROOT / "nmf_tpu_torch").rglob("*")
+    if p.suffix in (".py", ".cu", ".cuh") and "build" not in p.parts
+) + [ROOT / "chip_smoke.py"]
+
+MODULES = [
+    "nmf_tpu_torch",
+    "nmf_tpu_torch.config",
+    "nmf_tpu_torch.convert",
+    "nmf_tpu_torch.init.initialization",
+    "nmf_tpu_torch.io.loader",
+    "nmf_tpu_torch.models.common",
+    "nmf_tpu_torch.models.coorddesc",
+    "nmf_tpu_torch.models.interface",
+    "nmf_tpu_torch.ops.matops",
+    "nmf_tpu_torch.ops.objectives",
+    "nmf_tpu_torch.ops.sparse_format",
+    "nmf_tpu_torch.ops.cuda.build",
+    "nmf_tpu_torch.ops.cuda.sparse",
+    "nmf_tpu_torch.utils.dtypes",
+    "nmf_tpu_torch.utils.numeric",
+]
+
+
+def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    code = (
+        "import importlib, sys\n"
+        f"for m in {MODULES!r}:\n"
+        "    importlib.import_module(m)\n"
+        "bad = sorted(m for m in sys.modules\n"
+        "             if m.split('.')[0] in ('jax', 'jaxlib', 'nmf_tpu', 'triton'))\n"
+        "print('BAD', bad)\n"
+        "import torch\n"
+        "print('TF32', torch.backends.cuda.matmul.allow_tf32,\n"
+        "      torch.backends.cudnn.allow_tf32)\n"
+    )
+    out = subprocess.run(
+        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
+        timeout=300,
+    )
+    assert out.returncode == 0, out.stderr
+    assert "BAD []" in out.stdout, out.stdout
+    assert "TF32 False False" in out.stdout, out.stdout
+
+
+@pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
+def test_source_names_neither_jax_nor_the_jax_package_as_an_import(path):
+    text = path.read_text()
+    assert not re.search(r"^\s*(import|from)\s+jax\b", text, re.M)
+    assert not re.search(r"^\s*(import|from)\s+nmf_tpu(\.|\s)", text, re.M)
+    assert "nmf_tpu." not in text.replace("nmf_tpu_torch.", "")
+
+
+def test_every_source_of_the_port_is_checked():
+    names = {p.name for p in PORT_SOURCES}
+    assert {"chip_smoke.py", "chunk_matmul.cu", "dense_matmul.cu", "sparse.py",
+            "interface.py"} <= names
+
+
+def test_tf32_is_off():
+    assert torch.backends.cuda.matmul.allow_tf32 is False
+    assert torch.backends.cudnn.allow_tf32 is False
+
+
+def _entry_points():
+    rng = np.random.default_rng(0)
+    X = rng.random((12, 9)).astype(np.float32)
+    r, c = np.nonzero(X)
+    W, H = torch.rand(12, 3), torch.rand(3, 9)
+    Xt = build_tiled(r, c, X[r, c], X.shape, device="cpu")
+    return {
+        "nnmf": lambda **kw: nt.nnmf(X, 3, alg="cd", init="random", maxiter=1, **kw),
+        "solve": lambda **kw: nt.solve(nt.CoordinateDescent(maxiter=1), Xt, W, H, **kw),
+        "solve_replicates": lambda **kw: nt.solve_replicates(
+            nt.CoordinateDescent(maxiter=1), Xt, W, H, replicates=1, initH=True, **kw),
+        "randinit": lambda **kw: nt.randinit((12, 9), 3, **kw),
+        "build_tiled": lambda **kw: build_tiled(r, c, X[r, c], X.shape, **kw),
+        "factors_from_numpy": lambda **kw: convert.factors_from_numpy(
+            W.numpy(), H.numpy(), **kw),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(_entry_points()))
+def test_entry_point_defaults_to_the_card_and_raises_without_one(name):
+    call = _entry_points()[name]
+    call(device="cpu")  # runs on the CPU when asked to
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device runs")
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        call()
+    with pytest.raises(RuntimeError, match="no CUDA device is available"):
+        call(device="cuda")
+
+
+def test_resolve_device_and_check_on_device():
+    assert config.DEFAULT_DEVICE == "cuda"
+    assert config.resolve_device("cpu") == torch.device("cpu")
+    t = torch.zeros(2)
+    config.check_on_device(torch.device("cpu"), a=t, b=None)
+    with pytest.raises(ValueError, match="a lives on cpu"):
+        config.check_on_device(torch.device("cuda"), a=t)
+
+
+def test_chip_smoke_fails_without_a_card():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    out = subprocess.run(
+        [sys.executable, str(ROOT / "chip_smoke.py")], cwd=ROOT,
+        capture_output=True, text=True, timeout=300,
+    )
+    assert out.returncode != 0
+    assert '"ok"' not in out.stdout
+    assert "no CUDA device" in out.stderr

@@ -1,0 +1,195 @@
+"""The PyTorch build's tiled store against the JAX package's, array by
+array, from the same numpy input.  Integer arrays and values must be equal
+exactly: both packages run the same binning arithmetic."""
+
+import dataclasses
+
+import numpy as np
+import pytest
+import torch
+
+from nmf_tpu.ops import sparse_format as jsf
+from nmf_tpu_torch import convert
+from nmf_tpu_torch.ops import sparse_format as tsf
+
+from torch_parity import BUILD, coo_of, jax_tiled_to_dict, three_class_matrix
+
+# per-side arrays shared by both stores (chunk_rp / dblk_rp are byte-packed
+# on the JAX side and compared after unpacking)
+SIDE_ARRAYS = ("coords", "vals", "win_panel", "win_stripe", "perm", "inv",
+               "dvals", "dblk_panel", "dblk_stripe", "dense_nnz", "dense_slot",
+               "coo_rows", "coo_cols", "coo_vals", "coo_nnz")
+SIDE_INTS = ("n_stripes", "n_colpanels", "n_windows", "group",
+             "panels_per_stripe", "rows", "cols", "n_dblocks", "n_coo")
+TOP_ARRAYS = ("row_idx", "col_idx", "values", "row_perm", "row_rank",
+              "col_perm", "col_rank", "stats")
+
+
+def _both(order, seed=0):
+    Xd = three_class_matrix(seed)
+    r, c, v = coo_of(Xd)
+    Xj = jsf.build_tiled(r, c, v, Xd.shape, order=order, **BUILD)
+    Xt = tsf.build_tiled(r, c, v, Xd.shape, order=order, device="cpu", **BUILD)
+    return Xd, Xj, Xt
+
+
+def _unpack(words):
+    w = np.asarray(words).reshape(-1)
+    return ((w[:, None] >> (8 * np.arange(4))) & 0xFF).reshape(-1)
+
+
+def _assert_sides_equal(sj, st):
+    for name in SIDE_INTS:
+        assert getattr(sj, name) == getattr(st, name), name
+    for name in SIDE_ARRAYS:
+        a, b = getattr(sj, name), getattr(st, name)
+        assert a is not None and b is not None, name
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+    np.testing.assert_array_equal(_unpack(sj.chunk_rp), st.chunk_rp.numpy())
+    np.testing.assert_array_equal(_unpack(sj.dblk_rp), st.dblk_rp.numpy())
+
+
+@pytest.mark.parametrize("order", ["degree", "natural"])
+def test_build_tiled_equals_jax(order):
+    _, Xj, Xt = _both(order)
+    for side in (Xt.fwd, Xt.bwd):
+        # all three store classes carry entries on both sides
+        assert side.n_dblocks > 0 and side.n_coo > 0
+        assert side.panel_chunks.numel() > 0 and side.dpanel_blocks.numel() > 0
+    _assert_sides_equal(Xj.fwd, Xt.fwd)
+    _assert_sides_equal(Xj.bwd, Xt.bwd)
+    for name in TOP_ARRAYS:
+        a, b = getattr(Xj, name), getattr(Xt, name)
+        if order == "natural" and name.endswith(("perm", "rank")):
+            assert a is None and b is None
+            continue
+        np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
+    assert tuple(Xj.shape) == Xt.shape and Xj.build_opts == Xt.build_opts
+    assert Xt.nnz == Xj.nnz and Xt.dtype == torch.float32 and Xt.ndim == 2
+
+
+def test_row_panel_index_covers_every_entry_once():
+    Xd, _, Xt = _both("natural")
+    for side, M in ((Xt.fwd, Xd), (Xt.bwd, Xd.T)):
+        pps = side.panels_per_stripe
+        ptr = side.panel_ptr.numpy()
+        chunks = side.panel_chunks.numpy()
+        assert ptr[0] == 0 and ptr[-1] == len(chunks) == len(set(chunks))
+        stripe = np.repeat(side.win_stripe.numpy()[:-1], side.group)
+        panel = stripe * pps + side.chunk_rp.numpy()
+        nnz_chunks = 0
+        for r in range(len(ptr) - 1):
+            mine = chunks[ptr[r]:ptr[r + 1]]
+            assert (panel[mine] == r).all() and (np.diff(mine) > 0).all()
+            nnz_chunks += int((side.vals.numpy()[mine] != 0).sum())
+        # chunks left out of the index are all padding
+        left = np.setdiff1d(np.arange(side.coords.shape[0]), chunks)
+        assert not side.vals.numpy()[left].any()
+        dptr = side.dpanel_ptr.numpy()
+        blocks = side.dpanel_blocks.numpy()
+        assert dptr[-1] == len(blocks) == len(set(blocks))
+        dleft = np.setdiff1d(np.arange(side.n_dblocks), blocks)
+        assert not side.dvals.numpy()[dleft].any()
+        nnz_dense = int((side.dvals.numpy()[blocks] != 0).sum())
+        assert nnz_chunks + nnz_dense + side.n_coo == (M != 0).sum()
+
+
+def test_convert_gives_the_ports_own_store():
+    _, Xj, Xt = _both("degree", seed=1)
+    Xc = convert.tiled_from_numpy(jax_tiled_to_dict(Xj), device="cpu")
+    assert Xc.shape == Xt.shape and Xc.build_opts == Xt.build_opts
+    for name in TOP_ARRAYS:
+        assert torch.equal(getattr(Xc, name), getattr(Xt, name)), name
+    for sc, st in ((Xc.fwd, Xt.fwd), (Xc.bwd, Xt.bwd)):
+        for f in dataclasses.fields(st):
+            a, b = getattr(sc, f.name), getattr(st, f.name)
+            if isinstance(b, torch.Tensor):
+                assert a.dtype == b.dtype and torch.equal(a, b), f.name
+            else:
+                assert a == b, f.name
+    # the index is also derivable from the stored values alone (slim stores)
+    d = jax_tiled_to_dict(Xj.slim())
+    Xs = convert.tiled_from_numpy(d, device="cpu")
+    assert Xs.values is None and Xs.fwd.perm is None
+    for ss, st in ((Xs.fwd, Xt.fwd), (Xs.bwd, Xt.bwd)):
+        for name in ("panel_ptr", "panel_chunks", "dpanel_ptr", "dpanel_blocks"):
+            assert torch.equal(getattr(ss, name), getattr(st, name)), name
+
+
+def test_factors_from_numpy():
+    rng = np.random.default_rng(0)
+    W, H = rng.random((7, 3)), rng.random((3, 5), dtype=np.float32)
+    Wt, Ht = convert.factors_from_numpy(W, H, device="cpu")
+    assert Wt.dtype == torch.float64 and Ht.dtype == torch.float32
+    np.testing.assert_array_equal(Wt.numpy(), W)
+    np.testing.assert_array_equal(Ht.numpy(), H)
+
+
+def test_transpose_swaps_sides_and_perms():
+    _, Xj, Xt = _both("degree")
+    T = Xt.transpose()
+    assert T.shape == (Xt.shape[1], Xt.shape[0])
+    assert T.fwd is Xt.bwd and T.bwd is Xt.fwd
+    assert T.row_idx is Xt.col_idx and T.row_perm is Xt.col_perm
+    assert T.col_rank is Xt.row_rank
+    _assert_sides_equal(Xj.transpose().fwd, T.fwd)
+
+
+def test_with_values_round_trip_and_refresh():
+    Xd, Xj, Xt = _both("degree")
+    same = Xt.with_values(Xt.values)
+    for a, b in ((same.fwd, Xt.fwd), (same.bwd, Xt.bwd)):
+        assert torch.equal(a.vals, b.vals) and torch.equal(a.dvals, b.dvals)
+        assert torch.equal(a.coo_vals, b.coo_vals)
+    rng = np.random.default_rng(4)
+    new = rng.random(Xt.nnz).astype(np.float32)
+    Yt = Xt.with_values(torch.from_numpy(new))
+    import jax.numpy as jnp
+
+    Yj = Xj.with_values(jnp.asarray(new))
+    for sj, st in ((Yj.fwd, Yt.fwd), (Yj.bwd, Yt.bwd)):
+        for name in ("vals", "dvals", "coo_vals"):
+            np.testing.assert_array_equal(
+                np.asarray(getattr(sj, name)), getattr(st, name).numpy(), err_msg=name
+            )
+    # stats: sums taken in another order than jnp's
+    np.testing.assert_allclose(Yt.stats.numpy(), np.asarray(Yj.stats), rtol=1e-5)
+
+
+def test_slim_drops_refresh_maps_only():
+    _, _, Xt = _both("degree")
+    S = Xt.slim()
+    assert S.values is None and S.row_idx is None and S.col_idx is None
+    for a, b in ((S.fwd, Xt.fwd), (S.bwd, Xt.bwd)):
+        for name in ("perm", "inv", "dense_nnz", "dense_slot", "coo_nnz"):
+            assert getattr(a, name) is None
+        for name in ("coords", "vals", "dvals", "coo_vals", "panel_chunks",
+                     "dpanel_blocks"):
+            assert getattr(a, name) is getattr(b, name)
+    assert S.row_perm is Xt.row_perm and S.stats is Xt.stats
+    with pytest.raises(ValueError, match="slim"):
+        S.with_values(Xt.values)
+
+
+@pytest.mark.parametrize("kw, exc", [
+    (dict(tail_span=2), NotImplementedError),
+    (dict(tail_span=2, coo_tail_nnz=3), NotImplementedError),
+    (dict(quad_tail_nnz=8), NotImplementedError),
+    (dict(layout="grid"), ValueError),
+    (dict(coo_tail_nnz=0), ValueError),
+    (dict(dense_tile_nnz=10, coo_tail_nnz=10), ValueError),
+    (dict(group=12), ValueError),
+])
+def test_build_tiled_refuses(kw, exc):
+    r, c, v = coo_of(three_class_matrix())
+    with pytest.raises(exc):
+        tsf.build_tiled(r, c, v, (300, 260), device="cpu", **kw)
+
+
+def test_empty_matrix_builds():
+    z = np.zeros(0, np.int32)
+    Xt = tsf.build_tiled(z, z, np.zeros(0, np.float32), (200, 300), device="cpu")
+    Xj = jsf.build_tiled(z, z, np.zeros(0, np.float32), (200, 300))
+    assert Xt.fwd.n_windows == Xj.fwd.n_windows == 1
+    assert Xt.fwd.panel_chunks.numel() == 0 and Xt.fwd.n_dblocks == 0
+    np.testing.assert_array_equal(np.asarray(Xj.fwd.coords), Xt.fwd.coords.numpy())

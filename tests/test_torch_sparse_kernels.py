@@ -1,0 +1,232 @@
+"""Sparse-dense products of the PyTorch build on the CPU, where each kernel's
+wrapper runs the kernel's plain version: against the JAX package's Pallas
+products (interpret mode) and against the dense numpy product.
+
+Tolerance: ``rtol=2e-5`` with ``atol=1e-5 * max|want|`` — every side sums
+the same float32 terms, in another order."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from nmf_tpu.ops.pallas import sparse as jsp
+from nmf_tpu.ops.sparse_format import build_tiled as jax_build_tiled
+from nmf_tpu_torch.ops import matops
+from nmf_tpu_torch.ops.cuda import sparse as tsp
+from nmf_tpu_torch.ops.sparse_format import DENSE_GROUP, TILE, build_tiled
+
+from torch_parity import BUILD, DENSE_NNZ, coo_of, three_class_matrix
+
+
+def close(got, want):
+    want = np.asarray(want)
+    np.testing.assert_allclose(
+        np.asarray(got), want, rtol=2e-5, atol=1e-5 * np.abs(want).max()
+    )
+
+
+def empty_middle_stripes(seed=3):
+    """All nonzeros in the first and last row panels (the middle stripes are
+    empty) with power-law column skew."""
+    rng = np.random.default_rng(seed)
+    p, n, nnz = 1200, 700, 4000
+    rows = np.where(rng.random(nnz) < 0.5, rng.integers(0, 90, nnz),
+                    rng.integers(p - 40, p, nnz))
+    cols = np.minimum((rng.pareto(1.1, nnz) * 3).astype(np.int64), n - 1)
+    Xd = np.zeros((p, n), np.float32)
+    np.add.at(Xd, (rows, cols), rng.random(nnz).astype(np.float32))
+    return Xd
+
+
+CASES = {
+    # name: (matrix, build options)
+    "all_classes_degree": (three_class_matrix, dict(BUILD, order="degree")),
+    "all_classes_natural": (three_class_matrix, dict(BUILD, order="natural")),
+    "chunks_only": (three_class_matrix, dict(stripe_tiles=2, group=8)),
+    "dense_only": (three_class_matrix, dict(stripe_tiles=2, group=8, dense_tile_nnz=1)),
+    "band_and_dense": (three_class_matrix,
+                       dict(stripe_tiles=2, group=8, dense_tile_nnz=DENSE_NNZ,
+                            coo_tail_nnz=DENSE_NNZ - 1)),
+    "empty_middle_stripes": (empty_middle_stripes,
+                             dict(stripe_tiles=2, group=8, dense_tile_nnz=200,
+                                  coo_tail_nnz=2)),
+}
+
+
+def _case(name):
+    make, opts = CASES[name]
+    Xd = make()
+    r, c, v = coo_of(Xd)
+    return Xd, (r, c, v), opts
+
+
+@pytest.mark.parametrize("name", sorted(CASES))
+@pytest.mark.parametrize("k", [8, 9])
+def test_mm_mtm_match_jax_and_dense(name, k):
+    Xd, (r, c, v), opts = _case(name)
+    Xt = build_tiled(r, c, v, Xd.shape, device="cpu", **opts)
+    Xj = jax_build_tiled(r, c, v, Xd.shape, **opts)
+    rng = np.random.default_rng(7)
+    D = rng.random((Xd.shape[1], k)).astype(np.float32)
+    D2 = rng.random((Xd.shape[0], k)).astype(np.float32)
+
+    got = tsp.tiled_mm(Xt, torch.from_numpy(D))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (Xd.shape[0], k)
+    close(got, Xd @ D)
+    close(got, jsp.tiled_mm(Xj, jnp.asarray(D), precision="highest"))
+    got2 = tsp.tiled_mtm(Xt, torch.from_numpy(D2))
+    close(got2, Xd.T @ D2)
+    close(got2, jsp.tiled_mtm(Xj, jnp.asarray(D2), precision="highest"))
+
+
+def test_store_classes_of_the_cases():
+    """The cases exercise what their names say."""
+    def classes(name):
+        Xd, (r, c, v), opts = _case(name)
+        s = build_tiled(r, c, v, Xd.shape, device="cpu", **opts).fwd
+        return (s.panel_chunks.numel() > 0, s.n_dblocks > 0, s.n_coo > 0)
+
+    assert classes("all_classes_degree") == (True, True, True)
+    assert classes("chunks_only") == (True, False, False)
+    assert classes("dense_only") == (False, True, False)
+    assert classes("band_and_dense") == (False, True, True)
+    assert classes("empty_middle_stripes")[0]
+
+
+def test_matops_seam_on_tiled_and_dense():
+    Xd, (r, c, v), opts = _case("all_classes_degree")
+    Xt = build_tiled(r, c, v, Xd.shape, device="cpu", **opts)
+    rng = np.random.default_rng(8)
+    D = rng.random((Xd.shape[1], 8)).astype(np.float32)
+    Wt = rng.random((8, Xd.shape[0])).astype(np.float32)
+    assert matops.is_tiled(Xt) and matops.is_sparse(Xt)
+    assert not matops.is_sparse(torch.from_numpy(Xd))
+    close(matops.mm(Xt, torch.from_numpy(D)), Xd @ D)
+    close(matops.mtm(torch.from_numpy(Wt), Xt), Wt @ Xd)
+    close(matops.mm(matops.transpose(Xt), torch.from_numpy(Wt.T.copy())), Xd.T @ Wt.T)
+    # a float64 operand comes back float64 (the product itself is float32)
+    assert matops.mm(Xt, torch.from_numpy(D).double()).dtype == torch.float64
+    Xdt = torch.from_numpy(Xd)
+    close(matops.mm(Xdt, torch.from_numpy(D)), Xd @ D)
+    close(matops.mtm(torch.from_numpy(Wt), Xdt), Wt @ Xd)
+    assert torch.equal(matops.transpose(Xdt), Xdt.T)
+
+
+def test_matops_reductions_and_access():
+    Xd, (r, c, v), opts = _case("all_classes_degree")
+    Xt = build_tiled(r, c, v, Xd.shape, device="cpu", **opts)
+    Xdt = torch.from_numpy(Xd)
+    for X in (Xt, Xdt):
+        np.testing.assert_allclose(float(matops.sq_norm(X)), (Xd.astype(np.float64) ** 2).sum(), rtol=1e-5)
+        np.testing.assert_allclose(float(matops.total_sum(X)), Xd.sum(dtype=np.float64), rtol=1e-5)
+        np.testing.assert_allclose(float(matops.mean(X)), Xd.mean(dtype=np.float64), rtol=1e-5)
+        assert bool(matops.all_nonneg(X))
+        close(matops.colsums(X), Xd.sum(0))
+        close(matops.rowsums(X), Xd.sum(1))
+    np.testing.assert_array_equal(matops.nnz_values(Xt).numpy(), v)
+    np.testing.assert_array_equal(matops.col_indices(Xt).numpy(), c)
+    rng = np.random.default_rng(9)
+    W = rng.random((Xd.shape[0], 5)).astype(np.float32)
+    H = rng.random((5, Xd.shape[1])).astype(np.float32)
+    close(matops.sddmm(torch.from_numpy(W), torch.from_numpy(H), Xt), (W @ H)[r, c])
+    Y = matops.scale_values(Xt, torch.from_numpy(2 * v))
+    close(matops.mm(Y, torch.from_numpy(H.T.copy())), 2 * Xd @ H.T)
+    neg = build_tiled(r, c, -v, Xd.shape, device="cpu", **opts)
+    assert not bool(matops.all_nonneg(neg))
+    S = Xt.slim()
+    close(matops.mm(S, torch.from_numpy(H.T.copy())), Xd @ H.T)
+    assert float(matops.sq_norm(S)) == float(matops.sq_norm(Xt))
+    for fn in (matops.nnz_values, matops.col_indices, matops.colsums, matops.rowsums):
+        with pytest.raises(ValueError, match="slim"):
+            fn(S)
+    with pytest.raises(ValueError, match="slim"):
+        matops.sddmm(torch.from_numpy(W), torch.from_numpy(H), S)
+
+
+# ---------------------------------------------------------------------------
+# each plain version alone, against a loop over its store arrays
+
+
+def _numpy_chunk_loop(side, D):
+    pps = side.panels_per_stripe
+    out = np.zeros((side.n_stripes * pps * TILE, D.shape[1]), np.float64)
+    coords, vals = side.coords.numpy(), side.vals.numpy()
+    for ch in range(coords.shape[0]):
+        w = ch // side.group
+        r0 = (int(side.win_stripe[w]) * pps + int(side.chunk_rp[ch])) * TILE
+        c0 = int(side.win_panel[w]) * TILE
+        for s in np.flatnonzero(vals[ch]):
+            co = coords[ch, s]
+            out[r0 + (co & 127)] += vals[ch, s] * D[c0 + (co >> 7)]
+    return out[: side.rows]
+
+
+def _numpy_dense_loop(side, D):
+    pps = side.panels_per_stripe
+    out = np.zeros((side.n_stripes * pps * TILE, D.shape[1]), np.float64)
+    Dp = np.zeros((side.n_colpanels * TILE, D.shape[1]))
+    Dp[: side.cols] = D
+    for b in range(side.n_dblocks):
+        w = b // DENSE_GROUP
+        r0 = (int(side.dblk_stripe[w]) * pps + int(side.dblk_rp[b])) * TILE
+        c0 = int(side.dblk_panel[w]) * TILE
+        out[r0 : r0 + TILE] += side.dvals[b].numpy().T.astype(np.float64) @ Dp[c0 : c0 + TILE]
+    return out[: side.rows]
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_plain_versions_against_store_loops(which):
+    Xd, (r, c, v), opts = _case("all_classes_natural")
+    Xt = build_tiled(r, c, v, Xd.shape, device="cpu", **opts)
+    side = getattr(Xt, which)
+    M = Xd if which == "fwd" else Xd.T
+    D = np.random.default_rng(2).random((side.cols, 9)).astype(np.float32)
+    Dt = torch.from_numpy(D)
+    chunk = tsp.chunk_matmul_plain(side, Dt)
+    dense = tsp.dense_matmul_plain(side, Dt)
+    close(chunk, _numpy_chunk_loop(side, D))
+    close(dense, _numpy_dense_loop(side, D))
+    band = tsp.coo_matmul(side, Dt, torch.zeros(side.rows, 9))
+    want_band = np.zeros((side.rows, 9))
+    np.add.at(want_band, side.coo_rows.numpy(),
+              side.coo_vals.numpy()[:, None] * D[side.coo_cols.numpy()])
+    close(band, want_band)
+    # the three classes partition the matrix
+    close(chunk + dense + band, M @ D)
+    # the wrappers take the plain versions on the CPU and count no launch
+    before = tsp.launch_counts()
+    assert torch.equal(tsp.chunk_matmul(side, Dt), chunk)
+    assert torch.equal(tsp.dense_matmul(side, Dt), dense)
+    acc = torch.ones(side.rows, 9)
+    assert tsp.dense_matmul(side, Dt, acc) is acc
+    close(acc, dense.numpy() + 1)
+    assert tsp.launch_counts() == before == {"chunk_matmul": 0, "dense_matmul": 0}
+
+
+def test_products_stream_in_pieces(monkeypatch):
+    """The plain versions and the COO band give the same sums when the store
+    is walked in many small pieces."""
+    Xd, (r, c, v), opts = _case("all_classes_degree")
+    Xt = build_tiled(r, c, v, Xd.shape, device="cpu", **opts)
+    D = torch.from_numpy(np.random.default_rng(5).random((Xd.shape[1], 8)).astype(np.float32))
+    whole = tsp.tiled_mm(Xt, D)
+    monkeypatch.setattr(tsp, "_PIECE", 4)  # one chunk / block, 4 band entries
+    assert Xt.fwd.n_coo > 4 and Xt.fwd.coords.shape[0] > 2
+    close(tsp.tiled_mm(Xt, D), whole)
+
+
+@pytest.mark.parametrize("bad, exc", [
+    (lambda s: torch.zeros(s.cols, 8, dtype=torch.float64), TypeError),
+    (lambda s: torch.zeros(s.cols + 1, 8), ValueError),
+    (lambda s: torch.zeros(8, s.cols).T, ValueError),
+    (lambda s: torch.zeros(s.cols), ValueError),
+])
+def test_wrappers_check_their_operand(bad, exc):
+    Xd, (r, c, v), opts = _case("all_classes_natural")
+    side = build_tiled(r, c, v, Xd.shape, device="cpu", **opts).fwd
+    for fn in (tsp.chunk_matmul, tsp.dense_matmul):
+        with pytest.raises(exc):
+            fn(side, bad(side))
+    with pytest.raises(ValueError, match="out must be"):
+        tsp.dense_matmul(side, torch.zeros(side.cols, 8), torch.zeros(3, 8))
