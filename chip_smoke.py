@@ -1,11 +1,17 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA build: ``python3 chip_smoke.py``.
 
-Needs one NVIDIA Hopper card, ``nvcc`` and no network.  It builds the CUDA
-kernels from ``nmf_tpu_torch/csrc/``, holds each kernel against its plain
-PyTorch version on the card, and drives the main path — sparse Fast-HALS on
-the 163,000 x 59,000 power-law problem (about 17.6M nonzeros, rank 128) —
-through ``nnmf`` and the resumable solver loop down to relative error 0.84.
+Needs one NVIDIA Hopper card, ``nvcc`` and no network.  It builds the seven
+CUDA kernels from ``nmf_tpu_torch/csrc/``, holds each kernel against its plain
+PyTorch version on the card, and drives the ported paths through ``nnmf`` and
+the resumable solver loop:
+
+* sparse Fast-HALS on the 163,000 x 59,000 power-law problem (about 17.6M
+  nonzeros, rank 128) down to relative error 0.84;
+* multiplicative updates (KL divergence and MSE) on the same tiled store;
+* multiplicative updates on a dense 100,000 x 10,000 low-rank problem at rank
+  64, and on the two small dense problems (500 x 500 rank 8 to relative
+  error 0.010, 2000 x 1000 rank 32 to 0.020).
 
 Every phase prints one JSON line; any failure ends the run with a non-zero
 exit code.  There is no CPU path: without a card the script fails at once.
@@ -26,11 +32,20 @@ import torch
 
 # H100 SXM data-sheet peaks used for the bounds
 MEM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12  # CUDA cores; both kernels are exact fp32
+FP32_FLOPS = 67e12  # CUDA cores; every kernel is exact fp32
 
-REL_TOL = 2e-5  # kernel vs plain version: f32 sums taken in another order
+# kernel vs plain version: f32 sums taken in another order.  The longest run
+# of float32 additions in one thread is about 10,000 terms (qht walks all of
+# n; wtq's walk over p is cut into runs), whose rounding error grows like
+# sqrt(terms) * 6e-8 = 6e-6 against the float64 reference
+REL_TOL = 2e-5
+# the objective adds float32 terms into doubles: what is left is the float32
+# rounding of each W @ H entry, which averages out over 1e9 terms
+OBJECTIVE_TOL = 2e-6
+MONOTONE_TOL = 1e-4  # an objective may rise by this much, relative, per step
 TARGET_RELERR = 0.84
 P, N, K = 163_000, 59_000, 128
+DP, DN, DK = 100_000, 10_000, 64  # the dense multiplicative-update problem
 
 
 def say(phase, **kw):
@@ -53,6 +68,38 @@ def _movielens_like(rng, p=P, n=N, nnz=25_000_000):
     rows, cols = (key // n).astype(np.int32), (key % n).astype(np.int32)
     vals = (rng.random(len(key)) * 4 + 1).astype(np.float32)
     return rows, cols, vals
+
+
+def _lowrank_noisy(rng, p, n, k, noise=0.01):
+    """Rank-k nonnegative signal + uniform noise (host version, for the small
+    problems)."""
+    Wg = rng.random((p, k), dtype=np.float32)
+    Hg = rng.random((k, n), dtype=np.float32)
+    return Wg @ Hg + noise * rng.random((p, n), dtype=np.float32)
+
+
+def _lowrank_noisy_on_card(rng, p, n, k, noise=0.01):
+    """The same kind of problem at a size the host should not hold twice: the
+    factors come from the numpy generator, the product and the noise are made
+    on the card (noise from a seeded CUDA generator)."""
+    Wg = torch.from_numpy(rng.random((p, k), dtype=np.float32)).cuda()
+    Hg = torch.from_numpy(rng.random((k, n), dtype=np.float32)).cuda()
+    X = Wg @ Hg
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    step = 10_000  # rows of noise made at once
+    for i0 in range(0, p, step):
+        X[i0 : i0 + step] += noise * torch.rand(
+            (min(step, p - i0), n), generator=gen, device="cuda")
+    return X
+
+
+def bound_of(nbytes, flops):
+    """Least milliseconds the card could take for this work, and what bounds
+    it: every input read once and the output written once at the memory rate,
+    against the flops at the fp32 CUDA-core peak."""
+    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
+    t_ops = flops / FP32_FLOPS * 1e3
+    return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
 # ---------------------------------------------------------------------------
@@ -143,10 +190,7 @@ def _bound(side, cls, k, nnz):
         nbytes = (n_items * (TILE * TILE * 4 + 4) + 4 * side.dpanel_ptr.numel()
                   + 4 * side.dblk_panel.numel() + d_and_out + 4 * k * side.rows)
         flops = 2 * TILE * TILE * k * n_items
-    t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
-    by = "bytes" if t_bytes >= t_ops else "operations"
-    return max(t_bytes, t_ops), by, nbytes, flops, n_items
+    return (*bound_of(nbytes, flops), nbytes, flops, n_items)
 
 
 def check_kernels(X, k, label, timed):
@@ -173,6 +217,7 @@ def check_kernels(X, k, label, timed):
             if not (tuple(got.shape) == (side.rows, k) and math.isfinite(err)
                     and scale > 0 and err <= REL_TOL * scale):
                 fail(f"{label} {name} {sname}: error {err} against scale {scale}")
+            r["same_bits"] = _same_bits(f"{label} {name} {sname}", lambda: kern(side, D))
             if timed:
                 A, nnz = _class_csr(side, cls)
                 lib = torch.sparse.mm(A, D)
@@ -191,6 +236,191 @@ def check_kernels(X, k, label, timed):
                 del A, lib
             rec[name][sname] = r
             del got, want
+    return rec
+
+
+def _rel_err(got, want):
+    """``max|got - want|`` and ``max|want|``, both as floats."""
+    want = want.to(torch.float64)
+    return float((got.to(torch.float64) - want).abs().max()), float(want.abs().max())
+
+
+def _held(label, got, want, tol, shape=None):
+    """Record of one kernel held against its plain version; exits when the
+    result has the wrong shape, is not finite or differs by more than
+    ``tol * max|want|``."""
+    err, scale = _rel_err(got, want)
+    if shape is not None and tuple(got.shape) != tuple(shape):
+        fail(f"{label}: shape {tuple(got.shape)}, expected {tuple(shape)}")
+    if not (math.isfinite(err) and scale > 0 and err <= tol * scale):
+        fail(f"{label}: error {err} against scale {scale}, limit {tol}")
+    return {"max_abs_err": err, "rel_err": err / scale, "scale": scale,
+            "tolerance": tol}
+
+
+def _same_bits(label, fn):
+    a, b = fn(), fn()
+    torch.cuda.synchronize()
+    if not torch.equal(a, b):
+        fail(f"{label}: two runs gave different bits")
+    return True
+
+
+def check_sddmm(X, W, H, label, timed):
+    """Kernel 4 on the forward side against its plain version in float64, and
+    the whole sampled product against gather-gather-reduce in float64."""
+    from nmf_tpu_torch.models import common
+    from nmf_tpu_torch.ops.cuda import sparse as S
+    from nmf_tpu_torch.ops.sparse_format import TILE
+
+    Xr, w, h, _ = common.renumbered_problem(X, W, H) if X.row_perm is not None \
+        else (X, W, H, None)
+    side = Xr.fwd
+    k = w.shape[1]
+    w32, ht = w.contiguous(), h.T.contiguous()
+    got = S.chunk_sddmm(side, w32, ht)
+    torch.cuda.synchronize()
+    want = S.chunk_sddmm_plain(side, w32.double(), ht.double())
+    r = _held(f"{label} chunk_sddmm", got, want, REL_TOL, (side.coords.shape[0] * TILE,))
+    r["same_bits"] = _same_bits(f"{label} chunk_sddmm", lambda: S.chunk_sddmm(side, w32, ht))
+    del got, want
+
+    # the whole product, in the caller's coordinates, permutations included
+    whole = S.tiled_sddmm(X, W, H)
+    Wd, Htd = W.double(), H.double().T.contiguous()
+    err = scale = 0.0
+    step = 1 << 19
+    for e0 in range(0, X.nnz, step):
+        sl = slice(e0, e0 + step)
+        ref = (Wd[X.row_idx[sl].long()] * Htd[X.col_idx[sl].long()]).sum(dim=1)
+        e, sc = _rel_err(whole[sl], ref)
+        err, scale = max(err, e), max(scale, sc)
+    if not (tuple(whole.shape) == (X.nnz,) and math.isfinite(err)
+            and err <= REL_TOL * scale):
+        fail(f"{label} tiled_sddmm: error {err} against scale {scale}")
+    r["tiled_sddmm_rel_err"] = err / scale
+    del whole, Wd, Htd
+
+    if timed:
+        A, nnz = _class_csr(side, "chunk")
+        h32 = h.contiguous()
+        lib = torch.sparse.sampled_addmm(A, w32, h32, beta=0.0)
+        rows = torch.repeat_interleave(
+            torch.arange(side.rows, device="cuda"), A.crow_indices().diff())
+        ref = (w32.double()[rows] * ht.double()[A.col_indices()]).sum(dim=1)
+        lerr, lscale = _rel_err(lib.values(), ref)
+        if not lerr <= 1e-4 * lscale:
+            fail(f"{label} chunk_sddmm: yardstick disagrees ({lerr})")
+        del rows, ref, lib
+        n_slots = side.coords.numel()
+        # the function's own traffic: coords in, one float a slot out, the
+        # windows' metadata and both factors
+        nbytes = (2 * 4 * n_slots
+                  + 4 * (side.chunk_rp.numel() + side.win_panel.numel()
+                         + side.win_stripe.numel())
+                  + 4 * k * (side.rows + side.cols))
+        flops = 2 * nnz * k
+        bound_ms, by = bound_of(nbytes, flops)
+        r.update(
+            ms=time_ms(lambda: S.chunk_sddmm(side, w32, ht)),
+            plain_ms=time_ms(lambda: S.chunk_sddmm_plain(side, w32, ht), reps=3),
+            library_ms=time_ms(
+                lambda: torch.sparse.sampled_addmm(A, w32, h32, beta=0.0), reps=3),
+            tiled_sddmm_ms=time_ms(lambda: S.tiled_sddmm(X, W, H), reps=3),
+            bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=flops, nnz=nnz,
+            slots=n_slots,
+            # read by this kernel on top of the floor: the refresh map, which
+            # marks the padding slots
+            extra_bytes=4 * n_slots,
+        )
+        r["mnnz_per_s"] = nnz / r["ms"] / 1e3
+    return r
+
+
+def check_dense_kernels(X, W, H, label, timed):
+    """Kernels 6 (both kinds), 7 (both orientations), 8 and 9 against their
+    plain versions run in float64 on the card."""
+    from nmf_tpu_torch.ops.cuda import mu as M
+    from nmf_tpu_torch.ops.cuda import objectives as O
+    from nmf_tpu_torch.utils.dtypes import sqrt_eps
+
+    p, n = X.shape
+    k = W.shape[1]
+    delta = sqrt_eps(torch.float32)
+    lam = 0.01
+    Xd, Wd, Hd = X.double(), W.double(), H.double()
+    rec = {}
+
+    # 8, 9: the quotient products
+    for name, fn, plain, shape in (("wtq", M.wtq, M.wtq_plain, (k, n)),
+                                   ("qht", M.qht, M.qht_plain, (p, k))):
+        got = fn(X, W, H, delta)
+        torch.cuda.synchronize()
+        r = _held(f"{label} {name}", got, plain(Xd, Wd, Hd, delta), REL_TOL, shape)
+        r["same_bits"] = _same_bits(f"{label} {name}", lambda: fn(X, W, H, delta))
+        if timed:
+            bound_ms, by = bound_of(4 * (p * n + p * k + k * n + shape[0] * shape[1]),
+                                    4 * p * n * k + 2 * p * n)
+            r.update(ms=time_ms(lambda: fn(X, W, H, delta)),
+                     plain_ms=time_ms(lambda: plain(X, W, H, delta), reps=3),
+                     bound_ms=bound_ms, bound_by=by)
+            r["library_ms"] = r["plain_ms"]  # the one expression is the plain version
+            # the walk cut into other numbers of runs than the wrapper's rule
+            # picks (the evidence for that rule's blocks-a-multiprocessor)
+            rule = M.walk_splits
+            r["runs"] = rule(shape[1] if name == "wtq" else shape[0],
+                             p if name == "wtq" else n, k, X.device)
+            r["ms_by_runs"] = {}
+            try:
+                for runs in (1, 2, 4, 7, 14, 28, 56):
+                    M.walk_splits = lambda *a, runs=runs: runs
+                    r["ms_by_runs"][runs] = time_ms(lambda: fn(X, W, H, delta), reps=3)
+            finally:
+                M.walk_splits = rule
+        rec[name] = r
+        del got
+
+    # 6: the objectives
+    rec["dense_objective"] = {}
+    for kind, fn in (("mse", O.mse_objective_kernel), ("kl", O.kl_objective_kernel)):
+        got = fn(X, W, H)
+        torch.cuda.synchronize()
+        want = O.dense_objective_plain(Xd, Wd, Hd, kind)
+        r = _held(f"{label} objective {kind}", got.reshape(1), want.reshape(1), OBJECTIVE_TOL)
+        r["value"] = float(got)
+        r["same_bits"] = _same_bits(f"{label} objective {kind}", lambda: fn(X, W, H))
+        if timed:
+            logs = p * n if kind == "kl" else 0
+            bound_ms, by = bound_of(4 * (p * n + p * k + k * n),
+                                    2 * p * n * k + 4 * p * n + logs)
+            r.update(ms=time_ms(lambda: fn(X, W, H)),
+                     plain_ms=time_ms(lambda: O.dense_objective_plain(X, W, H, kind), reps=3),
+                     bound_ms=bound_ms, bound_by=by)
+            r["library_ms"] = r["plain_ms"]  # column blocks of W @ H, one reduction each
+        rec["dense_objective"][kind] = r
+    del Xd
+
+    # 7: the factor update, as the H step and as the W step call it
+    rec["mu_factor_update"] = {}
+    G_h, C_h = W.T @ W, W.T @ X
+    G_w, C_w = H @ H.T, X @ H.T
+    for side, F, G, C in (("H", H, G_h, C_h), ("W", W.T, G_w, C_w.T)):
+        got = M.mu_factor_update(F, G, C, lam, delta)
+        torch.cuda.synchronize()
+        want = M.mu_factor_update_plain(F.double(), G.double(), C.double(), lam, delta)
+        r = _held(f"{label} mu_factor_update {side}", got, want, REL_TOL, F.shape)
+        if got.stride() != F.stride():
+            fail(f"{label} mu_factor_update {side}: result layout differs from F's")
+        r["same_bits"] = _same_bits(f"{label} mu_factor_update {side}",
+                                    lambda: M.mu_factor_update(F, G, C, lam, delta))
+        if timed:
+            m = F.shape[1]
+            bound_ms, by = bound_of(4 * (3 * k * m + k * k), 2 * k * k * m + 4 * k * m)
+            r.update(ms=time_ms(lambda: M.mu_factor_update(F, G, C, lam, delta)),
+                     plain_ms=time_ms(lambda: M.mu_factor_update_plain(F, G, C, lam, delta)),
+                     bound_ms=bound_ms, bound_by=by)
+            r["library_ms"] = r["plain_ms"]  # the plain expression
+        rec["mu_factor_update"][side] = r
     return rec
 
 
@@ -339,13 +569,215 @@ def time_iteration_parts(X, W0, H0):
     return parts
 
 
+def _monotone(label, start, history):
+    """Exit when an objective of the traced run is not finite or rises by
+    more than ``MONOTONE_TOL``, relative, from one iteration to the next."""
+    if not all(math.isfinite(o) for o in history):
+        fail(f"{label}: non-finite objective in {history}")
+    for prev, cur in zip([start] + history[:-1], history):
+        if cur > prev + MONOTONE_TOL * abs(prev):
+            fail(f"{label}: objective rose {prev} -> {cur}")
+
+
+def _traced_mu(label, X, k, alg, W0, H0, iters, xsq):
+    """``iters`` traced iterations of one multiplicative-update solver through
+    the front door, with the launch counts of just this run."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.cuda import build
+    from nmf_tpu_torch.ops.objectives import kl_objective, mse_objective
+
+    objective = kl_objective if alg == "multdiv" else mse_objective
+    Wt, Ht = (torch.as_tensor(a).cuda() for a in (W0, H0))
+    start = float(objective(X, Wt, Ht))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    t0 = time.perf_counter()
+    res = nt.nnmf(X, k, alg=alg, init="custom", W0=W0, H0=H0, tol=1e-30,
+                  maxiter=iters, trace=True)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    launches = build.launch_counts()
+    hist = res.trace.objvalue.tolist()
+    if not (res.niters == iters and tuple(res.W.shape) == tuple(W0.shape)
+            and tuple(res.H.shape) == tuple(H0.shape)
+            and bool(torch.isfinite(res.W).all()) and bool(torch.isfinite(res.H).all())
+            and bool((res.W >= 0).all()) and bool((res.H >= 0).all())):
+        fail(f"{label}: nnmf returned a bad result: {res}")
+    _monotone(label, start, hist)
+    if not abs(hist[-1] - res.objvalue) <= 1e-5 * abs(res.objvalue):
+        fail(f"{label}: last traced objective differs from objvalue")
+    relerr = math.sqrt(max(2.0 * float(mse_objective(X, res.W, res.H)), 0.0) / xsq)
+    return {
+        "iterations": iters, "seconds": seconds,
+        "seconds_per_traced_iteration": seconds / iters,
+        "start_objective": start, "objective_history": hist,
+        "relerr_reached": relerr, "launches": launches,
+        "peak_device_memory_bytes": torch.cuda.max_memory_allocated(),
+    }
+
+
+def _need_launches(label, launches, names):
+    missing = [n for n in names if launches[n] <= 0]
+    if missing:
+        fail(f"{label}: kernels of this path never launched: {missing} in {launches}")
+
+
+def _seconds_per_iteration(X, upd, W0, H0, iters):
+    """Seconds per iteration of the bare resumable loop (no objective reads)."""
+    from nmf_tpu_torch.models import common
+
+    W, H = (torch.as_tensor(a).cuda() for a in (W0, H0))
+    if common._renumber_ok(upd, X):
+        X, W, H, _ = common.renumbered_problem(X, W, H)
+    state = common._prepare(upd, X, W, H)
+    common._solve_while_from(upd, state, X, W, H, 0, 1, 1e-30, with_objective=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    common._solve_while_from(upd, state, X, W, H, 0, iters, 1e-30, with_objective=False)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / iters
+
+
+def solve_mu_sparse(X, W0, H0, iters=20):
+    """Sparse multiplicative updates on the full store, both objectives."""
+    from nmf_tpu_torch.models.multupd import MultUpdate
+
+    xsq = float(X.stats[1])
+    out = {}
+    for alg, obj, names in (
+        ("multdiv", "div", ("chunk_matmul", "dense_matmul", "chunk_sddmm")),
+        ("multmse", "mse", ("chunk_matmul", "dense_matmul")),
+    ):
+        r = _traced_mu(f"solve_mu_sparse {alg}", X, K, alg, W0, H0, iters, xsq)
+        _need_launches(f"solve_mu_sparse {alg}", r["launches"], names)
+        r["seconds_per_iteration"] = _seconds_per_iteration(
+            X, MultUpdate(obj=obj), W0, H0, 10)
+        out[alg] = r
+    return out
+
+
+def time_to_target(label, X, upd, W0, H0, target, chunk, max_iters=5000):
+    """Iterations and seconds of the resumable loop, in chunks of ``chunk``
+    iterations with one relative-error read a chunk, until
+    ``||X - W H|| / ||X|| <= target``; exits when the target is not reached."""
+    from nmf_tpu_torch.models import common
+    from nmf_tpu_torch.ops import matops
+
+    W, H = (torch.as_tensor(a).cuda() for a in (W0, H0))
+    xsq = float(matops.sq_norm(X))
+    state = common._prepare(upd, X, W, H)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iters = 0
+    _, r = relerr_of(X, W, H, xsq)
+    while not r <= target and iters < max_iters:
+        W, H, state, t, _, _ = common._solve_while_from(
+            upd, state, X, W, H, 0, chunk, 1e-30, with_objective=False)
+        iters += t
+        _, r = relerr_of(X, W, H, xsq)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    if not r <= target:
+        fail(f"{label}: relative error {r} after {iters} iterations, target {target}")
+    return {"target": target, "iterations": iters, "seconds": seconds, "relerr": r}
+
+
+def solve_mu_dense(X, W0, H0, iters=10):
+    """Dense multiplicative updates at full width, both objectives, and the
+    two small problems to their targets."""
+    from nmf_tpu_torch.models.multupd import MultUpdate
+    from nmf_tpu_torch.ops.cuda import build
+
+    xsq = float((X * X).sum(dtype=torch.float64))
+    out = {}
+    for alg, obj, names in (
+        ("multdiv", "div", ("wtq", "qht", "dense_objective")),
+        ("multmse", "mse", ("mu_factor_update", "dense_objective")),
+    ):
+        r = _traced_mu(f"solve_mu_dense {alg}", X, DK, alg, W0, H0, iters, xsq)
+        _need_launches(f"solve_mu_dense {alg}", r["launches"], names)
+        r["seconds_per_iteration"] = _seconds_per_iteration(
+            X, MultUpdate(obj=obj), W0, H0, 5)
+        out[alg] = r
+
+    for name, (p, n, k), obj, target, chunk, names in (
+        ("ttt1", (500, 500, 8), "mse", 0.010, 200, ("mu_factor_update",)),
+        ("ttt2", (2000, 1000, 32), "div", 0.020, 100, ("wtq", "qht")),
+    ):
+        rng = np.random.default_rng(0)
+        Xs = torch.from_numpy(_lowrank_noisy(rng, p, n, k)).cuda()
+        Ws = rng.random((p, k), dtype=np.float32)
+        Hs = rng.random((k, n), dtype=np.float32)
+        upd, _ = MultUpdate(obj=obj)._resolved(torch.float32)
+        build.reset_launch_counts()
+        r = time_to_target(name, Xs, upd, Ws, Hs, target, chunk)
+        r["launches"] = build.launch_counts()
+        _need_launches(name, r["launches"], names)
+        r.update(shape=[p, n], k=k, obj=obj)
+        out[name] = r
+    return out
+
+
+def time_iteration_parts_mu(X, W0, H0):
+    """Where one sparse divergence iteration goes: its two sampled products
+    (chunk kernel, dense sample, band, ``perm`` gather), the two value
+    refreshes, the two sparse-dense products and the rest; host enqueue time
+    of the whole sweep beside its device time."""
+    from nmf_tpu_torch.models import common
+    from nmf_tpu_torch.models import multupd
+    from nmf_tpu_torch.ops import matops
+    from nmf_tpu_torch.ops.cuda import sparse as S
+    from nmf_tpu_torch.ops.objectives import kl_objective
+    from nmf_tpu_torch.ops.sparse_format import TILE
+    from nmf_tpu_torch.utils.dtypes import sqrt_eps
+
+    Xr, w, h, _ = common.renumbered_problem(
+        X, torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda())
+    side = Xr.fwd
+    w32, ht = w.contiguous(), h.T.contiguous()
+    n_chunk = side.coords.shape[0] * TILE
+    n_dense = side.n_dblocks * TILE * TILE
+    flat = torch.empty(n_chunk + n_dense + side.n_coo, device="cuda")
+    perm = side.perm.long()
+    delta = sqrt_eps(torch.float32)
+    upd = multupd.MultUpdate(obj="div")
+    wh = matops.sddmm(w, h, Xr)
+    newvals = matops.nnz_values(Xr) / (wh + delta)
+    Xq = matops.scale_values(Xr, newvals)
+    parts = {
+        "sddmm_chunk_kernel_ms": time_ms(lambda: S.chunk_sddmm(side, w32, ht, flat[:n_chunk]), reps=3),
+        "sddmm_dense_sample_ms": time_ms(
+            lambda: S.dense_sample(side, w32, ht, flat[n_chunk : n_chunk + n_dense]), reps=3),
+        "sddmm_band_ms": time_ms(
+            lambda: S.coo_sample(side, w32, ht, flat[n_chunk + n_dense :]), reps=3),
+        "sddmm_perm_gather_ms": time_ms(lambda: flat[perm], reps=3),
+        "sddmm_whole_ms": time_ms(lambda: matops.sddmm(w, h, Xr), reps=3),
+        "quotient_values_ms": time_ms(lambda: matops.nnz_values(Xr) / (wh + delta), reps=3),
+        "with_values_ms": time_ms(lambda: matops.scale_values(Xr, newvals), reps=3),
+        "mtm_ms": time_ms(lambda: matops.mtm(w.T, Xq), reps=3),
+        "mm_ms": time_ms(lambda: matops.mm(Xq, ht), reps=3),
+        "iteration_ms": time_ms(lambda: multupd._update(upd, (), Xr, w, h), reps=3),
+        "stop_condition_ms": time_ms(lambda: common.stop_condition(w, w, h, h, 1e-30), reps=3),
+        "kl_objective_ms": time_ms(lambda: kl_objective(Xr, w, h), reps=3),
+    }
+    parts["rest_ms"] = parts["iteration_ms"] - (
+        2 * (parts["sddmm_whole_ms"] + parts["quotient_values_ms"]
+             + parts["with_values_ms"]) + parts["mtm_ms"] + parts["mm_ms"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    multupd._update(upd, (), Xr, w, h)
+    parts["iteration_enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return parts
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script only runs on the card")
     import nmf_tpu_torch  # noqa: F401  (TF32 off)
     from nmf_tpu_torch.ops.cuda import build
-    from nmf_tpu_torch.ops.cuda import sparse as S
     from nmf_tpu_torch.ops.sparse_format import build_tiled
 
     # 1. device
@@ -373,10 +805,31 @@ def main():
     Xs = build_tiled(rs, cs, vs, (3000, 2500), dense_tile_nnz=192, coo_tail_nnz=3)
     small = {f"k{k}": check_kernels(Xs, k, f"small store k={k}", timed=False)
              for k in (K, 9)}
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    for k in (K, 9):
+        Ws = torch.rand((3000, k), generator=gen, device="cuda")
+        Hs = torch.rand((k, 2500), generator=gen, device="cuda")
+        small[f"k{k}"]["chunk_sddmm"] = {
+            "fwd": check_sddmm(Xs, Ws, Hs, f"small store k={k}", timed=False)}
     say("kernels_small", shape=[3000, 2500], nnz=len(vs), tolerance=REL_TOL,
         rel_err={kk: {n: {s: r["rel_err"] for s, r in d.items()}
                       for n, d in v.items()} for kk, v in small.items()})
-    del Xs
+    del Xs, Ws, Hs
+
+    # the dense kernels at a small ragged shape (edges in both directions,
+    # a k that is no multiple of 4) before the full one
+    rng = np.random.default_rng(4)
+    Xe = torch.from_numpy(_lowrank_noisy(rng, 1000, 777, 5)).cuda()
+    Xe[Xe < 0.5 * Xe.mean()] = 0.0  # exact zeros: the KL term's x = 0 branch
+    edge = check_dense_kernels(
+        Xe, torch.from_numpy(rng.random((1000, 5), dtype=np.float32)).cuda(),
+        torch.from_numpy(rng.random((5, 777), dtype=np.float32)).cuda(),
+        "ragged dense 1000x777 k=5", timed=False)
+    say("kernels_dense_small", shape=[1000, 777], k=5,
+        rel_err={n: (r["rel_err"] if "rel_err" in r
+                     else {s: q["rel_err"] for s, q in r.items()})
+                 for n, r in edge.items()})
+    del Xe
 
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
@@ -404,43 +857,91 @@ def main():
 
     full = check_kernels(X, K, "full store", timed=True)
     say("kernels", tolerance=REL_TOL, card=smi, **full)
+    sddmm = check_sddmm(X, torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda(),
+                        "full store", timed=True)
+    say("kernels_sddmm", card=smi, chunk_sddmm=sddmm)
 
-    # 4. the main path
+    # 4. the first path: sparse Fast-HALS
     say("small_problem", **small_problem_check())
     torch.cuda.reset_peak_memory_stats()
-    S.reset_launch_counts()
+    build.reset_launch_counts()
     solved = solve_main_path(X, W0, H0)
-    launches = S.launch_counts()
+    hals_launches = build.launch_counts()
     solved["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
-    solved["launches"] = launches
+    solved["launches"] = hals_launches
     say("solve", target=TARGET_RELERR, card=smi, **solved)
-    if min(launches.values()) <= 0:
-        fail(f"a kernel of the main path was never launched: {launches}")
+    _need_launches("solve", hals_launches, ("chunk_matmul", "dense_matmul"))
     say("iteration_parts", card=smi, **time_iteration_parts(X, W0, H0))
 
-    # 5. the report
+    # 5. the second path: multiplicative updates on the same store
+    mu_sparse = solve_mu_sparse(X, W0, H0)
+    say("solve_mu_sparse", shape=[P, N], k=K, card=smi, **mu_sparse)
+    say("iteration_parts_mu", card=smi, **time_iteration_parts_mu(X, W0, H0))
+    del X, W0, H0
+    torch.cuda.empty_cache()
+
+    # 6. the third path: multiplicative updates on dense X
+    rng = np.random.default_rng(0)
+    t0 = time.perf_counter()
+    Xd = _lowrank_noisy_on_card(rng, DP, DN, DK)
+    Wd0 = rng.random((DP, DK), dtype=np.float32)
+    Hd0 = rng.random((DK, DN), dtype=np.float32)
+    torch.cuda.synchronize()
+    say("dense_problem", shape=[DP, DN], k=DK, bytes=Xd.numel() * 4,
+        seconds=time.perf_counter() - t0)
+    dense = check_dense_kernels(Xd, torch.from_numpy(Wd0).cuda(),
+                                torch.from_numpy(Hd0).cuda(), "full dense", timed=True)
+    say("kernels_dense", card=smi, shape=[DP, DN], k=DK, **dense)
+    torch.cuda.empty_cache()
+    mu_dense = solve_mu_dense(Xd, Wd0, Hd0)
+    say("solve_mu_dense", shape=[DP, DN], k=DK, card=smi, **mu_dense)
+    del Xd
+
+    # 7. the report: launches are those of the three paths' runs, each read
+    # with the counts set to 0 just before it
+    paths = {
+        "solve": hals_launches,
+        "solve_mu_sparse_multdiv": mu_sparse["multdiv"]["launches"],
+        "solve_mu_sparse_multmse": mu_sparse["multmse"]["launches"],
+        "solve_mu_dense_multdiv": mu_dense["multdiv"]["launches"],
+        "solve_mu_dense_multmse": mu_dense["multmse"]["launches"],
+        "ttt1": mu_dense["ttt1"]["launches"],
+        "ttt2": mu_dense["ttt2"]["launches"],
+    }
+    csrc = "nmf_tpu_torch/csrc/"
+    pallas = "nmf_tpu/ops/pallas/"
+    # name: (source, TPU kernel, the records that make up one use of the kernel)
     meta = {
-        "chunk_matmul": ("nmf_tpu_torch/csrc/chunk_matmul.cu",
-                         "nmf_tpu/ops/pallas/sparse.py:329"),
-        "dense_matmul": ("nmf_tpu_torch/csrc/dense_matmul.cu",
-                         "nmf_tpu/ops/pallas/sparse.py:624"),
+        "chunk_matmul": (csrc + "chunk_matmul.cu", pallas + "sparse.py:329", full["chunk_matmul"]),
+        "dense_matmul": (csrc + "dense_matmul.cu", pallas + "sparse.py:624", full["dense_matmul"]),
+        "chunk_sddmm": (csrc + "chunk_sddmm.cu", pallas + "sparse.py:738", {"fwd": sddmm}),
+        "dense_objective": (csrc + "objectives.cu", pallas + "objectives.py:75", dense["dense_objective"]),
+        "mu_factor_update": (csrc + "mu.cu", pallas + "mu.py:54", dense["mu_factor_update"]),
+        "wtq": (csrc + "mu.cu", pallas + "mu.py:99", {"": dense["wtq"]}),
+        "qht": (csrc + "mu.cu", pallas + "mu.py:143", {"": dense["qht"]}),
     }
     kernels = []
-    for name, (source, replaces) in meta.items():
-        sides = full[name]
-        tot = lambda key: sum(s[key] for s in sides.values())
-        # one HALS iteration launches the kernel once per orientation: the
-        # times and the bound are sums over the two orientations
+    for name, (source, replaces, parts) in meta.items():
+        tot = lambda key: sum(r[key] for r in parts.values())
+        by_path = {path: counts[name] for path, counts in paths.items() if counts[name]}
+        if not by_path:
+            fail(f"{name} was launched on no path")
+        # a kernel with two uses a sweep (two orientations, two kinds) gives
+        # the sums over both; each use stands beside them under its own name
         kernels.append({
             "name": name, "route": "cuda", "source": source,
-            "replaces": replaces, "launches": launches[name],
-            "max_abs_err": max(s["max_abs_err"] for s in sides.values()),
+            "replaces": replaces, "launches": sum(by_path.values()),
+            "max_abs_err": max(r["max_abs_err"] for r in parts.values()),
             "ms": tot("ms"), "plain_ms": tot("plain_ms"),
             "bound_ms": tot("bound_ms"),
-            "bound_by": max(sides.values(), key=lambda s: s["bound_ms"])["bound_by"],
+            "bound_by": max(parts.values(), key=lambda r: r["bound_ms"])["bound_by"],
             "library_ms": tot("library_ms"),
-            "fwd_ms": sides["fwd"]["ms"], "bwd_ms": sides["bwd"]["ms"],
+            "same_bits": all(r["same_bits"] for r in parts.values()),
+            "launches_by_path": by_path,
+            **{f"{part}_ms": r["ms"] for part, r in parts.items() if part},
         })
+    if sorted(k["name"] for k in kernels) != sorted(build.KERNELS):
+        fail("the report does not list every kernel the build holds")
     say("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -2,13 +2,15 @@
 
 A second package beside the JAX package ``nmf_tpu``, with the same module
 layout and public names, written for one NVIDIA Hopper card: plain tensor
-code is PyTorch, and the sparse products run hand-written CUDA kernels
-(``csrc/``).  It imports ``torch`` and ``numpy`` only.
+code is PyTorch, and the sparse products, the multiplicative updates' fused
+steps and the dense objectives run hand-written CUDA kernels (``csrc/``).  It
+imports ``torch`` and ``numpy`` only.
 
 Ported so far: the ``nnmf`` front door for Fast-HALS coordinate descent
-(``alg="cd"``) with random or custom initialization, on dense tensors and on
-the tiled sparse store (``ops.sparse_format.build_tiled``).  Entry points run
-on the card unless the caller passes ``device="cpu"``.
+(``alg="cd"``) and the multiplicative updates (``alg="multmse"``,
+``alg="multdiv"``) with random or custom initialization, on dense tensors and
+on the tiled sparse store (``ops.sparse_format.build_tiled``).  Entry points
+run on the card unless the caller passes ``device="cpu"``.
 """
 
 from . import config
@@ -16,7 +18,8 @@ from .init.initialization import randinit
 from .models.common import Result, Trace, nmf_checksize, solve, stop_condition
 from .models.coorddesc import CoordinateDescent
 from .models.interface import nnmf, solve_replicates
-from .ops.objectives import mse_objective, sqL2dist
+from .models.multupd import MultUpdate
+from .ops.objectives import gkldiv, kl_objective, mse_objective, sqL2dist
 from .utils.numeric import adddiag, normalize1, normalize1_cols, projectnn
 
 __version__ = "0.1.0"
@@ -30,8 +33,11 @@ __all__ = [
     "stop_condition",
     "nmf_checksize",
     "CoordinateDescent",
+    "MultUpdate",
     "randinit",
     "mse_objective",
+    "kl_objective",
+    "gkldiv",
     "sqL2dist",
     "adddiag",
     "normalize1",

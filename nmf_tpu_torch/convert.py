@@ -1,15 +1,21 @@
 """Carrying state across from the JAX package.
 
-A tiled store or a pair of factors built by ``nmf_tpu`` crosses over as plain
-numpy: the caller turns each array field into ``np.ndarray`` (``np.asarray``)
-and hands the dicts to these functions, which never see a JAX object.
+A tiled store, a pair of factors, a solver's options or a solve's ``Result``
+made by ``nmf_tpu`` crosses over as plain numpy and plain Python values: the
+caller turns each array field into ``np.ndarray`` (``np.asarray``) and hands
+the dicts to these functions, which never see a JAX object.
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 
 from . import config
+from .models.common import Result, Trace
+from .models.coorddesc import CoordinateDescent
+from .models.multupd import MultUpdate
 from .ops.sparse_format import (
     TiledCSR,
     TiledSideC,
@@ -18,7 +24,10 @@ from .ops.sparse_format import (
     to_tensor,
 )
 
-__all__ = ["tiled_from_numpy", "factors_from_numpy"]
+__all__ = ["tiled_from_numpy", "factors_from_numpy", "solver_from_fields",
+           "result_from_numpy"]
+
+_SOLVERS = {"CoordinateDescent": CoordinateDescent, "MultUpdate": MultUpdate}
 
 _SIDE_FIELDS = tuple(
     f for f in TiledSideC.__dataclass_fields__
@@ -69,3 +78,32 @@ def factors_from_numpy(W, H, device=config.DEFAULT_DEVICE):
     """``(W, H)`` as tensors on ``device`` from numpy arrays."""
     dev = config.resolve_device(device)
     return to_tensor(np.asarray(W), dev), to_tensor(np.asarray(H), dev)
+
+
+def solver_from_fields(name, fields):
+    """The port's options object from the name of an ``nmf_tpu`` options
+    dataclass (``"CoordinateDescent"``, ``"MultUpdate"``) and its fields as a
+    dict of plain Python values.  Fields the port's class does not have (the
+    JAX random ``key``: the port draws from a ``torch.Generator``) are left
+    out; the port's own validation runs."""
+    if name not in _SOLVERS:
+        raise NotImplementedError(
+            f"solver {name!r} is not ported yet; ported: {sorted(_SOLVERS)}"
+        )
+    cls = _SOLVERS[name]
+    known = {f.name for f in dataclasses.fields(cls)}
+    return cls(**{k: v for k, v in fields.items() if k in known})
+
+
+def result_from_numpy(d, device=config.DEFAULT_DEVICE) -> Result:
+    """A ``Result`` on ``device`` from the fields of an ``nmf_tpu`` ``Result``
+    given as a dict: ``W`` and ``H`` numpy arrays, ``niters``, ``converged``
+    and ``objvalue`` plain values, ``trace`` None or a pair of numpy arrays
+    ``(objvalue, relchange)``."""
+    dev = config.resolve_device(device)
+    W, H = factors_from_numpy(d["W"], d["H"], dev)
+    trace = d.get("trace")
+    if trace is not None:
+        trace = Trace(*(to_tensor(np.asarray(a), dev) for a in trace))
+    return Result(W, H, int(d["niters"]), bool(d["converged"]),
+                  float(d["objvalue"]), trace=trace)

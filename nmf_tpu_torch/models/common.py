@@ -332,4 +332,7 @@ def solve(alg, X, W, H, trace: bool = False, *,
     config.check_on_device(
         dev, X=matops.device_probe(X), W=W, H=H
     )
+    if not matops.is_sparse(X):
+        # the dense kernels read X row-major; a strided view is copied once
+        X = X.contiguous()
     return alg._solve(X, W, H, trace)

@@ -5,7 +5,8 @@ Same validation rules, init and algorithm dispatch, replicate policy and
 ``init="nndsvdar"``, ``alg="greedycd"``, ``maxiter=100``,
 ``tol=cbrt(eps(T)/100)``, ``replicates=1``.
 
-Ported so far: ``alg="cd"`` with ``init`` in ``("random", "custom")``.  Every
+Ported so far: ``alg`` in ``("cd", "multmse", "multdiv")`` with ``init`` in
+``("random", "custom")``.  Every
 other documented value raises ``NotImplementedError`` naming the value — the
 defaults included, until their solvers and initializers are ported.
 """
@@ -22,12 +23,13 @@ from ..ops import matops
 from ..utils.dtypes import default_tol
 from .common import Result, solve
 from .coorddesc import CoordinateDescent
+from .multupd import MultUpdate
 
 __all__ = ["nnmf", "solve_replicates"]
 
 _ALGS = ("projals", "alspgrad", "multmse", "multdiv", "cd", "greedycd", "spa")
 _INITS = ("random", "nndsvd", "nndsvda", "nndsvdar", "spa", "custom")
-_PORTED_ALGS = ("cd",)
+_PORTED_ALGS = ("cd", "multmse", "multdiv")
 _PORTED_INITS = ("random", "custom")
 
 
@@ -70,12 +72,21 @@ def nnmf(
     ``X`` is a dense array or tensor (moved to ``device``) or a ``TiledCSR``
     built on ``device``.  ``generator`` (a CPU ``torch.Generator``; seeded
     from ``seed`` when not given) drives every random draw.
+
+    On a dense float32 ``X`` on the card the multiplicative updates hold a
+    ``k x k`` Gram or a ``k``-deep tile in shared memory, so ``k`` has a
+    ceiling there: ``ops.cuda.mu.MU_MAX_K`` for ``alg="multmse"``,
+    ``ops.cuda.mu.QUOTIENT_MAX_K`` for ``alg="multdiv"``, and
+    ``ops.cuda.objectives.OBJECTIVE_MAX_K`` for either once ``X`` has more
+    than 4M entries.  A larger ``k`` raises ``ValueError``; a ``TiledCSR``,
+    the CPU and float64 take any ``k``.
     """
     dev = config.resolve_device(device)
     if matops.is_sparse(X):
         config.check_on_device(dev, X=matops.device_probe(X))
     else:
-        X = torch.as_tensor(X).to(dev)
+        # the dense kernels read X row-major; a strided view is copied once
+        X = torch.as_tensor(X).to(dev).contiguous()
     T = X.dtype
     p, n = X.shape
 
@@ -127,10 +138,13 @@ def nnmf(
     else:
         W, H = W0, H0
 
-    alginst = CoordinateDescent(
-        generator=gshuf, maxiter=maxiter, tol=float(tol), verbose=verbose,
-        update_H=update_H,
-    )
+    opts = dict(maxiter=maxiter, tol=float(tol), verbose=verbose, update_H=update_H)
+    if alg == "multmse":
+        alginst = MultUpdate(obj="mse", **opts)
+    elif alg == "multdiv":
+        alginst = MultUpdate(obj="div", **opts)
+    else:
+        alginst = CoordinateDescent(generator=gshuf, **opts)
     return solve_replicates(
         alginst, X, W, H, replicates=replicates, initH=True, generator=grep,
         trace=trace, device=dev,

@@ -18,19 +18,29 @@ import subprocess
 import time
 from pathlib import Path
 
-__all__ = ["load_kernels", "NVCC_FLAGS"]
+import torch
+
+__all__ = ["load_kernels", "launch", "launch_counts", "reset_launch_counts",
+           "largest_k", "KERNELS", "NVCC_FLAGS", "SMEM_PER_BLOCK"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
-SOURCES = ("chunk_matmul.cu", "dense_matmul.cu")
+SOURCES = (
+    "chunk_matmul.cu", "dense_matmul.cu", "chunk_sddmm.cu", "mu.cu",
+    "objectives.cu",
+)
+HEADERS = ("wh_tile.cuh",)  # included by mu.cu and objectives.cu
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
 )
 
+SMEM_PER_BLOCK = 232448  # bytes of shared memory one thread block may use
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
+_F = ctypes.c_float
 _ARGTYPES = {
     # panel_ptr, panel_chunks, win_panel, coords, vals, D, out,
     # n_rowpanels, group, rows, k, stream
@@ -38,7 +48,21 @@ _ARGTYPES = {
     # dpanel_ptr, dpanel_blocks, dblk_panel, dvals, D, out,
     # n_rowpanels, dgroup, rows, cols, k, stream
     "nmf_dense_matmul": [_P] * 6 + [_I] * 5 + [_P],
+    # coords, inv, chunk_rp, win_panel, win_stripe, W, Ht, out,
+    # n_chunks, group, panels_per_stripe, rows, cols, k, nnz, stream
+    "nmf_chunk_sddmm": [_P] * 8 + [_I] * 7 + [_P],
+    # F, G, C, out, k, m, lam, delta, trans, stream
+    "nmf_mu_factor_update": [_P] * 4 + [_I] * 2 + [_F] * 2 + [_I, _P],
+    # X, W, H, partial, out, p, n, k, delta, xvec, splits, stream
+    "nmf_wtq": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P],
+    "nmf_qht": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P],
+    # X, W, H, partial, out, p, n, k, kind, xvec, stream
+    "nmf_dense_objective": [_P] * 5 + [_I] * 5 + [_P],
 }
+
+# one entry point ``nmf_<name>`` and one launch count per kernel
+KERNELS = tuple(name[len("nmf_"):] for name in _ARGTYPES)
+_launches = dict.fromkeys(KERNELS, 0)
 
 _lib = None
 build_seconds = None  # seconds the last build in this process took, if any
@@ -90,7 +114,7 @@ def load_kernels():
     if _lib is not None:
         return _lib
     h = hashlib.sha256()
-    for s in SOURCES:
+    for s in SOURCES + HEADERS:
         h.update((CSRC / s).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     target = BUILD / f"libnmf_kernels_{h.hexdigest()[:16]}.so"
@@ -105,3 +129,33 @@ def load_kernels():
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
+
+
+def largest_k(smem_bytes) -> int:
+    """The largest k whose kernel fits a block's shared memory, given the
+    bytes the kernel's launcher asks for at k."""
+    k = 1
+    while smem_bytes(k + 1) <= SMEM_PER_BLOCK:
+        k += 1
+    return k
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel ``name`` on PyTorch's current stream and count the
+    launch; raises when the launch is refused.  The only place a count
+    moves."""
+    fn = getattr(load_kernels(), f"nmf_{name}")
+    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
+    _launches[name] += 1
+
+
+def launch_counts() -> dict:
+    """Kernel launches so far, by kernel name."""
+    return dict(_launches)
+
+
+def reset_launch_counts() -> None:
+    for name in _launches:
+        _launches[name] = 0

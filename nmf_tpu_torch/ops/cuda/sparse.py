@@ -1,6 +1,7 @@
-"""Sparse-dense products over the tiled store: ``X @ D`` and ``X' @ D``.
+"""Products over the tiled store: ``X @ D``, ``X' @ D`` and ``W @ H`` sampled
+at X's pattern.
 
-One product is the sum of three parts, one per store class
+One sparse-dense product is the sum of three parts, one per store class
 (``ops/sparse_format.py``):
 
 * ``chunk_matmul`` — the narrow-chunk kernel (``csrc/chunk_matmul.cu``);
@@ -9,11 +10,16 @@ One product is the sum of three parts, one per store class
   ``index_add_`` over pieces of the band, so the ``(n_coo, k)`` product never
   exists whole.
 
+The sampled product ``tiled_sddmm`` has the same three parts:
+``chunk_sddmm`` (``csrc/chunk_sddmm.cu``), ``dense_sample`` (a batched
+product per piece of the dense store) and ``coo_sample`` (gather, gather,
+reduce over pieces of the band).
+
 Each kernel has a plain PyTorch version beside it that does the same
 arithmetic over the same store arrays.  A wrapper takes the plain version
 only for tensors that live on the CPU; for CUDA tensors it launches its
-kernel or raises.  ``chunk_matmul.launches`` / ``dense_matmul.launches`` count
-kernel launches, and nothing else.
+kernel or raises.  ``build.launch_counts()`` counts kernel launches, and nothing
+else.
 
 Everything is float32 with D row-major ``(n, k)``: one gathered row of D is
 ``4k`` contiguous bytes.  Both kernels give one thread block sole ownership
@@ -27,16 +33,18 @@ from __future__ import annotations
 import torch
 
 from ..sparse_format import DENSE_GROUP, TILE, TiledCSR, TiledSideC
+from .build import SMEM_PER_BLOCK, launch
 
 __all__ = [
     "chunk_matmul", "chunk_matmul_plain", "dense_matmul", "dense_matmul_plain",
     "coo_matmul", "tiled_matmul_t", "tiled_mm", "tiled_mtm",
-    "launch_counts", "reset_launch_counts",
+    "chunk_sddmm", "chunk_sddmm_plain", "dense_sample", "coo_sample",
+    "tiled_sddmm",
 ]
 
 # the chunk kernel keeps a (128, k) float panel in shared memory, beside 1 KB
-# of staged slots; a block may use 232,448 bytes
-MAX_K = (232448 - 2048) // (TILE * 4)
+# of staged slots
+MAX_K = (SMEM_PER_BLOCK - 2048) // (TILE * 4)
 # slots / blocks / band entries handled at once by the plain versions and the
 # COO band: bounds the (piece, k) temporaries to 128 MB at k = 128
 _PIECE = 1 << 18
@@ -56,12 +64,6 @@ def _check_operand(side: TiledSideC, D) -> int:
             f"D lives on {D.device}, the store on {side.vals.device}"
         )
     return D.shape[1]
-
-
-def _launch(fn, *args) -> None:
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
-    if err != 0:
-        raise RuntimeError(f"{fn.__name__} failed to launch: CUDA error {err}")
 
 
 def _n_rowpanels(side: TiledSideC) -> int:
@@ -101,21 +103,15 @@ def chunk_matmul(side: TiledSideC, D):
         return chunk_matmul_plain(side, D)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}] for the chunk kernel, got {k}")
-    from .build import load_kernels
-
     out = torch.empty((side.rows, k), dtype=torch.float32, device=D.device)
-    _launch(
-        load_kernels().nmf_chunk_matmul,
+    launch(
+        "chunk_matmul",
         side.panel_ptr.data_ptr(), side.panel_chunks.data_ptr(),
         side.win_panel.data_ptr(), side.coords.data_ptr(),
         side.vals.data_ptr(), D.data_ptr(), out.data_ptr(),
         _n_rowpanels(side), side.group, side.rows, k,
     )
-    chunk_matmul.launches += 1
     return out
-
-
-chunk_matmul.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -162,34 +158,15 @@ def dense_matmul(side: TiledSideC, D, out=None):
         )
     if not D.is_cuda:
         return dense_matmul_plain(side, D, out)
-    from .build import load_kernels
-
     if out is None:
         out = torch.zeros((side.rows, k), dtype=torch.float32, device=D.device)
-    _launch(
-        load_kernels().nmf_dense_matmul,
+    launch(
+        "dense_matmul",
         side.dpanel_ptr.data_ptr(), side.dpanel_blocks.data_ptr(),
         side.dblk_panel.data_ptr(), side.dvals.data_ptr(), D.data_ptr(),
         out.data_ptr(), _n_rowpanels(side), DENSE_GROUP, side.rows, side.cols, k,
     )
-    dense_matmul.launches += 1
     return out
-
-
-dense_matmul.launches = 0
-
-
-def launch_counts() -> dict:
-    """Kernel launches so far, by wrapper name."""
-    return {
-        "chunk_matmul": chunk_matmul.launches,
-        "dense_matmul": dense_matmul.launches,
-    }
-
-
-def reset_launch_counts() -> None:
-    chunk_matmul.launches = 0
-    dense_matmul.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -237,3 +214,158 @@ def tiled_mtm(X: TiledCSR, D):
     if X.col_rank is not None:
         out = out.index_select(0, X.col_rank.long())
     return out
+
+
+# ---------------------------------------------------------------------------
+# the sampled product: (W @ H) at X's pattern
+
+
+def _check_factors(side: TiledSideC, W, Ht) -> int:
+    for name, A, rows in (("W", W, side.rows), ("Ht", Ht, side.cols)):
+        if A.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {A.dtype}")
+        if A.dim() != 2 or A.shape[0] != rows:
+            raise ValueError(f"{name} must be ({rows}, k), got {tuple(A.shape)}")
+        if not A.is_contiguous():
+            raise ValueError(f"{name} must be contiguous (row-major)")
+        if A.device != side.coords.device:
+            raise ValueError(
+                f"{name} lives on {A.device}, the store on {side.coords.device}"
+            )
+    if W.shape[1] != Ht.shape[1] or W.shape[1] < 1:
+        raise ValueError(
+            f"W and Ht must share k >= 1, got {tuple(W.shape)}, {tuple(Ht.shape)}"
+        )
+    if side.inv is None or side.perm is None:
+        raise ValueError(
+            "the sampled product needs the refresh maps, but this TiledCSR "
+            "was slim()-med; rebuild with build_tiled"
+        )
+    return W.shape[1]
+
+
+def _pad_rows(A, rows):
+    """A with zero rows appended up to ``rows``."""
+    if A.shape[0] == rows:
+        return A
+    out = A.new_zeros((rows, A.shape[1]))
+    out[: A.shape[0]] = A
+    return out
+
+
+def chunk_sddmm_plain(side: TiledSideC, W, Ht, out=None):
+    """Plain version of ``chunk_sddmm``: per piece of the chunk store, gather
+    the W row and the H column of every slot and reduce over k.  Padding
+    slots give 0."""
+    pps = side.panels_per_stripe
+    nchunks = side.coords.shape[0]
+    nnz = side.perm.shape[0]
+    if out is None:
+        out = W.new_empty(nchunks * TILE)
+    Wp = _pad_rows(W, side.n_stripes * pps * TILE)
+    Hp = _pad_rows(Ht, side.n_colpanels * TILE)
+    step = max(_PIECE // TILE, 1)
+    for c0 in range(0, nchunks, step):
+        c1 = min(c0 + step, nchunks)
+        ids = torch.arange(c0, c1, device=W.device)
+        win = ids // side.group
+        co = side.coords[c0:c1].long()
+        cols = side.win_panel[win].long()[:, None] * TILE + (co >> 7)
+        panel = side.win_stripe[win].long() * pps + side.chunk_rp[c0:c1].long()
+        rows = panel[:, None] * TILE + (co & (TILE - 1))
+        real = (side.inv[c0 * TILE : c1 * TILE] < nnz).reshape(-1, TILE)
+        real &= (rows < side.rows) & (cols < side.cols)
+        got = (Wp[rows.reshape(-1)] * Hp[cols.reshape(-1)]).sum(dim=1)
+        out[c0 * TILE : c1 * TILE] = got * real.reshape(-1)
+    return out
+
+
+def chunk_sddmm(side: TiledSideC, W, Ht, out=None):
+    """``(W @ Ht')`` at every slot of one orientation's chunk store, flat
+    ``(n_chunks * 128,)`` in slot order; 0 at padding slots.  ``W`` is
+    ``(rows, k)`` and ``Ht`` is ``(cols, k)``, both row-major, in the
+    tiling's coordinates.  ``out``, when given, receives the result."""
+    k = _check_factors(side, W, Ht)
+    nslots = side.coords.shape[0] * TILE
+    if out is not None and (
+        out.dtype != torch.float32 or tuple(out.shape) != (nslots,)
+        or not out.is_contiguous() or out.device != W.device
+    ):
+        raise ValueError(
+            f"out must be a contiguous float32 ({nslots},) tensor on {W.device}"
+        )
+    if not W.is_cuda:
+        return chunk_sddmm_plain(side, W, Ht, out)
+    if side.inv.dtype != torch.int32:
+        raise TypeError("the chunk sddmm kernel takes an int32 refresh map")
+    if out is None:
+        out = torch.empty(nslots, dtype=torch.float32, device=W.device)
+    launch(
+        "chunk_sddmm",
+        side.coords.data_ptr(), side.inv.data_ptr(), side.chunk_rp.data_ptr(),
+        side.win_panel.data_ptr(), side.win_stripe.data_ptr(), W.data_ptr(),
+        Ht.data_ptr(), out.data_ptr(), side.coords.shape[0], side.group,
+        side.panels_per_stripe, side.rows, side.cols, k, side.perm.shape[0],
+    )
+    return out
+
+
+def dense_sample(side: TiledSideC, W, Ht, out=None):
+    """``(W @ Ht')`` over every slot of the dense store, flat in the store's
+    (block, col, row) order: one batched product per piece of blocks.
+    Zero-padding blocks give samples that no ``perm`` entry points at."""
+    k = W.shape[1]
+    pps = side.panels_per_stripe
+    if out is None:
+        out = W.new_empty(side.n_dblocks * TILE * TILE)
+    Wp = _pad_rows(W, side.n_stripes * pps * TILE).reshape(-1, TILE, k)
+    Hp = _pad_rows(Ht, side.n_colpanels * TILE).reshape(-1, TILE, k)
+    step = max(_PIECE // TILE, 1)
+    for b0 in range(0, side.n_dblocks, step):
+        b1 = min(b0 + step, side.n_dblocks)
+        win = torch.arange(b0, b1, device=W.device) // DENSE_GROUP
+        panel = side.dblk_stripe[win].long() * pps + side.dblk_rp[b0:b1].long()
+        torch.bmm(
+            Hp[side.dblk_panel[win].long()], Wp[panel].transpose(1, 2),
+            out=out[b0 * TILE * TILE : b1 * TILE * TILE].view(-1, TILE, TILE),
+        )
+    return out
+
+
+def coo_sample(side: TiledSideC, W, Ht, out=None):
+    """``(W @ Ht')`` at every entry of the COO band: gather, gather, reduce,
+    one piece of the band at a time."""
+    if out is None:
+        out = W.new_empty(side.n_coo)
+    for e0 in range(0, side.n_coo, _PIECE):
+        sl = slice(e0, min(e0 + _PIECE, side.n_coo))
+        out[sl] = (
+            W[side.coo_rows[sl].long()] * Ht[side.coo_cols[sl].long()]
+        ).sum(dim=1)
+    return out
+
+
+def tiled_sddmm(X: TiledCSR, W, H):
+    """Values of ``(W @ H)`` at X's nonzeros, ``(nnz,)`` in CSR order, in
+    W's dtype (computed in float32).  The forward side's slots are sampled
+    class by class into one flat vector (chunks, dense blocks, band) that
+    ``perm`` gathers into CSR order.  Degree-ordered tilings gather W's rows
+    and H's columns into the renumbered coordinates first."""
+    side = X.fwd
+    if X.row_perm is not None:
+        W = W.index_select(0, X.row_perm.long())
+    if X.col_perm is not None:
+        H = H.index_select(1, X.col_perm.long())
+    W32 = W.to(torch.float32).contiguous()
+    Ht = H.to(torch.float32).T.contiguous()
+    n_chunk = side.coords.shape[0] * TILE
+    n_dense = side.n_dblocks * TILE * TILE
+    flat = torch.empty(
+        n_chunk + n_dense + side.n_coo, dtype=torch.float32, device=W32.device
+    )
+    chunk_sddmm(side, W32, Ht, flat[:n_chunk])
+    if side.n_dblocks:
+        dense_sample(side, W32, Ht, flat[n_chunk : n_chunk + n_dense])
+    if side.n_coo:
+        coo_sample(side, W32, Ht, flat[n_chunk + n_dense :])
+    return flat[side.perm.long()].to(W.dtype)

@@ -2,11 +2,13 @@
 
 Every solver routes its X-products and X-reductions through these functions,
 so any X supported here works in every solver: a dense ``torch.Tensor`` or a
-``TiledCSR`` (``ops/sparse_format.py``), whose products run the hand-written
-kernels of ``ops/cuda/sparse.py`` on the card.
+``TiledCSR`` (``ops/sparse_format.py``), whose products and sampled product
+run the hand-written kernels of ``ops/cuda/sparse.py`` on the card.
 """
 
 from __future__ import annotations
+
+import torch
 
 from .sparse_format import TiledCSR
 
@@ -27,6 +29,7 @@ __all__ = [
     "transpose",
     "mean",
     "device_probe",
+    "is_dense_f32_on_card",
 ]
 
 
@@ -41,6 +44,12 @@ def is_sparse(X) -> bool:
 def device_probe(X):
     """A tensor that lives where X lives (X itself when dense)."""
     return X.fwd.vals if is_tiled(X) else X
+
+
+def is_dense_f32_on_card(X) -> bool:
+    """True for the X the dense kernels (``ops/cuda/mu.py``,
+    ``ops/cuda/objectives.py``) take: a dense float32 tensor on the card."""
+    return not is_tiled(X) and X.is_cuda and X.dtype == torch.float32
 
 
 def mm(X, D):
@@ -75,10 +84,16 @@ def _slim_guard(X, attr, op):
 
 def sddmm(W, H, X):
     """Values of ``(W @ H)`` sampled at X's nonzero positions, aligned with
-    ``nnz_values(X)`` (sparse X only): gather, gather, reduce."""
+    ``nnz_values(X)`` (sparse X only).  A store on the card goes through
+    ``tiled_sddmm`` and its chunk kernel; a store on the CPU takes the
+    gather-gather-reduce form."""
     if not is_tiled(X):
         raise TypeError("sddmm needs a sparse X")
     ri = _slim_guard(X, "row_idx", "sddmm").long()
+    if X.device.type == "cuda":
+        from .cuda.sparse import tiled_sddmm
+
+        return tiled_sddmm(X, W, H)
     return (W[ri, :] * H[:, X.col_idx.long()].T).sum(dim=1)
 
 

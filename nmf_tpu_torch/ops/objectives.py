@@ -1,37 +1,29 @@
 """Objective functions.
 
-The dense objectives never hold the whole ``W @ H`` for large problems: they
-run over column blocks of H, one product and one reduction per block.  The
-sparse objective uses the Gram identity and touches X through ``mm`` only.
+The dense objectives never hold the whole ``W @ H`` for large problems.  A
+float32 X on the card goes through the objective kernel
+(``ops/cuda/objectives.py``); on the CPU and in float64 they run over column
+blocks of H, one product and one reduction per block.  The sparse MSE
+objective uses the Gram identity and touches X through ``mm`` only; the
+sparse KL objective samples ``W @ H`` at X's nonzeros.
 """
 
 from __future__ import annotations
 
 import torch
 
-__all__ = ["sqL2dist", "mse_objective"]
+from .cuda.objectives import (
+    dense_objective_plain,
+    gkldiv,
+    kl_objective_kernel,
+    mse_objective_kernel,
+    sqL2dist,
+)
 
-# Column-block size used when evaluating objectives without materializing WH.
-_BLOCK_N = 2048
+__all__ = ["sqL2dist", "gkldiv", "mse_objective", "kl_objective"]
+
 # Matrices with fewer than this many entries just materialize WH.
 _SMALL = 1 << 22  # 4M entries
-
-
-def sqL2dist(a, b):
-    """Sum of squared differences ``sum((a - b)^2)``."""
-    d = a - b
-    return (d * d).sum()
-
-
-def _blockwise_sum(X, W, H, tilefun):
-    """``sum_j tilefun(X[:, j_block], (W @ H)[:, j_block])`` without ever
-    materializing the full ``W @ H``."""
-    n = X.shape[1]
-    bn = min(_BLOCK_N, n)
-    total = torch.zeros((), dtype=X.dtype, device=X.device)
-    for j0 in range(0, n, bn):
-        total = total + tilefun(X[:, j0 : j0 + bn], W @ H[:, j0 : j0 + bn])
-    return total
 
 
 def mse_objective(X, W, H):
@@ -49,4 +41,31 @@ def mse_objective(X, W, H):
         return 0.5 * (matops.sq_norm(X) - 2 * cross + wh_sq)
     if X.numel() <= _SMALL:
         return 0.5 * sqL2dist(X, W @ H)
-    return 0.5 * _blockwise_sum(X, W, H, sqL2dist)
+    if matops.is_dense_f32_on_card(X):
+        return mse_objective_kernel(X, W, H)
+    return dense_objective_plain(X, W, H, "mse")
+
+
+def kl_objective(X, W, H):
+    """``gkldiv(X, W@H)``.
+
+    Sparse X: ``sum_{x>0}[x log(x/wh) - x] + sum_all(wh)`` with wh sampled
+    at the nonzeros and ``sum_all(wh) = colsum(W) . rowsum(H)``."""
+    from . import matops
+
+    if matops.is_sparse(X):
+        xv = matops.nnz_values(X)
+        wh_at_nnz = matops.sddmm(W, H, X)
+        pos = xv > 0
+        safe_x = torch.where(pos, xv, 1)
+        safe_wh = torch.where(wh_at_nnz > 0, wh_at_nnz, 1)
+        nnz_term = torch.where(
+            pos, safe_x * (safe_x.log() - safe_wh.log()) - xv, 0
+        ).sum()
+        mass = torch.dot(W.sum(dim=0), H.sum(dim=1))
+        return nnz_term + mass
+    if X.numel() <= _SMALL:
+        return gkldiv(X, W @ H)
+    if matops.is_dense_f32_on_card(X):
+        return kl_objective_kernel(X, W, H)
+    return dense_objective_plain(X, W, H, "kl")

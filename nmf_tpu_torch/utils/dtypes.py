@@ -12,7 +12,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["eps", "cbrt_eps", "default_tol", "canonical_dtype"]
+__all__ = ["eps", "sqrt_eps", "cbrt_eps", "default_tol", "canonical_dtype"]
 
 _NP_OF_TORCH = {
     torch.float16: np.float16,
@@ -36,6 +36,11 @@ def canonical_dtype(dtype) -> np.dtype:
 def eps(dtype) -> float:
     """Machine epsilon for ``dtype`` (Julia ``eps(T)``)."""
     return float(np.finfo(canonical_dtype(dtype)).eps)
+
+
+def sqrt_eps(dtype) -> float:
+    """``sqrt(eps(T))`` — the multiplicative updates' denominator guard."""
+    return float(np.sqrt(eps(dtype)))
 
 
 def cbrt_eps(dtype) -> float:

@@ -161,6 +161,7 @@ def test_shuffle_is_a_permutation_of_the_sweep_and_repeats_with_its_seed():
 def test_mse_objective_paths_agree(dtype, monkeypatch):
     from nmf_tpu.ops import objectives as jobj
     from nmf_tpu_torch.ops import objectives as tobj
+    from nmf_tpu_torch.ops.cuda import objectives as tobj_plain
 
     Xd, W, H = _problem(dtype)
     Xt, Wt, Ht = (torch.from_numpy(a) for a in (Xd, W, H))
@@ -171,7 +172,7 @@ def test_mse_objective_paths_agree(dtype, monkeypatch):
     assert float(sqL2dist(Xt, Wt @ Ht)) == pytest.approx(2 * small, rel=rtol)
     # the blockwise path: force it with a tiny threshold and block size
     monkeypatch.setattr(tobj, "_SMALL", 10)
-    monkeypatch.setattr(tobj, "_BLOCK_N", 64)
+    monkeypatch.setattr(tobj_plain, "_BLOCK_N", 64)
     np.testing.assert_allclose(float(tobj.mse_objective(Xt, Wt, Ht)), want, rtol=rtol)
     if dtype == np.float32:
         # the sparse Gram identity, against the JAX package's and the dense

@@ -13,6 +13,9 @@ import pytest
 import torch
 
 import nmf_tpu_torch as nt
+from nmf_tpu_torch.ops.cuda import build
+from nmf_tpu_torch.ops.cuda import mu as tmu
+from nmf_tpu_torch.ops.cuda import objectives as tobj
 from nmf_tpu_torch.ops.cuda import sparse as tsp
 from nmf_tpu_torch.ops.sparse_format import build_tiled
 
@@ -42,7 +45,7 @@ def test_kernels_match_plain_versions_on_the_card(card, order, k):
     Xd = three_class_matrix()
     r, c, v = coo_of(Xd)
     Xt = build_tiled(r, c, v, Xd.shape, device=card, order=order, **BUILD)
-    tsp.reset_launch_counts()
+    build.reset_launch_counts()
     for side in (Xt.fwd, Xt.bwd):
         D = torch.rand(side.cols, k, device=card)
         close(tsp.chunk_matmul(side, D), tsp.chunk_matmul_plain(side, D))
@@ -50,7 +53,9 @@ def test_kernels_match_plain_versions_on_the_card(card, order, k):
         acc = torch.ones(side.rows, k, device=card)
         assert tsp.dense_matmul(side, D, acc) is acc
         close(acc, tsp.dense_matmul_plain(side, D) + 1)
-    assert tsp.launch_counts() == {"chunk_matmul": 2, "dense_matmul": 4}
+    counts = build.launch_counts()
+    assert (counts["chunk_matmul"], counts["dense_matmul"]) == (2, 4)
+    assert sum(counts.values()) == 6
     D = torch.rand(Xd.shape[1], k, device=card)
     close(tsp.tiled_mm(Xt, D), torch.from_numpy(Xd).to(card) @ D)
     D2 = torch.rand(Xd.shape[0], k, device=card)
@@ -86,9 +91,10 @@ def test_solve_on_the_card_agrees_with_the_cpu(card):
     W0 = rng.random((Xd.shape[0], 6), dtype=np.float32)
     H0 = rng.random((6, Xd.shape[1]), dtype=np.float32)
     kw = dict(alg="cd", init="custom", W0=W0, H0=H0, maxiter=5, tol=1e-30)
-    tsp.reset_launch_counts()
+    build.reset_launch_counts()
     a = nt.nnmf(build_tiled(r, c, v, Xd.shape, **BUILD), 6, **kw)  # default device
-    assert a.W.is_cuda and min(tsp.launch_counts().values()) > 0
+    counts = build.launch_counts()
+    assert a.W.is_cuda and counts["chunk_matmul"] > 0 and counts["dense_matmul"] > 0
     b = nt.nnmf(build_tiled(r, c, v, Xd.shape, device="cpu", **BUILD), 6,
                 device="cpu", **kw)
     # products summed in another order, fed through 5 sweeps
@@ -96,3 +102,158 @@ def test_solve_on_the_card_agrees_with_the_cpu(card):
     close(a.H, b.H, rtol=1e-4)
     assert a.objvalue == pytest.approx(b.objvalue, rel=1e-4)
     assert a.niters == b.niters == 5
+
+
+# ---------------------------------------------------------------------------
+# the sampled product, the multiplicative-update kernels, the objectives
+
+
+@pytest.mark.parametrize("order", ["degree", "natural"])
+@pytest.mark.parametrize("k", [1, 5, 8, 128, 256])
+def test_chunk_sddmm_matches_its_plain_version_on_the_card(card, order, k):
+    Xd = three_class_matrix()
+    r, c, v = coo_of(Xd)
+    Xt = build_tiled(r, c, v, Xd.shape, device=card, order=order, **BUILD)
+    W = torch.rand(Xd.shape[0], k, device=card)
+    H = torch.rand(k, Xd.shape[1], device=card)
+    build.reset_launch_counts()
+    for side, A, B in ((Xt.fwd, W, H.T.contiguous()), (Xt.bwd, H.T.contiguous(), W)):
+        got = tsp.chunk_sddmm(side, A, B)
+        close(got, tsp.chunk_sddmm_plain(side, A, B))
+        assert torch.equal(got, tsp.chunk_sddmm(side, A, B))  # the same bits
+    got = tsp.tiled_sddmm(Xt, W, H)
+    assert build.launch_counts()["chunk_sddmm"] == 5
+    want = (W.double() @ H.double())[Xt.row_idx.long(), Xt.col_idx.long()]
+    close(got, want.float())
+    # the seam routes a store on the card through the kernel
+    from nmf_tpu_torch.ops import matops
+
+    close(matops.sddmm(W, H, Xt), want.float())
+    assert build.launch_counts()["chunk_sddmm"] == 6
+
+
+DENSE_SHAPES = [(300, 280, 8), (257, 1030, 5), (515, 130, 70), (200, 333, 128)]
+
+
+def _dense_problem(p, n, k, card):
+    g = torch.Generator(device=card).manual_seed(p + n + k)
+    X = torch.rand(p, n, device=card, generator=g)
+    X[torch.rand(p, n, device=card, generator=g) < 0.2] = 0.0
+    return (X, torch.rand(p, k, device=card, generator=g),
+            torch.rand(k, n, device=card, generator=g))
+
+
+@pytest.mark.parametrize("p, n, k", DENSE_SHAPES)
+def test_mu_kernels_match_their_plain_versions_on_the_card(card, p, n, k):
+    X, W, H = _dense_problem(p, n, k, card)
+    Xd, Wd, Hd = X.double(), W.double(), H.double()
+    delta = 3.45e-4
+    build.reset_launch_counts()
+    for fn, plain in ((tmu.wtq, tmu.wtq_plain), (tmu.qht, tmu.qht_plain)):
+        got = fn(X, W, H, delta)
+        close(got, plain(Xd, Wd, Hd, delta).float())
+        assert torch.equal(got, fn(X, W, H, delta))
+    G, C = W.T @ W, W.T @ X
+    got = tmu.mu_factor_update(H, G, C, 0.01, delta)
+    close(got, tmu.mu_factor_update_plain(Hd, G.double(), C.double(), 0.01, delta).float())
+    G2, C2 = H @ H.T, X @ H.T
+    got = tmu.mu_factor_update(W.T, G2, C2.T, 0.01, delta)
+    assert got.T.is_contiguous()
+    close(got, tmu.mu_factor_update_plain(Wd.T, G2.double(), C2.double().T, 0.01, delta).float())
+    for kind, fn in (("mse", tobj.mse_objective_kernel), ("kl", tobj.kl_objective_kernel)):
+        got = fn(X, W, H)
+        want = tobj.dense_objective_plain(Xd, Wd, Hd, kind)
+        assert got.dim() == 0 and got.dtype == torch.float32
+        assert float(got) == pytest.approx(float(want), rel=1e-5)
+        assert float(got) == float(fn(X, W, H))
+    assert build.launch_counts() == dict(
+        chunk_matmul=0, dense_matmul=0, chunk_sddmm=0, mu_factor_update=2,
+        wtq=2, qht=2, dense_objective=4)
+
+
+def test_dense_wrappers_refuse_what_the_kernels_do_not_take(card):
+    X, W, H = _dense_problem(64, 80, 4, card)
+    with pytest.raises(ValueError, match="X must be contiguous"):
+        tmu.wtq(X.T.contiguous().T, W, H, 1e-3)
+    with pytest.raises(TypeError, match="must be float32"):
+        tmu.qht(X, W.half(), H.half(), 1e-3)
+    with pytest.raises(ValueError, match="lives on"):
+        tobj.mse_objective_kernel(X, W.cpu(), H)
+    big = tmu.MU_MAX_K + 1
+    with pytest.raises(ValueError, match="k must be in"):
+        tmu.mu_factor_update(torch.zeros(big, 8, device=card),
+                             torch.zeros(big, big, device=card),
+                             torch.zeros(big, 8, device=card), 0.0, 1e-3)
+    with pytest.raises(ValueError, match="row-major"):
+        tmu.mu_factor_update(H, W.T @ W, (X.T @ W).T, 0.0, 1e-3)
+    # float64 on the card takes the plain expression and launches nothing
+    build.reset_launch_counts()
+    assert tmu.wtq(X.double(), W.double(), H.double(), 1e-3).dtype == torch.float64
+    assert not any(build.launch_counts().values())
+
+
+@pytest.mark.parametrize("alg", ["multmse", "multdiv"])
+@pytest.mark.parametrize("sparse", [False, True], ids=["dense", "tiled"])
+def test_mu_solve_on_the_card_agrees_with_the_cpu(card, alg, sparse):
+    Xd = three_class_matrix()
+    r, c, v = coo_of(Xd)
+    rng = np.random.default_rng(3)
+    W0 = rng.random((Xd.shape[0], 6), dtype=np.float32)
+    H0 = rng.random((6, Xd.shape[1]), dtype=np.float32)
+    kw = dict(alg=alg, init="custom", W0=W0, H0=H0, maxiter=10, tol=1e-30)
+    build.reset_launch_counts()
+    if sparse:
+        a = nt.nnmf(build_tiled(r, c, v, Xd.shape, **BUILD), 6, **kw)
+        b = nt.nnmf(build_tiled(r, c, v, Xd.shape, device="cpu", **BUILD), 6,
+                    device="cpu", **kw)
+        used = ("chunk_matmul", "dense_matmul") + (("chunk_sddmm",) if alg == "multdiv" else ())
+    else:
+        a = nt.nnmf(Xd, 6, **kw)
+        b = nt.nnmf(Xd, 6, device="cpu", **kw)
+        used = ("mu_factor_update",) if alg == "multmse" else ("wtq", "qht")
+    counts = build.launch_counts()
+    assert a.W.is_cuda and all(counts[name] > 0 for name in used), counts
+    # sums in another order, fed through 10 sweeps
+    close(a.W, b.W, rtol=1e-4)
+    close(a.H, b.H, rtol=1e-4)
+    assert a.objvalue == pytest.approx(b.objvalue, rel=1e-4)
+    assert a.niters == b.niters == 10
+
+
+def test_large_dense_objective_goes_through_the_kernel(card):
+    """Above 4M entries a dense float32 X on the card reads its objective
+    through the kernel, for both solver families."""
+    from nmf_tpu_torch.ops import objectives
+
+    X, W, H = _dense_problem(2100, 2000, 7, card)
+    assert X.numel() > objectives._SMALL
+    build.reset_launch_counts()
+    mse, kl = objectives.mse_objective(X, W, H), objectives.kl_objective(X, W, H)
+    assert build.launch_counts()["dense_objective"] == 2
+    assert float(mse) == pytest.approx(float(0.5 * ((X - W @ H).double() ** 2).sum()), rel=1e-5)
+    assert float(kl) == pytest.approx(float(objectives.gkldiv(X.double(), (W @ H).double())), rel=1e-5)
+
+
+@pytest.mark.parametrize("alg", ["cd", "multmse", "multdiv"])
+def test_strided_dense_x_solves_on_the_card(card, alg, monkeypatch):
+    """A transposed view of X goes through the entry points to the dense
+    kernels (which take a row-major X only) and gives the bits of its copy."""
+    from nmf_tpu_torch.ops import objectives
+
+    monkeypatch.setattr(objectives, "_SMALL", 10)  # the objective kernel too
+    A, W0, H0 = _dense_problem(90, 130, 5, card)
+    view, copy = A.T, A.T.contiguous()
+    W0, H0 = H0.T.contiguous(), W0.T.contiguous()
+    kw = dict(alg=alg, init="custom", W0=W0, H0=H0, maxiter=5, tol=1e-30)
+    build.reset_launch_counts()
+    a = nt.nnmf(view, 5, **kw)
+    counts = build.launch_counts()
+    assert counts["dense_objective"] > 0
+    if alg != "cd":
+        used = ("mu_factor_update",) if alg == "multmse" else ("wtq", "qht")
+        assert all(counts[name] > 0 for name in used), counts
+    b = nt.nnmf(copy, 5, **kw)
+    assert torch.equal(a.W, b.W) and torch.equal(a.H, b.H)
+    if alg != "cd":
+        c = nt.solve(nt.MultUpdate(obj=alg[4:], maxiter=5, tol=1e-30), view, W0, H0)
+        assert torch.equal(a.W, c.W) and torch.equal(a.H, c.H)

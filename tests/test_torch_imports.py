@@ -30,10 +30,13 @@ MODULES = [
     "nmf_tpu_torch.models.common",
     "nmf_tpu_torch.models.coorddesc",
     "nmf_tpu_torch.models.interface",
+    "nmf_tpu_torch.models.multupd",
     "nmf_tpu_torch.ops.matops",
     "nmf_tpu_torch.ops.objectives",
     "nmf_tpu_torch.ops.sparse_format",
     "nmf_tpu_torch.ops.cuda.build",
+    "nmf_tpu_torch.ops.cuda.mu",
+    "nmf_tpu_torch.ops.cuda.objectives",
     "nmf_tpu_torch.ops.cuda.sparse",
     "nmf_tpu_torch.utils.dtypes",
     "nmf_tpu_torch.utils.numeric",
@@ -48,6 +51,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'jaxlib', 'nmf_tpu', 'triton'))\n"
         "print('BAD', bad)\n"
+        "from nmf_tpu_torch.ops.cuda import build\n"
+        "print('BUILT', build._lib is not None or build.build_seconds is not None)\n"
         "import torch\n"
         "print('TF32', torch.backends.cuda.matmul.allow_tf32,\n"
         "      torch.backends.cudnn.allow_tf32)\n"
@@ -58,6 +63,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
     )
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
+    # importing the package builds and loads no kernel
+    assert "BUILT False" in out.stdout, out.stdout
     assert "TF32 False False" in out.stdout, out.stdout
 
 
@@ -72,7 +79,30 @@ def test_source_names_neither_jax_nor_the_jax_package_as_an_import(path):
 def test_every_source_of_the_port_is_checked():
     names = {p.name for p in PORT_SOURCES}
     assert {"chip_smoke.py", "chunk_matmul.cu", "dense_matmul.cu", "sparse.py",
-            "interface.py"} <= names
+            "interface.py", "chunk_sddmm.cu", "mu.cu", "objectives.cu",
+            "wh_tile.cuh", "mu.py", "objectives.py", "multupd.py"} <= names
+
+
+def test_every_module_of_the_port_is_imported_by_the_check():
+    have = {
+        ".".join(p.relative_to(ROOT).with_suffix("").parts)
+        for p in PORT_SOURCES
+        if p.suffix == ".py" and p.name not in ("__init__.py", "chip_smoke.py")
+    }
+    assert have <= set(MODULES), sorted(have - set(MODULES))
+
+
+def test_build_lists_every_source_and_entry_point():
+    from nmf_tpu_torch.ops.cuda import build
+
+    on_disk = {p.name for p in build.CSRC.iterdir()}
+    assert set(build.SOURCES) | set(build.HEADERS) == on_disk
+    assert set(build.KERNELS) == {
+        "chunk_matmul", "dense_matmul", "chunk_sddmm", "mu_factor_update",
+        "wtq", "qht", "dense_objective"}
+    for name in build.KERNELS:
+        assert any(f'extern "C" int nmf_{name}(' in (build.CSRC / s).read_text()
+                   for s in build.SOURCES), name
 
 
 def test_tf32_is_off():
@@ -89,6 +119,11 @@ def _entry_points():
     return {
         "nnmf": lambda **kw: nt.nnmf(X, 3, alg="cd", init="random", maxiter=1, **kw),
         "solve": lambda **kw: nt.solve(nt.CoordinateDescent(maxiter=1), Xt, W, H, **kw),
+        "nnmf_multmse": lambda **kw: nt.nnmf(X, 3, alg="multmse", init="random", maxiter=2, **kw),
+        "nnmf_multdiv": lambda **kw: nt.nnmf(Xt, 3, alg="multdiv", init="random", maxiter=2, **kw),
+        "solve_multupdate": lambda **kw: nt.solve(nt.MultUpdate(obj="div", maxiter=2), Xt, W, H, **kw),
+        "result_from_numpy": lambda **kw: convert.result_from_numpy(
+            dict(W=W.numpy(), H=H.numpy(), niters=1, converged=False, objvalue=0.0), **kw),
         "solve_replicates": lambda **kw: nt.solve_replicates(
             nt.CoordinateDescent(maxiter=1), Xt, W, H, replicates=1, initH=True, **kw),
         "randinit": lambda **kw: nt.randinit((12, 9), 3, **kw),

@@ -236,7 +236,7 @@ def test_nnmf_warnings_match_jax():
             call(**kw)
 
 
-@pytest.mark.parametrize("alg", ["projals", "alspgrad", "multmse", "multdiv", "greedycd"])
+@pytest.mark.parametrize("alg", ["projals", "alspgrad", "greedycd"])
 def test_unported_alg_says_so(alg):
     with pytest.raises(NotImplementedError, match=f"alg='{alg}' is not ported yet"):
         nt.nnmf(_small(), 3, alg=alg, init="random", device="cpu")
@@ -247,6 +247,31 @@ def test_unported_init_says_so(init):
     alg = "spa" if init == "spa" else "cd"
     with pytest.raises(NotImplementedError, match=f"init='{init}' is not ported yet"):
         nt.nnmf(_small(), 3, alg=alg, init=init, device="cpu")
+
+
+@pytest.mark.parametrize("alg, cls, obj", [
+    ("cd", nt.CoordinateDescent, None),
+    ("multmse", nt.MultUpdate, "mse"),
+    ("multdiv", nt.MultUpdate, "div"),
+])
+def test_ported_alg_dispatches_to_its_solver(alg, cls, obj, monkeypatch):
+    """``nnmf`` builds the options object the JAX package builds for the same
+    ``alg``: class, objective, and the front door's maxiter / tol / update_H."""
+    from nmf_tpu_torch.models import interface
+
+    seen = {}
+
+    def spy(alginst, X, W, H, **kw):
+        seen["alg"] = alginst
+        return nt.Result(W, H, 0, False, 0.0)
+
+    monkeypatch.setattr(interface, "solve_replicates", spy)
+    with pytest.warns(UserWarning, match="Only W will be updated"):
+        nt.nnmf(_small(), 3, alg=alg, init="random", maxiter=17, tol=0.5,
+                update_H=False, device="cpu")
+    a = seen["alg"]
+    assert type(a) is cls and (a.maxiter, a.tol, a.update_H) == (17, 0.5, False)
+    assert obj is None or a.obj == obj
 
 
 def test_defaults_are_the_jax_packages_and_not_ported_yet():
@@ -261,6 +286,37 @@ def test_defaults_are_the_jax_packages_and_not_ported_yet():
     assert pt["device"].default == "cuda"
     with pytest.raises(NotImplementedError, match="nndsvdar"):
         nt.nnmf(_small(), 3, device="cpu")
+
+
+@pytest.mark.parametrize("alg", ["cd", "multmse", "multdiv"])
+@pytest.mark.parametrize("entry", ["nnmf", "solve"])
+def test_strided_dense_x_is_settled_at_the_entry_point(alg, entry, monkeypatch):
+    """A transposed view of X solves like its row-major copy, and the solver
+    below the entry point is handed a contiguous X (the dense kernels read
+    it row-major)."""
+    rng = np.random.default_rng(5)
+    A = torch.from_numpy(rng.random((9, 14), dtype=np.float32))
+    view, copy = A.T, A.T.contiguous()
+    assert not view.is_contiguous()
+    W0 = torch.from_numpy(rng.random((14, 3), dtype=np.float32))
+    H0 = torch.from_numpy(rng.random((3, 9), dtype=np.float32))
+    inst = (nt.CoordinateDescent(maxiter=4, shuffle=False) if alg == "cd"
+            else nt.MultUpdate(obj=alg[4:], maxiter=4))
+
+    def run(X):
+        if entry == "nnmf":
+            return nt.nnmf(X, 3, alg=alg, init="custom", W0=W0, H0=H0,
+                           maxiter=4, device="cpu")
+        return nt.solve(inst, X, W0, H0, device="cpu")
+
+    seen = []
+    inner = type(inst)._solve
+    monkeypatch.setattr(type(inst), "_solve", lambda self, X, *a: (
+        seen.append(X.is_contiguous()), inner(self, X, *a))[1])
+    a, b = run(view), run(copy)
+    assert seen == [True, True]
+    assert torch.equal(a.W, b.W) and torch.equal(a.H, b.H)
+    assert a.objvalue == b.objvalue
 
 
 def test_solve_checks_where_the_operands_live(problem):
