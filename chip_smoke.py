@@ -1,14 +1,18 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA build: ``python3 chip_smoke.py``.
 
-Needs one NVIDIA Hopper card, ``nvcc`` and no network.  It builds the seven
+Needs one NVIDIA Hopper card, ``nvcc`` and no network.  It builds the nine
 CUDA kernels from ``nmf_tpu_torch/csrc/``, holds each kernel against its plain
 PyTorch version on the card, and drives the ported paths through ``nnmf`` and
 the resumable solver loop:
 
 * sparse Fast-HALS on the 163,000 x 59,000 power-law problem (about 17.6M
   nonzeros, rank 128) down to relative error 0.84;
-* multiplicative updates (KL divergence and MSE) on the same tiled store;
+* greedy coordinate descent (the ``nnmf`` default solver) on the same store,
+  to the same relative error or 200 iterations;
+* Fast-HALS, greedy coordinate descent and the KL multiplicative updates on
+  the quad-tail store of the same matrix;
+* multiplicative updates (KL divergence and MSE) on the first tiled store;
 * multiplicative updates on a dense 100,000 x 10,000 low-rank problem at rank
   64, and on the two small dense problems (500 x 500 rank 8 to relative
   error 0.010, 2000 x 1000 rank 32 to 0.020).
@@ -154,10 +158,16 @@ def _class_csr(side, cls):
         co = side.coords[ids].long()
         panel = side.win_stripe[win].long() * pps + side.chunk_rp[ids].long()
         rows = panel[:, None] * TILE + (co & (TILE - 1))
-        cols = side.win_panel[win].long()[:, None] * TILE + (co >> 7)
+        cols = side.win_panel[win].long()[:, None] * (TILE * side.span) + (co >> 7)
         vals = side.vals[ids]
         keep = vals != 0
         rows, cols, vals = rows[keep], cols[keep], vals[keep]
+    elif cls == "quad":
+        from nmf_tpu_torch.ops.cuda.sparse import quad_rows_cols
+
+        rows, cols = quad_rows_cols(side, 0, side.n_qchunks, side.qvals.device)
+        keep = side.qvals != 0
+        rows, cols, vals = rows[keep], cols[keep], side.qvals[keep]
     else:
         ids = side.dpanel_blocks.long()
         win = ids // DENSE_GROUP
@@ -184,6 +194,13 @@ def _bound(side, cls, k, nnz):
         nbytes = (n_items * (TILE * 8 + 4) + 4 * side.panel_ptr.numel()
                   + 4 * side.win_panel.numel() + d_and_out)
         flops = 2 * nnz * k
+    elif cls == "quad":
+        # the sub-segments that hold entries: 12 bytes a slot and one index
+        # word each; the kernel adds into its output (read once, written once)
+        n_items = side.qpanel_segs.numel()
+        nbytes = (n_items * (side.quad_seg * 12 + 4) + 4 * side.qpanel_ptr.numel()
+                  + 4 * side.qwin_panel.numel() + d_and_out + 4 * k * side.rows)
+        flops = 2 * nnz * k
     else:
         n_items = side.dpanel_blocks.numel()
         # the dense kernel adds into its output: read once and written once
@@ -193,24 +210,30 @@ def _bound(side, cls, k, nnz):
     return (*bound_of(nbytes, flops), nbytes, flops, n_items)
 
 
-def check_kernels(X, k, label, timed):
-    """Each kernel against its plain version, both orientations.  Returns
-    ``{kernel: {side: record}}``; exits when a result disagrees."""
+def check_kernels(X, k, label, timed, classes=("chunk", "dense")):
+    """Each product kernel of ``classes`` against its plain version, both
+    orientations.  Returns ``{kernel: {side: record}}``; exits when a result
+    disagrees.  The quad kernel is held against its plain version run in
+    float64."""
     from nmf_tpu_torch.ops.cuda import sparse as S
 
+    kernels = {
+        "chunk": ("chunk_matmul", S.chunk_matmul, S.chunk_matmul_plain),
+        "dense": ("dense_matmul", S.dense_matmul, S.dense_matmul_plain),
+        "quad": ("quad_matmul", S.quad_matmul, S.quad_matmul_plain),
+    }
     gen = torch.Generator(device="cuda").manual_seed(1)
-    rec = {"chunk_matmul": {}, "dense_matmul": {}}
+    rec = {kernels[cls][0]: {} for cls in classes}
     for sname, side in (("fwd", X.fwd), ("bwd", X.bwd)):
         D = torch.rand((side.cols, k), generator=gen, device="cuda")
-        for name, cls, kern, plain in (
-            ("chunk_matmul", "chunk", S.chunk_matmul, S.chunk_matmul_plain),
-            ("dense_matmul", "dense", S.dense_matmul, S.dense_matmul_plain),
-        ):
-            if cls == "dense" and not side.n_dblocks:
-                fail(f"{label}: the {sname} side has no dense block to check")
+        for cls in classes:
+            name, kern, plain = kernels[cls]
+            if (cls == "dense" and not side.n_dblocks) or (
+                    cls == "quad" and not side.qpanel_segs.numel()):
+                fail(f"{label}: the {sname} side has no {cls} entry to check")
             got = kern(side, D)
             torch.cuda.synchronize()
-            want = plain(side, D)
+            want = plain(side, D.double()) if cls == "quad" else plain(side, D)
             scale = float(want.abs().max())
             err = float((got - want).abs().max())
             r = {"max_abs_err": err, "rel_err": err / scale, "scale": scale}
@@ -266,9 +289,11 @@ def _same_bits(label, fn):
     return True
 
 
-def check_sddmm(X, W, H, label, timed):
-    """Kernel 4 on the forward side against its plain version in float64, and
-    the whole sampled product against gather-gather-reduce in float64."""
+def check_sddmm(X, W, H, label, timed, cls="chunk"):
+    """The sampled-product kernel of one store class (kernel 4 over the
+    chunks, kernel 5 over the quad chunks) on the forward side against its
+    plain version in float64, and the whole sampled product against
+    gather-gather-reduce in float64."""
     from nmf_tpu_torch.models import common
     from nmf_tpu_torch.ops.cuda import sparse as S
     from nmf_tpu_torch.ops.sparse_format import TILE
@@ -278,11 +303,25 @@ def check_sddmm(X, W, H, label, timed):
     side = Xr.fwd
     k = w.shape[1]
     w32, ht = w.contiguous(), h.T.contiguous()
-    got = S.chunk_sddmm(side, w32, ht)
+    if cls == "quad":
+        name, kern, plain = "quad_sddmm", S.quad_sddmm, S.quad_sddmm_plain
+        n_slots = side.n_qchunks * TILE
+        # the function's own traffic: two coordinates in and one float out a
+        # slot, the windows' and sub-segments' metadata, both factors
+        meta_words = side.q_rp.numel() + side.qwin_panel.numel() + side.qwin_stripe.numel()
+        slot_bytes = 3 * 4 * n_slots
+    else:
+        name, kern, plain = "chunk_sddmm", S.chunk_sddmm, S.chunk_sddmm_plain
+        n_slots = side.coords.numel()
+        meta_words = side.chunk_rp.numel() + side.win_panel.numel() + side.win_stripe.numel()
+        slot_bytes = 2 * 4 * n_slots
+    if not n_slots:
+        fail(f"{label}: the store has no {cls} slot to sample")
+    got = kern(side, w32, ht)
     torch.cuda.synchronize()
-    want = S.chunk_sddmm_plain(side, w32.double(), ht.double())
-    r = _held(f"{label} chunk_sddmm", got, want, REL_TOL, (side.coords.shape[0] * TILE,))
-    r["same_bits"] = _same_bits(f"{label} chunk_sddmm", lambda: S.chunk_sddmm(side, w32, ht))
+    want = plain(side, w32.double(), ht.double())
+    r = _held(f"{label} {name}", got, want, REL_TOL, (n_slots,))
+    r["same_bits"] = _same_bits(f"{label} {name}", lambda: kern(side, w32, ht))
     del got, want
 
     # the whole product, in the caller's coordinates, permutations included
@@ -302,7 +341,7 @@ def check_sddmm(X, W, H, label, timed):
     del whole, Wd, Htd
 
     if timed:
-        A, nnz = _class_csr(side, "chunk")
+        A, nnz = _class_csr(side, cls)
         h32 = h.contiguous()
         lib = torch.sparse.sampled_addmm(A, w32, h32, beta=0.0)
         rows = torch.repeat_interleave(
@@ -310,20 +349,16 @@ def check_sddmm(X, W, H, label, timed):
         ref = (w32.double()[rows] * ht.double()[A.col_indices()]).sum(dim=1)
         lerr, lscale = _rel_err(lib.values(), ref)
         if not lerr <= 1e-4 * lscale:
-            fail(f"{label} chunk_sddmm: yardstick disagrees ({lerr})")
+            fail(f"{label} {name}: yardstick disagrees ({lerr})")
         del rows, ref, lib
-        n_slots = side.coords.numel()
-        # the function's own traffic: coords in, one float a slot out, the
-        # windows' metadata and both factors
-        nbytes = (2 * 4 * n_slots
-                  + 4 * (side.chunk_rp.numel() + side.win_panel.numel()
-                         + side.win_stripe.numel())
-                  + 4 * k * (side.rows + side.cols))
+        # the function's own traffic: coordinates in, one float a slot out,
+        # the metadata and both factors
+        nbytes = slot_bytes + 4 * meta_words + 4 * k * (side.rows + side.cols)
         flops = 2 * nnz * k
         bound_ms, by = bound_of(nbytes, flops)
         r.update(
-            ms=time_ms(lambda: S.chunk_sddmm(side, w32, ht)),
-            plain_ms=time_ms(lambda: S.chunk_sddmm_plain(side, w32, ht), reps=3),
+            ms=time_ms(lambda: kern(side, w32, ht)),
+            plain_ms=time_ms(lambda: plain(side, w32, ht), reps=3),
             library_ms=time_ms(
                 lambda: torch.sparse.sampled_addmm(A, w32, h32, beta=0.0), reps=3),
             tiled_sddmm_ms=time_ms(lambda: S.tiled_sddmm(X, W, H), reps=3),
@@ -464,10 +499,14 @@ def small_problem_check():
             "nnz": len(vals)}
 
 
-def solve_main_path(X, W0, H0):
+def solve_main_path(X, W0, H0, alg, upd, max_iters, must_reach):
+    """One solver on the full store: 5 traced iterations through ``nnmf``,
+    then the resumable loop from the same start in chunks of 5 until the
+    target relative error or ``max_iters``.  ``must_reach`` makes a missed
+    target a failure; otherwise the count is reported and no limit is set on
+    it.  Returns the record and the last factors (renumbered coordinates)."""
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.models import common
-    from nmf_tpu_torch.models.coorddesc import CoordinateDescent
 
     out = {}
     xsq = float(X.stats[1])
@@ -475,7 +514,7 @@ def solve_main_path(X, W0, H0):
     # (a) through the front door, 5 traced iterations
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = nt.nnmf(X, K, alg="cd", init="custom", W0=W0, H0=H0, tol=1e-30,
+    res = nt.nnmf(X, K, alg=alg, init="custom", W0=W0, H0=H0, tol=1e-30,
                   maxiter=5, trace=True)
     torch.cuda.synchronize()
     out["nnmf_5_traced_iters_s"] = time.perf_counter() - t0
@@ -492,7 +531,6 @@ def solve_main_path(X, W0, H0):
 
     # (b) the resumable loop from the same start, in chunks of 5, one
     # relative-error read per chunk, until the target
-    upd, _ = CoordinateDescent(maxiter=100)._resolved(torch.float32)
     Xr, w, h, perms = common.renumbered_problem(
         X, torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda()
     )
@@ -502,7 +540,7 @@ def solve_main_path(X, W0, H0):
     iters = 0
     obj, r = relerr_of(Xr, w, h, xsq)
     traj = [(0, obj, r)]
-    while not r <= TARGET_RELERR and iters < 60:
+    while not r <= TARGET_RELERR and iters < max_iters:
         w, h, state, t, _, _ = common._solve_while_from(
             upd, state, Xr, w, h, 0, 5, 1e-30, with_objective=False
         )
@@ -528,9 +566,115 @@ def solve_main_path(X, W0, H0):
             fail(f"objective rose in the resumable loop: {prev} -> {cur}")
     if not all(math.isfinite(o) for o in objs):
         fail("non-finite objective")
-    if not r <= TARGET_RELERR:
+    out["reached_target"] = r <= TARGET_RELERR
+    if must_reach and not r <= TARGET_RELERR:
         fail(f"relative error {r} after {iters} iterations, target {TARGET_RELERR}")
-    return out
+    return out, (Xr, w, h)
+
+
+def greedycd_steps(X, W0, H0, iters=10):
+    """Masked steps of every GreedyCD half-step over the first ``iters``
+    iterations: the steps the half-step ran (its slowest row's count) and the
+    mean over its rows.  The counting adds one device sum a step and no host
+    read; it is switched on for this run only."""
+    from nmf_tpu_torch.models import common
+    from nmf_tpu_torch.models import greedycd as G
+
+    upd, _ = G.GreedyCD(maxiter=100)._resolved(torch.float32)
+    Xr, w, h, _ = common.renumbered_problem(
+        X, torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda())
+    log = []
+    step, rows_fn = G._masked_step, G._greedy_rows
+
+    def counted_step(W, c, active, *a):
+        log[-1][1] += 1
+        log[-1][2] += active.sum()
+        return step(W, c, active, *a)
+
+    def counted_rows(W, *a):
+        log.append([W.shape[0], 0, torch.zeros((), dtype=torch.int64, device="cuda")])
+        return rows_fn(W, *a)
+
+    G._masked_step, G._greedy_rows = counted_step, counted_rows
+    try:
+        common._solve_while_from(upd, (), Xr, w, h, 0, iters, 1e-30, with_objective=False)
+    finally:
+        G._masked_step, G._greedy_rows = step, rows_fn
+    per_half = [{"rows": rows, "steps": steps, "mean_steps": float(tot) / rows}
+                for rows, steps, tot in log]
+    if len(per_half) != 2 * iters or not all(h["steps"] <= K * K for h in per_half):
+        fail(f"greedycd_steps: {len(per_half)} half-steps logged for {iters} iterations")
+    return {"iterations": iters, "half_steps": per_half,
+            "max_steps": max(h["steps"] for h in per_half),
+            "mean_steps_first_sweep": per_half[0]["mean_steps"],
+            "mean_steps_last_sweep": per_half[-2]["mean_steps"]}
+
+
+def time_iteration_parts_greedy(Xr, w, h):
+    """Where one GreedyCD iteration goes, from the given factors: the two
+    products, the Gram and score set-up, and the greedy loop, whose host
+    reads (one a masked step) are counted; one masked step at full width on
+    the device against the host time to enqueue it, and one host read."""
+    from nmf_tpu_torch.models import greedycd as G
+    from nmf_tpu_torch.ops import matops
+    from nmf_tpu_torch.utils.dtypes import eps
+
+    Xt = Xr.transpose()
+    ht, wt = h.T.contiguous(), w.contiguous()
+    parts = {
+        "mm_fwd_ms": time_ms(lambda: matops.mm(Xr, ht), reps=3),
+        "mm_bwd_ms": time_ms(lambda: matops.mm(Xt, wt), reps=3),
+    }
+
+    def setup(W, Ht, Z):
+        P = Ht.T @ Ht
+        Pdiag = torch.diagonal(P)
+        denom = eps(torch.float32) + Pdiag
+        G_ = W @ P - Z
+        S, D = G._scores(W, G_, denom, Pdiag)
+        return G_, S, D, P, denom, Pdiag, 0.001 * D.max().clamp_min(-1.0)
+
+    step = G._masked_step
+    count = [0]
+
+    def counted(*a):
+        count[0] += 1
+        return step(*a)
+
+    for name, X_, W_, Ht_ in (("W", Xr, wt, ht), ("H", Xt, ht, wt)):
+        Z = matops.mm(X_, Ht_)
+        parts[f"setup_{name}_ms"] = time_ms(lambda: setup(W_, Ht_, Z), reps=3)
+        count[0] = 0
+        G._masked_step = counted
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            G._halfstep(X_, W_, Ht_, 0.0)
+            torch.cuda.synchronize()
+            parts[f"halfstep_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        finally:
+            G._masked_step = step
+        parts[f"masked_steps_{name}"] = parts[f"host_reads_{name}"] = count[0]
+        parts[f"greedy_loop_{name}_ms"] = parts[f"halfstep_{name}_ms"] - (
+            parts["mm_fwd_ms" if name == "W" else "mm_bwd_ms"] + parts[f"setup_{name}_ms"])
+        # one masked step over all the rows: device time, and host time to
+        # enqueue it with nothing read back
+        G_, S, D, P, denom, Pdiag, thr = setup(W_, Ht_, Z)
+        carry = G._Carry(torch.zeros_like(W_), G_, S, D, D.argmax(dim=1),
+                         torch.zeros(W_.shape[0], dtype=torch.int32, device="cuda"))
+        act = G._active(carry, thr, K * K)
+        one = lambda: G._masked_step(W_, carry, act, P, denom, Pdiag)
+        parts[f"masked_step_full_width_{name}_ms"] = time_ms(one, reps=3)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one()
+        parts[f"masked_step_enqueue_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        int(act.sum())
+        parts[f"host_read_{name}_ms"] = (time.perf_counter() - t0) * 1e3
+        del carry, G_, S, D, Z
+    return parts
 
 
 def time_iteration_parts(X, W0, H0):
@@ -579,9 +723,9 @@ def _monotone(label, start, history):
             fail(f"{label}: objective rose {prev} -> {cur}")
 
 
-def _traced_mu(label, X, k, alg, W0, H0, iters, xsq):
-    """``iters`` traced iterations of one multiplicative-update solver through
-    the front door, with the launch counts of just this run."""
+def _traced_run(label, X, k, alg, W0, H0, iters, xsq):
+    """``iters`` traced iterations of one solver through the front door, with
+    the launch counts of just this run."""
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.ops.cuda import build
     from nmf_tpu_torch.ops.objectives import kl_objective, mse_objective
@@ -649,11 +793,41 @@ def solve_mu_sparse(X, W0, H0, iters=20):
         ("multdiv", "div", ("chunk_matmul", "dense_matmul", "chunk_sddmm")),
         ("multmse", "mse", ("chunk_matmul", "dense_matmul")),
     ):
-        r = _traced_mu(f"solve_mu_sparse {alg}", X, K, alg, W0, H0, iters, xsq)
+        r = _traced_run(f"solve_mu_sparse {alg}", X, K, alg, W0, H0, iters, xsq)
         _need_launches(f"solve_mu_sparse {alg}", r["launches"], names)
         r["seconds_per_iteration"] = _seconds_per_iteration(
             X, MultUpdate(obj=obj), W0, H0, 10)
         out[alg] = r
+    return out
+
+
+def solve_quad_store(Xq, W0, H0, hals_history):
+    """The quad-tail store of the same matrix: Fast-HALS and GreedyCD for a
+    few iterations each and the KL multiplicative updates for a few traced
+    iterations, each through the front door with the launch counts of its own
+    run.  The matrix is the one of the first path in another layout, so the
+    traced HALS objectives must repeat that path's."""
+    from nmf_tpu_torch.models.coorddesc import CoordinateDescent
+    from nmf_tpu_torch.models.greedycd import GreedyCD
+    from nmf_tpu_torch.models.multupd import MultUpdate
+
+    xsq = float(Xq.stats[1])
+    products = ("chunk_matmul", "dense_matmul", "quad_matmul")
+    out = {}
+    for alg, upd, iters, names in (
+        ("cd", CoordinateDescent(maxiter=100)._resolved(torch.float32)[0], 5, products),
+        ("greedycd", GreedyCD(maxiter=100), 5, products),
+        ("multdiv", MultUpdate(obj="div"), 5, products + ("chunk_sddmm", "quad_sddmm")),
+    ):
+        r = _traced_run(f"solve_quad_store {alg}", Xq, K, alg, W0, H0, iters, xsq)
+        _need_launches(f"solve_quad_store {alg}", r["launches"], names)
+        r["seconds_per_iteration"] = _seconds_per_iteration(Xq, upd, W0, H0, 5)
+        out[alg] = r
+    for a, b in zip(out["cd"]["objective_history"], hals_history):
+        # the same sums in another order, fed through up to 5 sweeps
+        if not abs(a - b) <= 1e-4 * abs(b):
+            fail(f"solve_quad_store cd: objective {a} on the quad store, {b} on "
+                 "the chunk store of the same matrix")
     return out
 
 
@@ -695,7 +869,7 @@ def solve_mu_dense(X, W0, H0, iters=10):
         ("multdiv", "div", ("wtq", "qht", "dense_objective")),
         ("multmse", "mse", ("mu_factor_update", "dense_objective")),
     ):
-        r = _traced_mu(f"solve_mu_dense {alg}", X, DK, alg, W0, H0, iters, xsq)
+        r = _traced_run(f"solve_mu_dense {alg}", X, DK, alg, W0, H0, iters, xsq)
         _need_launches(f"solve_mu_dense {alg}", r["launches"], names)
         r["seconds_per_iteration"] = _seconds_per_iteration(
             X, MultUpdate(obj=obj), W0, H0, 5)
@@ -811,6 +985,24 @@ def main():
         Hs = torch.rand((k, 2500), generator=gen, device="cuda")
         small[f"k{k}"]["chunk_sddmm"] = {
             "fwd": check_sddmm(Xs, Ws, Hs, f"small store k={k}", timed=False)}
+    # the same small matrix as a quad-tail store (both sub-segment widths)
+    # and with wide tail tiles (kernels 1 and 4 at span 4: a kernel check,
+    # no path runs on such a store here)
+    for tag, opts, classes, cls in (
+        ("quad32", dict(dense_tile_nnz=192, quad_tail_nnz=32), ("chunk", "dense", "quad"), "quad"),
+        ("quad16", dict(dense_tile_nnz=192, quad_tail_nnz=16, quad_seg=16), ("quad",), "quad"),
+        ("span4", dict(dense_tile_nnz=192, tail_span=4, coo_tail_nnz=3), ("chunk",), "chunk"),
+    ):
+        Xv = build_tiled(rs, cs, vs, (3000, 2500), **opts)
+        for k in (K, 9):
+            rec = check_kernels(Xv, k, f"small {tag} store k={k}", timed=False,
+                                classes=classes)
+            Ws = torch.rand((3000, k), generator=gen, device="cuda")
+            Hs = torch.rand((k, 2500), generator=gen, device="cuda")
+            sd = check_sddmm(Xv, Ws, Hs, f"small {tag} store k={k}", timed=False, cls=cls)
+            rec[f"{cls}_sddmm"] = {"fwd": sd, "tiled_sddmm": {"rel_err": sd["tiled_sddmm_rel_err"]}}
+            small[f"{tag}_k{k}"] = rec
+        del Xv
     say("kernels_small", shape=[3000, 2500], nnz=len(vs), tolerance=REL_TOL,
         rel_err={kk: {n: {s: r["rel_err"] for s, r in d.items()}
                       for n, d in v.items()} for kk, v in small.items()})
@@ -841,18 +1033,34 @@ def main():
     t_build = time.perf_counter() - t0
     W0 = rng.random((P, K), dtype=np.float32)
     H0 = rng.random((K, N), dtype=np.float32)
-    store = {
-        s: {"chunks": int(side.panel_chunks.numel()),
-            "chunks_stored": int(side.coords.shape[0]),
-            "dense_blocks": int(side.dpanel_blocks.numel()),
-            "dense_blocks_stored": side.n_dblocks,
-            "band_entries": side.n_coo,
-            "max_chunks_in_a_panel": int(side.panel_ptr.diff().max()),
-            "max_blocks_in_a_panel": int(side.dpanel_ptr.diff().max())}
-        for s, side in (("fwd", X.fwd), ("bwd", X.bwd))
-    }
+    # the quad-tail store of the same matrix
+    t0 = time.perf_counter()
+    Xq = build_tiled(rows, cols, vals, (P, N), dense_tile_nnz=192, quad_tail_nnz=32)
+    torch.cuda.synchronize()
+    t_build_quad = time.perf_counter() - t0
+
+    def classes(side):
+        c = {"chunks": int(side.panel_chunks.numel()),
+             "chunks_stored": int(side.coords.shape[0]),
+             "chunk_entries": int((side.vals != 0).sum()),
+             "dense_blocks": int(side.dpanel_blocks.numel()),
+             "dense_blocks_stored": side.n_dblocks,
+             "band_entries": side.n_coo,
+             "max_chunks_in_a_panel": int(side.panel_ptr.diff().max()),
+             "max_blocks_in_a_panel": int(side.dpanel_ptr.diff().max())}
+        if side.n_qchunks:
+            c.update(quad_chunks_stored=side.n_qchunks,
+                     quad_sub_segments=int(side.qpanel_segs.numel()),
+                     quad_sub_segments_stored=int(side.q_rp.numel()),
+                     quad_entries=int((side.qvals != 0).sum()),
+                     max_sub_segments_in_a_panel=int(side.qpanel_ptr.diff().max()))
+        return c
+
     say("store", shape=[P, N], nnz=len(vals), k=K, binner="numpy",
-        data_seconds=t_data, host_build_seconds=t_build, **store)
+        data_seconds=t_data, host_build_seconds=t_build,
+        host_build_seconds_quad=t_build_quad,
+        **{s: classes(side) for s, side in (("fwd", X.fwd), ("bwd", X.bwd))},
+        quad_store={s: classes(side) for s, side in (("fwd", Xq.fwd), ("bwd", Xq.bwd))})
     del rows, cols
 
     full = check_kernels(X, K, "full store", timed=True)
@@ -860,18 +1068,55 @@ def main():
     sddmm = check_sddmm(X, torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda(),
                         "full store", timed=True)
     say("kernels_sddmm", card=smi, chunk_sddmm=sddmm)
+    # kernels 3 and 5 on the quad-tail store
+    quad = check_kernels(Xq, K, "quad store", timed=True, classes=("quad",))
+    quad_sddmm = check_sddmm(Xq, torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda(),
+                             "quad store", timed=True, cls="quad")
+    say("kernels_quad", tolerance=REL_TOL, card=smi, **quad, quad_sddmm=quad_sddmm)
 
     # 4. the first path: sparse Fast-HALS
+    from nmf_tpu_torch.models import common
+    from nmf_tpu_torch.models.coorddesc import CoordinateDescent
+    from nmf_tpu_torch.models.greedycd import GreedyCD
+
     say("small_problem", **small_problem_check())
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
-    solved = solve_main_path(X, W0, H0)
+    solved, _ = solve_main_path(
+        X, W0, H0, "cd", CoordinateDescent(maxiter=100)._resolved(torch.float32)[0],
+        max_iters=60, must_reach=True)
     hals_launches = build.launch_counts()
     solved["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
     solved["launches"] = hals_launches
     say("solve", target=TARGET_RELERR, card=smi, **solved)
     _need_launches("solve", hals_launches, ("chunk_matmul", "dense_matmul"))
     say("iteration_parts", card=smi, **time_iteration_parts(X, W0, H0))
+
+    # 4b. GreedyCD, the default solver, on the same store: to the target or
+    # 200 iterations (its count is chaotic near the flat end of its curve, so
+    # it is reported and not limited)
+    say("greedycd_steps", card=smi, **greedycd_steps(X, W0, H0))
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    greedy, last = solve_main_path(X, W0, H0, "greedycd", GreedyCD(maxiter=100),
+                                   max_iters=200, must_reach=False)
+    greedy_launches = build.launch_counts()
+    greedy["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    greedy["launches"] = greedy_launches
+    say("solve_greedycd", target=TARGET_RELERR, card=smi, **greedy)
+    _need_launches("solve_greedycd", greedy_launches, ("chunk_matmul", "dense_matmul"))
+    Xr, w0, h0, _ = common.renumbered_problem(
+        X, torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda())
+    say("iteration_parts_greedycd", card=smi,
+        first_iteration=time_iteration_parts_greedy(Xr, w0, h0),
+        after_the_solve=time_iteration_parts_greedy(*last))
+    del Xr, w0, h0, last
+
+    # 4c. the quad-tail store: HALS, GreedyCD and the KL updates
+    quad_paths = solve_quad_store(Xq, W0, H0, solved["nnmf_objective_history"])
+    say("solve_quad_store", shape=[P, N], k=K, card=smi, **quad_paths)
+    del Xq
+    torch.cuda.empty_cache()
 
     # 5. the second path: multiplicative updates on the same store
     mu_sparse = solve_mu_sparse(X, W0, H0)
@@ -897,10 +1142,14 @@ def main():
     say("solve_mu_dense", shape=[DP, DN], k=DK, card=smi, **mu_dense)
     del Xd
 
-    # 7. the report: launches are those of the three paths' runs, each read
-    # with the counts set to 0 just before it
+    # 7. the report: launches are those of the paths' runs, each read with
+    # the counts set to 0 just before it
     paths = {
         "solve": hals_launches,
+        "solve_greedycd": greedy_launches,
+        "solve_quad_store_cd": quad_paths["cd"]["launches"],
+        "solve_quad_store_greedycd": quad_paths["greedycd"]["launches"],
+        "solve_quad_store_multdiv": quad_paths["multdiv"]["launches"],
         "solve_mu_sparse_multdiv": mu_sparse["multdiv"]["launches"],
         "solve_mu_sparse_multmse": mu_sparse["multmse"]["launches"],
         "solve_mu_dense_multdiv": mu_dense["multdiv"]["launches"],
@@ -914,7 +1163,9 @@ def main():
     meta = {
         "chunk_matmul": (csrc + "chunk_matmul.cu", pallas + "sparse.py:329", full["chunk_matmul"]),
         "dense_matmul": (csrc + "dense_matmul.cu", pallas + "sparse.py:624", full["dense_matmul"]),
+        "quad_matmul": (csrc + "quad_matmul.cu", pallas + "sparse.py:537", quad["quad_matmul"]),
         "chunk_sddmm": (csrc + "chunk_sddmm.cu", pallas + "sparse.py:738", {"fwd": sddmm}),
+        "quad_sddmm": (csrc + "quad_sddmm.cu", pallas + "sparse.py:825", {"fwd": quad_sddmm}),
         "dense_objective": (csrc + "objectives.cu", pallas + "objectives.py:75", dense["dense_objective"]),
         "mu_factor_update": (csrc + "mu.cu", pallas + "mu.py:54", dense["mu_factor_update"]),
         "wtq": (csrc + "mu.cu", pallas + "mu.py:99", {"": dense["wtq"]}),

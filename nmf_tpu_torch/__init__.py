@@ -7,9 +7,10 @@ steps and the dense objectives run hand-written CUDA kernels (``csrc/``).  It
 imports ``torch`` and ``numpy`` only.
 
 Ported so far: the ``nnmf`` front door for Fast-HALS coordinate descent
-(``alg="cd"``) and the multiplicative updates (``alg="multmse"``,
-``alg="multdiv"``) with random or custom initialization, on dense tensors and
-on the tiled sparse store (``ops.sparse_format.build_tiled``).  Entry points
+(``alg="cd"``), greedy coordinate descent (``alg="greedycd"``, the default)
+and the multiplicative updates (``alg="multmse"``, ``alg="multdiv"``) with
+random or custom initialization, on dense tensors and on the tiled sparse
+store (``ops.sparse_format.build_tiled``).  Entry points
 run on the card unless the caller passes ``device="cpu"``.
 """
 
@@ -17,6 +18,7 @@ from . import config
 from .init.initialization import randinit
 from .models.common import Result, Trace, nmf_checksize, solve, stop_condition
 from .models.coorddesc import CoordinateDescent
+from .models.greedycd import GreedyCD
 from .models.interface import nnmf, solve_replicates
 from .models.multupd import MultUpdate
 from .ops.objectives import gkldiv, kl_objective, mse_objective, sqL2dist
@@ -33,6 +35,7 @@ __all__ = [
     "stop_condition",
     "nmf_checksize",
     "CoordinateDescent",
+    "GreedyCD",
     "MultUpdate",
     "randinit",
     "mse_objective",

@@ -1,4 +1,5 @@
-"""Device choice and matmul precision for the PyTorch/CUDA build.
+"""Device choice, matmul precision and the GreedyCD cascade schedule for the
+PyTorch/CUDA build.
 
 The build targets one NVIDIA Hopper card.  Every entry point takes an
 explicit ``device=`` whose default is ``"cuda"``; when no card is present the
@@ -15,7 +16,8 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "check_on_device"]
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "check_on_device",
+           "greedycd_cascade", "set_greedycd_cascade"]
 
 # exact fp32: stated and set (PyTorch's own default for matmul is already
 # False; cuDNN's is True)
@@ -45,3 +47,33 @@ def check_on_device(dev: torch.device, **tensors) -> None:
                 f"{name} lives on {t.device} but device={str(dev)!r} was "
                 "requested; move it or pass the matching device="
             )
+
+
+# GreedyCD's compaction cascade (``models/greedycd.py``): masked steps run
+# over a buffer of rows until the rows still active fit a buffer ``shrink``
+# times smaller, then those rows are gathered and the loop goes on there,
+# down to buffers of ``min`` rows.  Below ``off_rows`` rows nothing is
+# compacted; above ``slab_rows`` rows a half-step runs slab by slab (its
+# scratch is four (rows, k) arrays).  Read at call time; change them through
+# ``set_greedycd_cascade``.
+greedycd_cascade: dict[str, int] = {
+    "shrink": 4,
+    "min": 128,
+    "off_rows": 4096,
+    "slab_rows": 524_288,
+}
+
+
+def set_greedycd_cascade(shrink: int | None = None, min: int | None = None,
+                         off_rows: int | None = None,
+                         slab_rows: int | None = None) -> None:
+    """Override the GreedyCD cascade schedule (None = keep current).  The
+    schedule changes how the rows are batched, never a row's result."""
+    new = dict(shrink=shrink, min=min, off_rows=off_rows, slab_rows=slab_rows)
+    for key, val in new.items():
+        lo = 2 if key == "shrink" else 1
+        if val is not None and (
+            isinstance(val, bool) or not isinstance(val, int) or val < lo
+        ):
+            raise ValueError(f"cascade {key} must be an int >= {lo}")
+    greedycd_cascade.update({k: v for k, v in new.items() if v is not None})

@@ -15,6 +15,7 @@ import numpy as np
 from . import config
 from .models.common import Result, Trace
 from .models.coorddesc import CoordinateDescent
+from .models.greedycd import GreedyCD
 from .models.multupd import MultUpdate
 from .ops.sparse_format import (
     TiledCSR,
@@ -27,11 +28,13 @@ from .ops.sparse_format import (
 __all__ = ["tiled_from_numpy", "factors_from_numpy", "solver_from_fields",
            "result_from_numpy"]
 
-_SOLVERS = {"CoordinateDescent": CoordinateDescent, "MultUpdate": MultUpdate}
+_SOLVERS = {"CoordinateDescent": CoordinateDescent, "GreedyCD": GreedyCD,
+            "MultUpdate": MultUpdate}
 
 _SIDE_FIELDS = tuple(
     f for f in TiledSideC.__dataclass_fields__
-    if f not in ("panel_ptr", "panel_chunks", "dpanel_ptr", "dpanel_blocks")
+    if f not in ("panel_ptr", "panel_chunks", "dpanel_ptr", "dpanel_blocks",
+                 "qpanel_ptr", "qpanel_segs")
 )
 _TOP_ARRAYS = ("row_idx", "col_idx", "values", "row_perm", "row_rank",
                "col_perm", "col_rank", "stats")
@@ -45,14 +48,10 @@ def _unpack_bytes(words):
 
 
 def _side(d) -> dict:
-    if d.get("n_qchunks") or d.get("span", 1) != 1:
-        raise NotImplementedError(
-            "a store with quad-tail chunks or wide tail tiles is not ported yet"
-        )
-    f = {name: d.get(name) for name in _SIDE_FIELDS}
-    f["chunk_rp"] = _unpack_bytes(f["chunk_rp"])
-    if f["dblk_rp"] is not None:
-        f["dblk_rp"] = _unpack_bytes(f["dblk_rp"])
+    f = {name: d[name] for name in _SIDE_FIELDS if name in d}
+    for name in ("chunk_rp", "dblk_rp", "q_rp"):
+        if f.get(name) is not None:
+            f[name] = _unpack_bytes(f[name])
     f.update(row_panel_index(f))
     return f
 
@@ -61,8 +60,9 @@ def tiled_from_numpy(d, device=config.DEFAULT_DEVICE) -> TiledCSR:
     """The port's ``TiledCSR`` on ``device`` from the fields of an ``nmf_tpu``
     ``TiledCSR`` given as a dict: ``fwd`` and ``bwd`` are dicts of that
     side's fields, every array a numpy array, every count an int.  The
-    byte-packed ``chunk_rp`` / ``dblk_rp`` are unpacked to one int32 per chunk
-    / block and the row-panel index is derived."""
+    byte-packed ``chunk_rp`` / ``dblk_rp`` / ``q_rp`` are unpacked to one
+    int32 per chunk / block / quad sub-segment and the row-panel index is
+    derived."""
     dev = config.resolve_device(device)
     top = {name: to_tensor(d.get(name), dev) for name in _TOP_ARRAYS}
     return TiledCSR(
@@ -82,10 +82,10 @@ def factors_from_numpy(W, H, device=config.DEFAULT_DEVICE):
 
 def solver_from_fields(name, fields):
     """The port's options object from the name of an ``nmf_tpu`` options
-    dataclass (``"CoordinateDescent"``, ``"MultUpdate"``) and its fields as a
-    dict of plain Python values.  Fields the port's class does not have (the
-    JAX random ``key``: the port draws from a ``torch.Generator``) are left
-    out; the port's own validation runs."""
+    dataclass (``"CoordinateDescent"``, ``"GreedyCD"``, ``"MultUpdate"``) and
+    its fields as a dict of plain Python values.  Fields the port's class
+    does not have (the JAX random ``key``: the port draws from a
+    ``torch.Generator``) are left out; the port's own validation runs."""
     if name not in _SOLVERS:
         raise NotImplementedError(
             f"solver {name!r} is not ported yet; ported: {sorted(_SOLVERS)}"

@@ -21,6 +21,9 @@
 // value) pairs are staged in shared memory by one coalesced load; trailing
 // padding slots (value 0) are cut off with a ballot, and the gathers of 8
 // slots are issued together before their adds to keep loads in flight.
+// A chunk tile may span several col panels (wide tail tiles): a slot's local
+// column then runs to span * 128 and the window's panel counts wide panels,
+// so the gathered row is one index either way.
 // Panels carry very different numbers of chunks on degree-ordered data;
 // the heaviest panels come first in block order, nothing else balances them.
 
@@ -38,7 +41,7 @@ chunk_matmul_kernel(const int* __restrict__ panel_ptr,
                     const float* __restrict__ vals,
                     const float* __restrict__ D,
                     float* __restrict__ out,
-                    int group, int rows, int k) {
+                    int group, int span, int rows, int k) {
   extern __shared__ float acc[];  // TILE x k, row-major
   __shared__ int s_coord[TILE];
   __shared__ float s_val[TILE];
@@ -53,7 +56,7 @@ chunk_matmul_kernel(const int* __restrict__ panel_ptr,
   const int end = panel_ptr[panel + 1];
   for (int it = beg; it < end; ++it) {
     const int chunk = panel_chunks[it];
-    const size_t cbase = (size_t)win_panel[chunk / group] * TILE;
+    const size_t cbase = (size_t)win_panel[chunk / group] * span * TILE;
     __syncthreads();  // the previous chunk's staged slots are consumed
     const float v = vals[(size_t)chunk * TILE + tid];
     s_coord[tid] = coords[(size_t)chunk * TILE + tid];
@@ -93,8 +96,8 @@ chunk_matmul_kernel(const int* __restrict__ panel_ptr,
 extern "C" int nmf_chunk_matmul(const int* panel_ptr, const int* panel_chunks,
                                 const int* win_panel, const int* coords,
                                 const float* vals, const float* D, float* out,
-                                int n_rowpanels, int group, int rows, int k,
-                                void* stream) {
+                                int n_rowpanels, int group, int span, int rows,
+                                int k, void* stream) {
   if (n_rowpanels <= 0) return 0;
   const size_t smem = (size_t)TILE * k * sizeof(float);
   cudaError_t e = cudaFuncSetAttribute(
@@ -102,6 +105,7 @@ extern "C" int nmf_chunk_matmul(const int* panel_ptr, const int* panel_chunks,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
   chunk_matmul_kernel<<<n_rowpanels, TILE, smem, (cudaStream_t)stream>>>(
-      panel_ptr, panel_chunks, win_panel, coords, vals, D, out, group, rows, k);
+      panel_ptr, panel_chunks, win_panel, coords, vals, D, out, group, span, rows,
+      k);
   return (int)cudaGetLastError();
 }

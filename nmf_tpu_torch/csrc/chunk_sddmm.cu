@@ -13,20 +13,20 @@
 // each.  This kernel also reads the refresh map, 4 bytes a slot on top of
 // that floor, to tell padding slots from stored entries.
 //
-// Design: W is given row-major (p, k) and H transposed, row-major (n, k), so
-// both gathers are 4k contiguous bytes.  One thread block takes one chunk,
-// one warp 32 consecutive slots.  The warp visits its slots one after the
-// other: the 32 lanes read the two rows side by side (16 bytes a lane when
-// k is a multiple of 4), multiply, and sum across the warp with a butterfly
-// of shuffles, a fixed order, so two runs give the same bits and nothing is
-// atomic.  Lane s keeps the sum of slot s and the warp writes its 32 results
-// in one store.  Padding slots (the refresh map points them one past the last
-// stored entry) and slots outside the matrix are skipped and give 0; on
-// degree-ordered data most slots of the chunk store are padding, so the work
-// follows the entries the data has.  Any k >= 1.
+// Design: one thread block takes one chunk, one warp 32 consecutive slots,
+// sampled by the routine of sddmm_warp.cuh (two contiguous gathers a slot, a
+// butterfly sum in a fixed order, nothing atomic).  Padding slots (the
+// refresh map points them one past the last stored entry) and slots outside
+// the matrix are skipped and give 0; on degree-ordered data most slots of
+// the chunk store are padding, so the work follows the entries the data has.
+// A chunk tile may span several col panels (wide tail tiles): the local
+// column then runs to span * 128 and the window's panel counts wide panels.
+// Any k >= 1.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "sddmm_warp.cuh"
 
 #define TILE 128
 
@@ -40,44 +40,17 @@ chunk_sddmm_kernel(const int* __restrict__ coords,
                    const float* __restrict__ W,
                    const float* __restrict__ Ht,
                    float* __restrict__ out,
-                   int group, int pps, int rows, int cols, int k, int nnz) {
+                   int group, int pps, int span, int rows, int cols, int k,
+                   int nnz) {
   const int chunk = blockIdx.x;
-  const int lane = threadIdx.x & 31;
   const size_t slot = (size_t)chunk * TILE + threadIdx.x;
   const int win = chunk / group;
   const int stripe = win_stripe[win];
   const int c = coords[slot];
   const int row = (stripe * pps + chunk_rp[chunk]) * TILE + (c & (TILE - 1));
-  const int col = win_panel[win] * TILE + (c >> 7);
+  const int col = win_panel[win] * span * TILE + (c >> 7);
   const bool real = inv[slot] < nnz && stripe >= 0 && row < rows && col < cols;
-  unsigned todo = __ballot_sync(0xffffffffu, real);
-  float mine = 0.f;
-  while (todo) {  // the same in every lane of the warp
-    const int s = __ffs(todo) - 1;
-    todo &= todo - 1;
-    const float* w = W + (size_t)__shfl_sync(0xffffffffu, row, s) * k;
-    const float* h = Ht + (size_t)__shfl_sync(0xffffffffu, col, s) * k;
-    float acc = 0.f;
-    if (VEC) {
-      const float4* w4 = reinterpret_cast<const float4*>(w);
-      const float4* h4 = reinterpret_cast<const float4*>(h);
-      for (int j = lane; j < (k >> 2); j += 32) {
-        const float4 a = w4[j];
-        const float4 b = h4[j];
-        acc = fmaf(a.x, b.x, acc);
-        acc = fmaf(a.y, b.y, acc);
-        acc = fmaf(a.z, b.z, acc);
-        acc = fmaf(a.w, b.w, acc);
-      }
-    } else {
-      for (int j = lane; j < k; j += 32) acc = fmaf(w[j], h[j], acc);
-    }
-#pragma unroll
-    for (int off = 16; off; off >>= 1)
-      acc += __shfl_xor_sync(0xffffffffu, acc, off);
-    if (lane == s) mine = acc;
-  }
-  out[slot] = mine;
+  out[slot] = sddmm_warp_sample<VEC>(W, Ht, row, col, real, k);
 }
 
 // out (n_chunks * 128) = (W @ Ht') at every stored slot of the chunk store,
@@ -87,17 +60,17 @@ extern "C" int nmf_chunk_sddmm(const int* coords, const int* inv,
                                const int* chunk_rp, const int* win_panel,
                                const int* win_stripe, const float* W,
                                const float* Ht, float* out, int n_chunks,
-                               int group, int pps, int rows, int cols, int k,
-                               int nnz, void* stream) {
+                               int group, int pps, int span, int rows, int cols,
+                               int k, int nnz, void* stream) {
   if (n_chunks <= 0) return 0;
   cudaStream_t st = (cudaStream_t)stream;
   if (k % 4 == 0)
     chunk_sddmm_kernel<true><<<n_chunks, TILE, 0, st>>>(
         coords, inv, chunk_rp, win_panel, win_stripe, W, Ht, out, group, pps,
-        rows, cols, k, nnz);
+        span, rows, cols, k, nnz);
   else
     chunk_sddmm_kernel<false><<<n_chunks, TILE, 0, st>>>(
         coords, inv, chunk_rp, win_panel, win_stripe, W, Ht, out, group, pps,
-        rows, cols, k, nnz);
+        span, rows, cols, k, nnz);
   return (int)cudaGetLastError();
 }

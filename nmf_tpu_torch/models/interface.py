@@ -5,10 +5,10 @@ Same validation rules, init and algorithm dispatch, replicate policy and
 ``init="nndsvdar"``, ``alg="greedycd"``, ``maxiter=100``,
 ``tol=cbrt(eps(T)/100)``, ``replicates=1``.
 
-Ported so far: ``alg`` in ``("cd", "multmse", "multdiv")`` with ``init`` in
-``("random", "custom")``.  Every
-other documented value raises ``NotImplementedError`` naming the value — the
-defaults included, until their solvers and initializers are ported.
+Ported so far: ``alg`` in ``("cd", "greedycd", "multmse", "multdiv")`` with
+``init`` in ``("random", "custom")``.  Every other documented value raises
+``NotImplementedError`` naming the value — the default ``init`` included,
+until the initializers are ported.
 """
 
 from __future__ import annotations
@@ -23,13 +23,14 @@ from ..ops import matops
 from ..utils.dtypes import default_tol
 from .common import Result, solve
 from .coorddesc import CoordinateDescent
+from .greedycd import GreedyCD
 from .multupd import MultUpdate
 
 __all__ = ["nnmf", "solve_replicates"]
 
 _ALGS = ("projals", "alspgrad", "multmse", "multdiv", "cd", "greedycd", "spa")
 _INITS = ("random", "nndsvd", "nndsvda", "nndsvdar", "spa", "custom")
-_PORTED_ALGS = ("cd", "multmse", "multdiv")
+_PORTED_ALGS = ("cd", "greedycd", "multmse", "multdiv")
 _PORTED_INITS = ("random", "custom")
 
 
@@ -143,6 +144,8 @@ def nnmf(
         alginst = MultUpdate(obj="mse", **opts)
     elif alg == "multdiv":
         alginst = MultUpdate(obj="div", **opts)
+    elif alg == "greedycd":
+        alginst = GreedyCD(**opts)
     else:
         alginst = CoordinateDescent(generator=gshuf, **opts)
     return solve_replicates(

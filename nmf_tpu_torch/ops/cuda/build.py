@@ -27,10 +27,11 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = (
-    "chunk_matmul.cu", "dense_matmul.cu", "chunk_sddmm.cu", "mu.cu",
-    "objectives.cu",
+    "chunk_matmul.cu", "dense_matmul.cu", "quad_matmul.cu", "chunk_sddmm.cu",
+    "quad_sddmm.cu", "mu.cu", "objectives.cu",
 )
-HEADERS = ("wh_tile.cuh",)  # included by mu.cu and objectives.cu
+# wh_tile.cuh: mu.cu and objectives.cu; sddmm_warp.cuh: the two sddmm sources
+HEADERS = ("wh_tile.cuh", "sddmm_warp.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -43,14 +44,20 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _ARGTYPES = {
     # panel_ptr, panel_chunks, win_panel, coords, vals, D, out,
-    # n_rowpanels, group, rows, k, stream
-    "nmf_chunk_matmul": [_P] * 7 + [_I] * 4 + [_P],
+    # n_rowpanels, group, span, rows, k, stream
+    "nmf_chunk_matmul": [_P] * 7 + [_I] * 5 + [_P],
     # dpanel_ptr, dpanel_blocks, dblk_panel, dvals, D, out,
     # n_rowpanels, dgroup, rows, cols, k, stream
     "nmf_dense_matmul": [_P] * 6 + [_I] * 5 + [_P],
+    # qpanel_ptr, qpanel_segs, qwin_panel, qlrows, qlcols, qvals, D, out,
+    # n_rowpanels, qgroup, seg, rows, k, stream
+    "nmf_quad_matmul": [_P] * 8 + [_I] * 5 + [_P],
     # coords, inv, chunk_rp, win_panel, win_stripe, W, Ht, out,
-    # n_chunks, group, panels_per_stripe, rows, cols, k, nnz, stream
-    "nmf_chunk_sddmm": [_P] * 8 + [_I] * 7 + [_P],
+    # n_chunks, group, panels_per_stripe, span, rows, cols, k, nnz, stream
+    "nmf_chunk_sddmm": [_P] * 8 + [_I] * 8 + [_P],
+    # qlrows, qlcols, qinv, q_rp, qwin_panel, qwin_stripe, W, Ht, out,
+    # n_qchunks, qgroup, seg, panels_per_stripe, rows, cols, k, nnz, stream
+    "nmf_quad_sddmm": [_P] * 9 + [_I] * 8 + [_P],
     # F, G, C, out, k, m, lam, delta, trans, stream
     "nmf_mu_factor_update": [_P] * 4 + [_I] * 2 + [_F] * 2 + [_I, _P],
     # X, W, H, partial, out, p, n, k, delta, xvec, splits, stream

@@ -1,49 +1,53 @@
 """Products over the tiled store: ``X @ D``, ``X' @ D`` and ``W @ H`` sampled
 at X's pattern.
 
-One sparse-dense product is the sum of three parts, one per store class
+One sparse-dense product is the sum of four parts, one per store class
 (``ops/sparse_format.py``):
 
 * ``chunk_matmul`` — the narrow-chunk kernel (``csrc/chunk_matmul.cu``);
 * ``dense_matmul`` — the dense-tile kernel (``csrc/dense_matmul.cu``);
+* ``quad_matmul``  — the quad-tail kernel (``csrc/quad_matmul.cu``);
 * ``coo_matmul``  — the COO band, plain PyTorch: gather, scale and
   ``index_add_`` over pieces of the band, so the ``(n_coo, k)`` product never
   exists whole.
 
-The sampled product ``tiled_sddmm`` has the same three parts:
+The sampled product ``tiled_sddmm`` has the same four parts:
 ``chunk_sddmm`` (``csrc/chunk_sddmm.cu``), ``dense_sample`` (a batched
-product per piece of the dense store) and ``coo_sample`` (gather, gather,
-reduce over pieces of the band).
+product per piece of the dense store), ``quad_sddmm``
+(``csrc/quad_sddmm.cu``) and ``coo_sample`` (gather, gather, reduce over
+pieces of the band).
 
 Each kernel has a plain PyTorch version beside it that does the same
 arithmetic over the same store arrays.  A wrapper takes the plain version
 only for tensors that live on the CPU; for CUDA tensors it launches its
-kernel or raises.  ``build.launch_counts()`` counts kernel launches, and nothing
-else.
+kernel or raises.  ``build.launch_counts()`` counts kernel launches, and
+nothing else.
 
 Everything is float32 with D row-major ``(n, k)``: one gathered row of D is
-``4k`` contiguous bytes.  Both kernels give one thread block sole ownership
-of a 128-row output panel and sum in an order fixed by the store, so their
-results are the same from run to run.  The COO band's ``index_add_`` uses
-atomics on the card: its float sums can differ in the last bits between runs.
+``4k`` contiguous bytes.  The three product kernels give one thread block
+sole ownership of a 128-row output panel and sum in an order fixed by the
+store, so their results are the same from run to run.  The COO band's
+``index_add_`` uses atomics on the card: its float sums can differ in the
+last bits between runs.
 """
 
 from __future__ import annotations
 
 import torch
 
-from ..sparse_format import DENSE_GROUP, TILE, TiledCSR, TiledSideC
+from ..sparse_format import DENSE_GROUP, QUAD_GROUP, TILE, TiledCSR, TiledSideC
 from .build import SMEM_PER_BLOCK, launch
 
 __all__ = [
     "chunk_matmul", "chunk_matmul_plain", "dense_matmul", "dense_matmul_plain",
-    "coo_matmul", "tiled_matmul_t", "tiled_mm", "tiled_mtm",
-    "chunk_sddmm", "chunk_sddmm_plain", "dense_sample", "coo_sample",
+    "quad_rows_cols", "quad_matmul", "quad_matmul_plain", "coo_matmul",
+    "tiled_matmul_t", "tiled_mm", "tiled_mtm", "chunk_sddmm", "chunk_sddmm_plain",
+    "dense_sample", "quad_sddmm", "quad_sddmm_plain", "coo_sample",
     "tiled_sddmm",
 ]
 
-# the chunk kernel keeps a (128, k) float panel in shared memory, beside 1 KB
-# of staged slots
+# the chunk and quad kernels keep a (128, k) float panel in shared memory,
+# beside up to 2 KB of staged slots
 MAX_K = (SMEM_PER_BLOCK - 2048) // (TILE * 4)
 # slots / blocks / band entries handled at once by the plain versions and the
 # COO band: bounds the (piece, k) temporaries to 128 MB at k = 128
@@ -64,6 +68,17 @@ def _check_operand(side: TiledSideC, D) -> int:
             f"D lives on {D.device}, the store on {side.vals.device}"
         )
     return D.shape[1]
+
+
+def _check_out(side: TiledSideC, D, out, k) -> None:
+    if out is not None and (
+        out.dtype != torch.float32 or tuple(out.shape) != (side.rows, k)
+        or not out.is_contiguous() or out.device != D.device
+    ):
+        raise ValueError(
+            f"out must be a contiguous float32 ({side.rows}, {k}) tensor on "
+            f"{D.device}"
+        )
 
 
 def _n_rowpanels(side: TiledSideC) -> int:
@@ -88,7 +103,7 @@ def chunk_matmul_plain(side: TiledSideC, D):
         ids = torch.arange(c0, min(c0 + step, nchunks), device=D.device)
         win = ids // side.group
         co = side.coords[ids].long()
-        cols = side.win_panel[win].long()[:, None] * TILE + (co >> 7)
+        cols = side.win_panel[win].long()[:, None] * (TILE * side.span) + (co >> 7)
         panel = side.win_stripe[win].long() * pps + side.chunk_rp[ids].long()
         rows = panel[:, None] * TILE + (co & (TILE - 1))
         contrib = side.vals[ids].reshape(-1, 1) * D[cols.reshape(-1)]
@@ -109,7 +124,7 @@ def chunk_matmul(side: TiledSideC, D):
         side.panel_ptr.data_ptr(), side.panel_chunks.data_ptr(),
         side.win_panel.data_ptr(), side.coords.data_ptr(),
         side.vals.data_ptr(), D.data_ptr(), out.data_ptr(),
-        _n_rowpanels(side), side.group, side.rows, k,
+        _n_rowpanels(side), side.group, side.span, side.rows, k,
     )
     return out
 
@@ -126,9 +141,7 @@ def dense_matmul_plain(side: TiledSideC, D, out=None):
     pps = side.panels_per_stripe
     n_panels = side.n_stripes * pps
     acc = D.new_zeros((n_panels, TILE, k))
-    Dp = D.new_zeros((side.n_colpanels * TILE, k))
-    Dp[: side.cols] = D
-    Dp = Dp.reshape(side.n_colpanels, TILE, k)
+    Dp = _pad_rows(D, side.n_colpanels * side.span * TILE).reshape(-1, TILE, k)
     step = max(_PIECE // TILE, 1)
     for b0 in range(0, side.n_dblocks, step):
         ids = torch.arange(b0, min(b0 + step, side.n_dblocks), device=D.device)
@@ -148,14 +161,7 @@ def dense_matmul(side: TiledSideC, D, out=None):
     """``out += X_dense @ D`` (rows, k) for one orientation's dense store;
     ``out`` starts from zeros when not given.  Returns ``out``."""
     k = _check_operand(side, D)
-    if out is not None and (
-        out.dtype != torch.float32 or tuple(out.shape) != (side.rows, k)
-        or not out.is_contiguous() or out.device != D.device
-    ):
-        raise ValueError(
-            f"out must be a contiguous float32 ({side.rows}, {k}) tensor on "
-            f"{D.device}"
-        )
+    _check_out(side, D, out, k)
     if not D.is_cuda:
         return dense_matmul_plain(side, D, out)
     if out is None:
@@ -165,6 +171,65 @@ def dense_matmul(side: TiledSideC, D, out=None):
         side.dpanel_ptr.data_ptr(), side.dpanel_blocks.data_ptr(),
         side.dblk_panel.data_ptr(), side.dvals.data_ptr(), D.data_ptr(),
         out.data_ptr(), _n_rowpanels(side), DENSE_GROUP, side.rows, side.cols, k,
+    )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# quad store
+
+
+def quad_rows_cols(side: TiledSideC, c0, c1, device):
+    """Global (row, col) of every slot of quad chunks ``c0:c1``, each
+    ``(c1 - c0, 128)`` int64: the row panel comes from the slot's
+    sub-segment, the col panel from the chunk's window."""
+    nper = TILE // side.quad_seg
+    win = torch.arange(c0, c1, device=device) // QUAD_GROUP
+    rp = side.q_rp[c0 * nper : c1 * nper].long().repeat_interleave(side.quad_seg)
+    panel = (side.qwin_stripe[win].long() * side.panels_per_stripe)[:, None] \
+        + rp.reshape(-1, TILE)
+    rows = panel * TILE + side.qlrows[c0:c1].long()
+    cols = side.qwin_panel[win].long()[:, None] * TILE + side.qlcols[c0:c1].long()
+    return rows, cols
+
+
+def quad_matmul_plain(side: TiledSideC, D, out=None):
+    """Plain version of ``quad_matmul``: per piece of the quad store, gather
+    D rows at each slot's column, scale by the slot's value, ``index_add_``
+    into the slot's output row.  Padding slots (value 0 at local coordinate
+    0 of row panel 0) add zero."""
+    k = D.shape[1]
+    acc = D.new_zeros((side.n_stripes * side.panels_per_stripe * TILE, k))
+    step = max(_PIECE // TILE, 1)
+    for c0 in range(0, side.n_qchunks, step):
+        c1 = min(c0 + step, side.n_qchunks)
+        rows, cols = quad_rows_cols(side, c0, c1, D.device)
+        contrib = side.qvals[c0:c1].reshape(-1, 1) * D[cols.reshape(-1)]
+        acc.index_add_(0, rows.reshape(-1), contrib)
+    res = acc[: side.rows]
+    if out is None:
+        return res
+    return out.add_(res)
+
+
+def quad_matmul(side: TiledSideC, D, out=None):
+    """``out += X_quad @ D`` (rows, k) for one orientation's quad store;
+    ``out`` starts from zeros when not given.  Returns ``out``."""
+    k = _check_operand(side, D)
+    _check_out(side, D, out, k)
+    if not D.is_cuda:
+        return quad_matmul_plain(side, D, out)
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"k must be in [1, {MAX_K}] for the quad kernel, got {k}")
+    if out is None:
+        out = torch.zeros((side.rows, k), dtype=torch.float32, device=D.device)
+    launch(
+        "quad_matmul",
+        side.qpanel_ptr.data_ptr(), side.qpanel_segs.data_ptr(),
+        side.qwin_panel.data_ptr(), side.qlrows.data_ptr(),
+        side.qlcols.data_ptr(), side.qvals.data_ptr(), D.data_ptr(),
+        out.data_ptr(), _n_rowpanels(side), QUAD_GROUP, side.quad_seg,
+        side.rows, k,
     )
     return out
 
@@ -190,6 +255,8 @@ def tiled_matmul_t(side: TiledSideC, D):
     out = chunk_matmul(side, D)
     if side.n_dblocks:
         out = dense_matmul(side, D, out)
+    if side.n_qchunks:
+        out = quad_matmul(side, D, out)
     if side.n_coo:
         out = coo_matmul(side, D, out)
     return out
@@ -236,12 +303,24 @@ def _check_factors(side: TiledSideC, W, Ht) -> int:
         raise ValueError(
             f"W and Ht must share k >= 1, got {tuple(W.shape)}, {tuple(Ht.shape)}"
         )
-    if side.inv is None or side.perm is None:
+    if side.inv is None or side.perm is None or (
+        side.n_qchunks and side.qinv is None
+    ):
         raise ValueError(
             "the sampled product needs the refresh maps, but this TiledCSR "
             "was slim()-med; rebuild with build_tiled"
         )
     return W.shape[1]
+
+
+def _check_flat_out(out, nslots, W) -> None:
+    if out is not None and (
+        out.dtype != torch.float32 or tuple(out.shape) != (nslots,)
+        or not out.is_contiguous() or out.device != W.device
+    ):
+        raise ValueError(
+            f"out must be a contiguous float32 ({nslots},) tensor on {W.device}"
+        )
 
 
 def _pad_rows(A, rows):
@@ -263,14 +342,14 @@ def chunk_sddmm_plain(side: TiledSideC, W, Ht, out=None):
     if out is None:
         out = W.new_empty(nchunks * TILE)
     Wp = _pad_rows(W, side.n_stripes * pps * TILE)
-    Hp = _pad_rows(Ht, side.n_colpanels * TILE)
+    Hp = _pad_rows(Ht, side.n_colpanels * side.span * TILE)
     step = max(_PIECE // TILE, 1)
     for c0 in range(0, nchunks, step):
         c1 = min(c0 + step, nchunks)
         ids = torch.arange(c0, c1, device=W.device)
         win = ids // side.group
         co = side.coords[c0:c1].long()
-        cols = side.win_panel[win].long()[:, None] * TILE + (co >> 7)
+        cols = side.win_panel[win].long()[:, None] * (TILE * side.span) + (co >> 7)
         panel = side.win_stripe[win].long() * pps + side.chunk_rp[c0:c1].long()
         rows = panel[:, None] * TILE + (co & (TILE - 1))
         real = (side.inv[c0 * TILE : c1 * TILE] < nnz).reshape(-1, TILE)
@@ -287,13 +366,7 @@ def chunk_sddmm(side: TiledSideC, W, Ht, out=None):
     tiling's coordinates.  ``out``, when given, receives the result."""
     k = _check_factors(side, W, Ht)
     nslots = side.coords.shape[0] * TILE
-    if out is not None and (
-        out.dtype != torch.float32 or tuple(out.shape) != (nslots,)
-        or not out.is_contiguous() or out.device != W.device
-    ):
-        raise ValueError(
-            f"out must be a contiguous float32 ({nslots},) tensor on {W.device}"
-        )
+    _check_flat_out(out, nslots, W)
     if not W.is_cuda:
         return chunk_sddmm_plain(side, W, Ht, out)
     if side.inv.dtype != torch.int32:
@@ -305,7 +378,8 @@ def chunk_sddmm(side: TiledSideC, W, Ht, out=None):
         side.coords.data_ptr(), side.inv.data_ptr(), side.chunk_rp.data_ptr(),
         side.win_panel.data_ptr(), side.win_stripe.data_ptr(), W.data_ptr(),
         Ht.data_ptr(), out.data_ptr(), side.coords.shape[0], side.group,
-        side.panels_per_stripe, side.rows, side.cols, k, side.perm.shape[0],
+        side.panels_per_stripe, side.span, side.rows, side.cols, k,
+        side.perm.shape[0],
     )
     return out
 
@@ -319,7 +393,7 @@ def dense_sample(side: TiledSideC, W, Ht, out=None):
     if out is None:
         out = W.new_empty(side.n_dblocks * TILE * TILE)
     Wp = _pad_rows(W, side.n_stripes * pps * TILE).reshape(-1, TILE, k)
-    Hp = _pad_rows(Ht, side.n_colpanels * TILE).reshape(-1, TILE, k)
+    Hp = _pad_rows(Ht, side.n_colpanels * side.span * TILE).reshape(-1, TILE, k)
     step = max(_PIECE // TILE, 1)
     for b0 in range(0, side.n_dblocks, step):
         b1 = min(b0 + step, side.n_dblocks)
@@ -329,6 +403,50 @@ def dense_sample(side: TiledSideC, W, Ht, out=None):
             Hp[side.dblk_panel[win].long()], Wp[panel].transpose(1, 2),
             out=out[b0 * TILE * TILE : b1 * TILE * TILE].view(-1, TILE, TILE),
         )
+    return out
+
+
+def quad_sddmm_plain(side: TiledSideC, W, Ht, out=None):
+    """Plain version of ``quad_sddmm``: per piece of the quad store, gather
+    the W row (through the slot's sub-segment's row panel) and the H column
+    of every slot and reduce over k.  Padding slots give 0."""
+    nnz = side.perm.shape[0]
+    if out is None:
+        out = W.new_empty(side.n_qchunks * TILE)
+    Wp = _pad_rows(W, side.n_stripes * side.panels_per_stripe * TILE)
+    Hp = _pad_rows(Ht, side.n_colpanels * TILE)
+    step = max(_PIECE // TILE, 1)
+    for c0 in range(0, side.n_qchunks, step):
+        c1 = min(c0 + step, side.n_qchunks)
+        rows, cols = quad_rows_cols(side, c0, c1, W.device)
+        real = (side.qinv[c0 * TILE : c1 * TILE] < nnz).reshape(-1, TILE)
+        real &= (rows < side.rows) & (cols < side.cols)
+        got = (Wp[rows.reshape(-1)] * Hp[cols.reshape(-1)]).sum(dim=1)
+        out[c0 * TILE : c1 * TILE] = got * real.reshape(-1)
+    return out
+
+
+def quad_sddmm(side: TiledSideC, W, Ht, out=None):
+    """``(W @ Ht')`` at every slot of one orientation's quad store, flat
+    ``(n_qchunks * 128,)`` in slot order; 0 at padding slots.  Operands as
+    for ``chunk_sddmm``."""
+    k = _check_factors(side, W, Ht)
+    nslots = side.n_qchunks * TILE
+    _check_flat_out(out, nslots, W)
+    if not W.is_cuda:
+        return quad_sddmm_plain(side, W, Ht, out)
+    if side.qinv.dtype != torch.int32:
+        raise TypeError("the quad sddmm kernel takes an int32 refresh map")
+    if out is None:
+        out = torch.empty(nslots, dtype=torch.float32, device=W.device)
+    launch(
+        "quad_sddmm",
+        side.qlrows.data_ptr(), side.qlcols.data_ptr(), side.qinv.data_ptr(),
+        side.q_rp.data_ptr(), side.qwin_panel.data_ptr(),
+        side.qwin_stripe.data_ptr(), W.data_ptr(), Ht.data_ptr(),
+        out.data_ptr(), side.n_qchunks, QUAD_GROUP, side.quad_seg,
+        side.panels_per_stripe, side.rows, side.cols, k, side.perm.shape[0],
+    )
     return out
 
 
@@ -348,9 +466,9 @@ def coo_sample(side: TiledSideC, W, Ht, out=None):
 def tiled_sddmm(X: TiledCSR, W, H):
     """Values of ``(W @ H)`` at X's nonzeros, ``(nnz,)`` in CSR order, in
     W's dtype (computed in float32).  The forward side's slots are sampled
-    class by class into one flat vector (chunks, dense blocks, band) that
-    ``perm`` gathers into CSR order.  Degree-ordered tilings gather W's rows
-    and H's columns into the renumbered coordinates first."""
+    class by class into one flat vector (chunks, dense blocks, quad chunks,
+    band) that ``perm`` gathers into CSR order.  Degree-ordered tilings
+    gather W's rows and H's columns into the renumbered coordinates first."""
     side = X.fwd
     if X.row_perm is not None:
         W = W.index_select(0, X.row_perm.long())
@@ -359,13 +477,14 @@ def tiled_sddmm(X: TiledCSR, W, H):
     W32 = W.to(torch.float32).contiguous()
     Ht = H.to(torch.float32).T.contiguous()
     n_chunk = side.coords.shape[0] * TILE
-    n_dense = side.n_dblocks * TILE * TILE
-    flat = torch.empty(
-        n_chunk + n_dense + side.n_coo, dtype=torch.float32, device=W32.device
-    )
+    q0 = n_chunk + side.n_dblocks * TILE * TILE
+    c0 = q0 + side.n_qchunks * TILE
+    flat = torch.empty(c0 + side.n_coo, dtype=torch.float32, device=W32.device)
     chunk_sddmm(side, W32, Ht, flat[:n_chunk])
     if side.n_dblocks:
-        dense_sample(side, W32, Ht, flat[n_chunk : n_chunk + n_dense])
+        dense_sample(side, W32, Ht, flat[n_chunk:q0])
+    if side.n_qchunks:
+        quad_sddmm(side, W32, Ht, flat[q0:c0])
     if side.n_coo:
-        coo_sample(side, W32, Ht, flat[n_chunk + n_dense :])
+        coo_sample(side, W32, Ht, flat[c0:])
     return flat[side.perm.long()].to(W.dtype)

@@ -1,14 +1,18 @@
 """Tiled sparse store for the sparse-dense products.
 
 The matrix is cut into (128-row x 128-col) tiles, grouped into row *stripes*.
-Tiles fall into three classes by their nonzero count:
+Tiles fall into four classes by their nonzero count:
 
 * **dense store** — tiles with at least ``dense_tile_nnz`` nonzeros are kept
   as plain 128x128 blocks in (col, row) layout;
 * **chunk store** — other tiles have their nonzeros padded into 128-slot
   chunks holding ``(local_col << 7 | local_row, value)``; chunks are stored
   flat, grouped by (stripe, col panel), each group padded to a multiple of
-  ``group`` chunks (a *window*);
+  ``group`` chunks (a *window*).  With ``tail_span > 1`` a chunk tile is
+  ``tail_span`` col panels wide and ``local_col`` runs to ``tail_span * 128``;
+* **quad store** — tiles with at most ``quad_tail_nnz`` nonzeros share a
+  chunk: ``128 / quad_seg`` tiles of one (stripe, col panel), each in its own
+  ``quad_seg``-slot sub-segment with its own row panel;
 * **COO band** — tiles with at most ``coo_tail_nnz`` nonzeros skip the tile
   machinery and are kept as row-sorted COO triples.
 
@@ -17,11 +21,11 @@ COO arrays and permutations mapping CSR-order values into each orientation's
 slots, so a value refresh (``with_values``) is a gather and a scatter.
 
 The built arrays equal those of the JAX package's ``build_tiled`` on the same
-input, with two differences that belong to the card: ``chunk_rp`` and
-``dblk_rp`` hold one int32 per chunk / block (no byte packing), and each side
-carries a *row-panel index* — for every 128-row output panel the list of
-chunks and of dense blocks that add into it — which is what lets one thread
-block own one output panel.
+input, with two differences that belong to the card: ``chunk_rp``,
+``dblk_rp`` and ``q_rp`` hold one int32 per chunk / block / sub-segment (no
+byte packing), and each side carries a *row-panel index* — for every 128-row
+output panel the list of chunks, of dense blocks and of quad sub-segments
+that add into it — which is what lets one thread block own one output panel.
 
 The binning is numpy on the host; the built arrays are tensors on ``device``.
 """
@@ -46,26 +50,29 @@ from ..io.loader import (
 
 TILE = 128  # row-panel height == col-panel width == chunk capacity
 DENSE_GROUP = 8  # dense-tile blocks per window (same stripe and col panel)
+QUAD_GROUP = 8  # quad chunks per window (same stripe and col panel)
 
 __all__ = [
     "TILE",
     "DENSE_GROUP",
+    "QUAD_GROUP",
     "TiledSideC",
     "TiledCSR",
     "build_tiled",
 ]
 
-_REFRESH_MAPS = ("perm", "inv", "dense_nnz", "dense_slot", "coo_nnz")
+_REFRESH_MAPS = ("perm", "inv", "qinv", "dense_nnz", "dense_slot", "coo_nnz")
 
 
 @dataclasses.dataclass(frozen=True)
 class TiledSideC:
     """One orientation of the store: only *nonempty* tiles carry chunks.
 
-    ``win_stripe`` / ``win_panel`` (and the ``dblk_*`` twins) carry a final
-    sentinel entry (-1 / 0), and stripes without any tile own one all-padding
-    window: both are kept so the arrays compare equal with the JAX package's;
-    the kernels here walk the row-panel index and never look at them."""
+    ``win_stripe`` / ``win_panel`` (and the ``dblk_*`` / ``qwin_*`` twins)
+    carry a final sentinel entry (-1 / 0), and stripes without any tile own
+    one all-padding window: both are kept so the arrays compare equal with
+    the JAX package's; the kernels here walk the row-panel index and never
+    look at them."""
 
     coords: torch.Tensor  # (nwin*group, TILE) int32: ``lcol << 7 | lrow``
     vals: torch.Tensor  # (nwin*group, TILE) float32
@@ -89,6 +96,21 @@ class TiledSideC:
     dblk_stripe: torch.Tensor | None = None  # (nwin_d+1,) int32, -1 sentinel
     dblk_rp: torch.Tensor | None = None  # (ndblk,) int32, per block
     n_dblocks: int = 0  # padded block count (DENSE_GROUP-multiple)
+    # chunk tiles span this many consecutive 128-col panels; a slot's local
+    # column is in [0, span*128) and n_colpanels counts the WIDE panels
+    span: int = 1
+    # quad store: chunk q holds TILE // quad_seg tiles of one (stripe, col
+    # panel), tile s in slots [s*quad_seg, (s+1)*quad_seg) of row q
+    qvals: torch.Tensor | None = None  # (nq, TILE) float32
+    qlrows: torch.Tensor | None = None  # (nq, TILE) int32 row in the panel
+    qlcols: torch.Tensor | None = None  # (nq, TILE) int32 col in the panel
+    q_rp: torch.Tensor | None = None  # (nq * TILE // quad_seg,) int32, per sub-segment
+    qwin_panel: torch.Tensor | None = None  # (nwin_q+1,) int32
+    qwin_stripe: torch.Tensor | None = None  # (nwin_q+1,) int32, -1 sentinel
+    n_qchunks: int = 0  # padded chunk count (QUAD_GROUP-multiple)
+    quad_seg: int = 32  # slots per sub-segment: 32 or 16
+    # (nq*TILE,) CSR-order nnz index per quad slot (see inv)
+    qinv: torch.Tensor | None = None
     # dense-store refresh: dvals.flat[dense_slot] = new[dense_nnz]
     dense_nnz: torch.Tensor | None = None
     dense_slot: torch.Tensor | None = None
@@ -101,11 +123,14 @@ class TiledSideC:
     # row-panel index: chunks ``panel_chunks[panel_ptr[r]:panel_ptr[r+1]]``
     # add into global row panel r (= stripe * panels_per_stripe + chunk_rp);
     # all-padding chunks are left out.  ``dpanel_*`` is the same over the
-    # dense blocks.
+    # dense blocks, ``qpanel_*`` over the quad sub-segments (sub-segment
+    # ``q * (TILE // quad_seg) + s`` is tile s of quad chunk q).
     panel_ptr: torch.Tensor | None = None  # (n_stripes*pps + 1,) int32
     panel_chunks: torch.Tensor | None = None  # (n real chunks,) int32
     dpanel_ptr: torch.Tensor | None = None  # (n_stripes*pps + 1,) int32
     dpanel_blocks: torch.Tensor | None = None  # (n real blocks,) int32
+    qpanel_ptr: torch.Tensor | None = None  # (n_stripes*pps + 1,) int32
+    qpanel_segs: torch.Tensor | None = None  # (n real sub-segments,) int32
 
 
 @dataclasses.dataclass(frozen=True)
@@ -166,13 +191,13 @@ class TiledCSR:
 
     def with_values(self, new_values):
         """Same pattern, new values (CSR order): refreshes both orientations.
-        The chunk region is an inverse-perm gather (padding slots fill with
-        0), the dense store an O(nnz_dense) scatter."""
+        The chunk and quad regions are inverse-perm gathers (padding slots
+        fill with 0), the dense store an O(nnz_dense) scatter."""
 
         def refresh(side):
             if side.inv is None or (side.n_dblocks and side.dense_nnz is None) or (
                 side.n_coo and side.coo_nnz is None
-            ):
+            ) or (side.n_qchunks and side.qinv is None):
                 raise ValueError(
                     "with_values needs the refresh maps, but this TiledCSR "
                     "was slim()-med; rebuild with build_tiled"
@@ -184,6 +209,8 @@ class TiledCSR:
                 flat = v32.new_zeros(side.dvals.numel())
                 flat[side.dense_slot.long()] = v32[side.dense_nnz.long()]
                 kw["dvals"] = flat.reshape(side.dvals.shape)
+            if side.n_qchunks:
+                kw["qvals"] = filled[side.qinv.long()].reshape(side.qvals.shape)
             if side.n_coo:
                 kw["coo_vals"] = v32[side.coo_nnz.long()]
             return dataclasses.replace(side, **kw)
@@ -249,10 +276,12 @@ def _by_panel(panel_of_item, real, n_panels):
 
 def row_panel_index(f):
     """The row-panel index of one side from its stored arrays (numpy, in a
-    dict keyed like ``TiledSideC``).  A chunk or block takes part when it
-    holds any entry of the pattern — read off the refresh maps where the
-    side has them, else off the stored values, where an all-zero chunk or
-    block adds nothing either way."""
+    dict keyed like ``TiledSideC``).  A chunk, block or quad sub-segment
+    takes part when it holds any entry of the pattern — read off the refresh
+    maps where the side has them, else off the stored values, where an
+    all-zero chunk, block or sub-segment adds nothing either way.  That
+    leaves out the sub-segments nothing was packed into, whose row panel
+    reads 0."""
     pps, group = f["panels_per_stripe"], f["group"]
     n_panels = f["n_stripes"] * pps
     nchunks = f["coords"].shape[0]
@@ -275,17 +304,46 @@ def row_panel_index(f):
         out.update(
             zip(("dpanel_ptr", "dpanel_blocks"), _by_panel(dpanel, dreal, n_panels))
         )
+    if f.get("n_qchunks"):
+        seg = f["quad_seg"]
+        nper = TILE // seg
+        qstripe = np.repeat(f["qwin_stripe"][:-1].astype(np.int64), QUAD_GROUP * nper)
+        qpanel = qstripe * pps + f["q_rp"]
+        if f.get("qinv") is not None and f.get("perm") is not None:
+            qreal = (f["qinv"].reshape(-1, seg) != len(f["perm"])).any(1)
+        else:
+            qreal = (f["qvals"].reshape(-1, seg) != 0).any(1) | (
+                (f["qlrows"] | f["qlcols"]).reshape(-1, seg) != 0).any(1)
+        out.update(
+            zip(("qpanel_ptr", "qpanel_segs"), _by_panel(qpanel, qreal, n_panels))
+        )
     return out
 
 
 def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,
-                        dense_thresh=None, coo_tail_nnz=None):
+                        dense_thresh=None, tail_span=1, quad_tail_nnz=None,
+                        quad_seg=32, coo_tail_nnz=None):
     """Bin (row, col, val) into the store for one orientation; returns a dict
     of numpy arrays and ints keyed like ``TiledSideC``.
 
     ``dense_thresh``: tiles with at least this many nonzeros are stored as
-    dense 128x128 blocks instead of chunks.  ``coo_tail_nnz``: tiles with at
-    most this many nonzeros go to the COO band."""
+    dense 128x128 blocks instead of chunks.  ``tail_span``: chunk tiles span
+    this many consecutive 128-col panels (ultra-sparse residuals would
+    otherwise spend a whole 128-slot chunk per 128x128 tile).
+    ``quad_tail_nnz``: tiles with at most this many nonzeros (<= ``quad_seg``)
+    are packed ``128 // quad_seg`` per chunk as fixed sub-segments (same
+    stripe and col panel, one row panel per sub-segment); not together with
+    ``tail_span > 1``.  ``coo_tail_nnz``: tiles with at most this many
+    nonzeros go to the COO band."""
+    if tail_span not in (1, 2, 4, 8, 16):
+        raise ValueError("tail_span must be one of 1, 2, 4, 8, 16")
+    if quad_seg not in (16, 32):
+        raise ValueError("quad_seg must be 16 or 32")
+    if quad_tail_nnz is not None:
+        if tail_span != 1:
+            raise ValueError("quad_tail_nnz requires tail_span == 1")
+        if not (1 <= quad_tail_nnz <= quad_seg):
+            raise ValueError(f"quad_tail_nnz must be in [1, {quad_seg}]")
     if coo_tail_nnz is not None:
         if coo_tail_nnz < 1:
             raise ValueError("coo_tail_nnz must be >= 1")
@@ -318,18 +376,23 @@ def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,
         tile_coo = (~tile_dense) & (counts_all <= coo_tail_nnz)
     else:
         tile_coo = np.zeros(len(tiles_all), bool)
+    if quad_tail_nnz and len(tiles_all):
+        tile_quad = (~tile_dense) & (~tile_coo) & (counts_all <= quad_tail_nnz)
+    else:
+        tile_quad = np.zeros(len(tiles_all), bool)
 
     # ---- class partition: tiles are contiguous runs of the sorted arrays,
     # so one pass copies each tile's run into its class's contiguous region
-    # (dense | chunk | COO), carrying the CSR ids (``order``) along
+    # (dense | chunk | quad | COO), carrying the CSR ids (``order``) along
     t_first_all = np.cumsum(counts_all) - counts_all
     cls = np.ones(len(tiles_all), np.int8)  # 1 = chunk store
     cls[tile_dense] = 0
-    cls[tile_coo] = 2
+    cls[tile_quad] = 2
+    cls[tile_coo] = 3
     dst = np.empty(len(tiles_all), np.int64)
     sizes = []
     dbase = 0
-    for cclass in range(3):
+    for cclass in range(4):
         m = cls == cclass
         cc = counts_all[m]
         dst[m] = dbase + np.cumsum(cc) - cc
@@ -338,20 +401,39 @@ def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,
     ar_p, ac_p, av_p, ids_p = class_extract(
         t_first_all, counts_all, dst, a_rows, a_cols, a_vals, order
     )
-    nd_nnz, nr_nnz, nc_nnz = sizes
+    nd_nnz, nr_nnz, nq_nnz, nc_nnz = sizes
     b_r = nd_nnz
-    b_c = b_r + nr_nnz
-    s_rows, s_cols, s_vals = ar_p[b_r:b_c], ac_p[b_r:b_c], av_p[b_r:b_c]
-    ids_res = ids_p[b_r:b_c]
+    b_q = b_r + nr_nnz
+    b_c = b_q + nq_nnz
+    s_rows, s_cols, s_vals = ar_p[b_r:b_q], ac_p[b_r:b_q], av_p[b_r:b_q]
+    ids_res = ids_p[b_r:b_q]
 
-    # the chunk partition is still tile-sorted, so the per-tile ranges come
-    # straight from the classification
-    rmask = cls == 1
-    tiles = tiles_all[rmask]
-    counts = counts_all[rmask]
-    t_first = np.cumsum(counts) - counts
+    span = tail_span
+    cwidth = TILE * span
+    n_cpanels = -(-n // cwidth)
+    if span > 1:
+        # re-sort the chunk partition by the coarse (stripe, wide panel, row
+        # panel) key
+        s_ccp = s_cols // cwidth
+        s_st = (s_rows // TILE) // stripe_tiles
+        s_rp2 = (s_rows // TILE) % stripe_tiles
+        o_s = np.lexsort((s_rp2, s_ccp, s_st))
+        s_rows, s_cols, s_vals = s_rows[o_s], s_cols[o_s], s_vals[o_s]
+        ids_res = ids_res[o_s]
+        tkey = (
+            (s_st[o_s].astype(np.int64) * n_cpanels + s_ccp[o_s]) * stripe_tiles
+            + s_rp2[o_s]
+        )
+        tiles, t_first, counts = _uniq_sorted(tkey, index=True, counts=True)
+    else:
+        # the chunk partition is still tile-sorted, so the per-tile ranges
+        # come straight from the classification
+        rmask = cls == 1
+        tiles = tiles_all[rmask]
+        counts = counts_all[rmask]
+        t_first = np.cumsum(counts) - counts
     nchunks_tile = -(-counts // TILE)
-    gkey_tile = tiles // stripe_tiles  # (stripe * n_colpanels + col panel)
+    gkey_tile = tiles // stripe_tiles  # (stripe * n_cpanels + wide col panel)
 
     if len(tiles):
         g_uniq, g_first = _uniq_sorted(gkey_tile, index=True)
@@ -363,9 +445,9 @@ def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,
 
     # stripes without any chunk own one all-padding window at col panel 0
     # (the JAX package's kernel flushes every stripe; kept for equal arrays)
-    missing = np.setdiff1d(np.arange(n_stripes, dtype=np.int64), g_uniq // n_colpanels)
+    missing = np.setdiff1d(np.arange(n_stripes, dtype=np.int64), g_uniq // n_cpanels)
     if len(missing):
-        g_uniq = np.concatenate([g_uniq, missing * n_colpanels])
+        g_uniq = np.concatenate([g_uniq, missing * n_cpanels])
         padded_per_group = np.concatenate(
             [padded_per_group, np.full(len(missing), group, np.int64)]
         )
@@ -394,7 +476,7 @@ def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,
 
         res_slots = chunk_fill(
             t_first, counts, tile_chunk_base, s_rows, s_cols, s_vals,
-            TILE, coords.reshape(-1), out_vals.reshape(-1),
+            cwidth, coords.reshape(-1), out_vals.reshape(-1),
         )
 
         # row panel of every (non-padding) chunk
@@ -456,6 +538,66 @@ def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,
         dvals = dblk_stripe = dblk_panel = dblk_rp = None
         dense_local = None
 
+    # ---- quad store: TILE // quad_seg small tiles per chunk, chunks grouped
+    # QUAD_GROUP per window (same stripe and col panel; groups zero-padded)
+    q_tiles = tiles_all[tile_quad]
+    nper = TILE // quad_seg
+    if len(q_tiles):
+        QG = QUAD_GROUP
+        gq_key = q_tiles // stripe_tiles  # (stripe * n_colpanels + cp)
+        gq_uniq, gq_tilecounts = _uniq_sorted(gq_key, counts=True)
+        chunks_per_gq = -(-gq_tilecounts // nper)
+        padded_q = -(-chunks_per_gq // QG) * QG
+        miss_q = np.setdiff1d(
+            np.arange(n_stripes, dtype=np.int64), gq_uniq // n_colpanels
+        )
+        if len(miss_q):
+            gq_uniq = np.concatenate([gq_uniq, miss_q * n_colpanels])
+            padded_q = np.concatenate([padded_q, np.full(len(miss_q), QG, np.int64)])
+            oq = np.argsort(gq_uniq, kind="stable")
+            gq_uniq, padded_q = gq_uniq[oq], padded_q[oq]
+        base_q = np.concatenate([[0], np.cumsum(padded_q)])[:-1]
+        nq = int(padded_q.sum())
+
+        grp_of_tile_q = np.searchsorted(gq_uniq, gq_key)
+        first_of_grp_q = np.searchsorted(gq_key, gq_uniq)
+        within_t = np.arange(len(q_tiles)) - first_of_grp_q[grp_of_tile_q]
+        chunk_of_tile = base_q[grp_of_tile_q] + within_t // nper
+        seg_of_tile = within_t % nper
+
+        qlrows = np.zeros((nq, TILE), np.int32)
+        qlcols = np.zeros((nq, TILE), np.int32)
+        qvals = np.zeros((nq, TILE), np.float32)
+        # sub-segments nothing is packed into keep row panel 0
+        q_rp = np.zeros(nq * nper, np.int32)
+        q_rp[chunk_of_tile * nper + seg_of_tile] = q_tiles % stripe_tiles
+        win_per_q = (padded_q // QG).astype(np.int64)
+        qwin_stripe = np.append(
+            np.repeat((gq_uniq // n_colpanels).astype(np.int32), win_per_q), -1
+        ).astype(np.int32)
+        qwin_panel = np.append(
+            np.repeat((gq_uniq % n_colpanels).astype(np.int32), win_per_q), 0
+        ).astype(np.int32)
+
+        # per-nnz placement from the quad partition (tile-sorted, tiles
+        # contiguous: ranges come from the classification counts)
+        counts_q = counts_all[tile_quad]
+        tf_q = np.cumsum(counts_q) - counts_q
+        tile_of_nnz_q = np.repeat(np.arange(len(q_tiles)), counts_q)
+        pos_q = np.arange(nq_nnz, dtype=np.int64) - np.repeat(tf_q, counts_q)
+        qslot = (
+            chunk_of_tile[tile_of_nnz_q] * TILE
+            + seg_of_tile[tile_of_nnz_q] * quad_seg
+            + pos_q
+        )
+        qlrows.reshape(-1)[qslot] = (ar_p[b_q:b_c] % TILE).astype(np.int32)
+        qlcols.reshape(-1)[qslot] = (ac_p[b_q:b_c] % TILE).astype(np.int32)
+        qvals.reshape(-1)[qslot] = av_p[b_q:b_c]
+    else:
+        nq = 0
+        qvals = qlrows = qlcols = q_rp = qwin_panel = qwin_stripe = None
+        qslot = None
+
     # ---- COO band (tiles <= coo_tail_nnz), sorted by this side's row
     n_coo = nc_nnz
     if n_coo:
@@ -471,10 +613,12 @@ def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,
         coo_rows = coo_cols = coo_vals = None
         pos = None
 
-    # perm + per-region refresh maps straight from the class partition
+    # perm + per-region refresh maps straight from the class partition; the
+    # flat slot order is chunk slots, dense blocks, quad slots, band
     nnz_total = len(akey)
     idt = np.int32 if nnz_total < 2**31 - 1 else np.int64
-    cobase = nchunk_slots + ndblk * TILE * TILE
+    qbase = nchunk_slots + ndblk * TILE * TILE
+    cobase = qbase + nq * TILE
     perm = np.empty(nnz_total, np.int64)
     inv = np.full(nchunk_slots, nnz_total, idt)
     if nr_nnz:
@@ -488,6 +632,12 @@ def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,
         dense_slot = dense_local.astype(sdt)
     else:
         dense_nnz = dense_slot = None
+    if nq:
+        qinv = np.full(nq * TILE, nnz_total, idt)
+        perm[ids_p[b_q:b_c]] = qbase + qslot
+        qinv[qslot] = ids_p[b_q:b_c].astype(idt, copy=False)
+    else:
+        qinv = None
     if n_coo:
         perm[ids_p[b_c:]] = cobase + pos
         coo_ids = ids_p[b_c:][oc].astype(idt, copy=False)
@@ -495,20 +645,22 @@ def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,
         coo_ids = None
 
     win_per_group = (padded_per_group // group).astype(np.int64)
-    win_stripe = np.repeat((g_uniq // n_colpanels).astype(np.int32), win_per_group)
-    win_panel = np.repeat((g_uniq % n_colpanels).astype(np.int32), win_per_group)
+    win_stripe = np.repeat((g_uniq // n_cpanels).astype(np.int32), win_per_group)
+    win_panel = np.repeat((g_uniq % n_cpanels).astype(np.int32), win_per_group)
     win_stripe = np.append(win_stripe, -1).astype(np.int32)
     win_panel = np.append(win_panel, 0).astype(np.int32)
 
     f = dict(
         coords=coords, vals=out_vals, chunk_rp=chunk_rp, win_panel=win_panel,
         win_stripe=win_stripe, perm=perm, n_stripes=n_stripes,
-        n_colpanels=n_colpanels, n_windows=n_windows, group=group,
+        n_colpanels=n_cpanels, n_windows=n_windows, group=group,
         panels_per_stripe=stripe_tiles, rows=p, cols=n, inv=inv, dvals=dvals,
         dblk_panel=dblk_panel, dblk_stripe=dblk_stripe, dblk_rp=dblk_rp,
-        n_dblocks=ndblk, dense_nnz=dense_nnz, dense_slot=dense_slot,
-        coo_rows=coo_rows, coo_cols=coo_cols, coo_vals=coo_vals,
-        coo_nnz=coo_ids, n_coo=n_coo,
+        n_dblocks=ndblk, span=span, qvals=qvals, qlrows=qlrows, qlcols=qlcols,
+        q_rp=q_rp, qwin_panel=qwin_panel, qwin_stripe=qwin_stripe,
+        n_qchunks=nq, quad_seg=quad_seg, qinv=qinv, dense_nnz=dense_nnz,
+        dense_slot=dense_slot, coo_rows=coo_rows, coo_cols=coo_cols,
+        coo_vals=coo_vals, coo_nnz=coo_ids, n_coo=n_coo,
     )
     f.update(row_panel_index(f))
     return f
@@ -550,19 +702,11 @@ def build_tiled(
     scatter factor rows through the stored permutations.
     ``order="natural"`` keeps original coordinates.
 
-    ``tail_span > 1`` (wide tail tiles) and ``quad_tail_nnz`` (the quad-tail
-    store) are not ported yet and raise ``NotImplementedError``.
+    ``tail_span`` widens the chunk tiles to that many col panels,
+    ``quad_tail_nnz`` packs tiles with at most that many nonzeros
+    ``128 // quad_seg`` to a chunk, ``coo_tail_nnz`` sends tiles with at most
+    that many nonzeros to the COO band (see ``_build_side_compact``).
     """
-    if tail_span != 1:
-        raise NotImplementedError(
-            f"tail_span={tail_span!r} is not ported yet (wide tail tiles); "
-            "use tail_span=1"
-        )
-    if quad_tail_nnz is not None:
-        raise NotImplementedError(
-            f"quad_tail_nnz={quad_tail_nnz!r} is not ported yet (the "
-            "quad-tail store and its kernels); use quad_tail_nnz=None"
-        )
     if layout != "compact":
         raise ValueError(f"layout={layout!r} is not supported: use 'compact'")
     dev = config.resolve_device(device)
@@ -590,11 +734,11 @@ def build_tiled(
 
     fwd = _build_side_compact(
         rows_t, cols_t, vals, p, n, stripe_tiles, group, dense_tile_nnz,
-        coo_tail_nnz,
+        tail_span, quad_tail_nnz, quad_seg, coo_tail_nnz,
     )
     bwd = _build_side_compact(
         cols_t, rows_t, vals, n, p, stripe_tiles, group, dense_tile_nnz,
-        coo_tail_nnz,
+        tail_span, quad_tail_nnz, quad_seg, coo_tail_nnz,
     )
     stats = np.asarray(
         [

@@ -19,7 +19,8 @@ from nmf_tpu_torch.ops.cuda import objectives as tobj
 from nmf_tpu_torch.ops.cuda import sparse as tsp
 from nmf_tpu_torch.ops.sparse_format import build_tiled
 
-from torch_parity import BUILD, coo_of, three_class_matrix
+from torch_parity import (BUILD, QUAD_BUILD, coo_of, four_class_matrix,
+                          three_class_matrix)
 
 pytestmark = pytest.mark.gpu
 
@@ -167,8 +168,8 @@ def test_mu_kernels_match_their_plain_versions_on_the_card(card, p, n, k):
         assert float(got) == pytest.approx(float(want), rel=1e-5)
         assert float(got) == float(fn(X, W, H))
     assert build.launch_counts() == dict(
-        chunk_matmul=0, dense_matmul=0, chunk_sddmm=0, mu_factor_update=2,
-        wtq=2, qht=2, dense_objective=4)
+        chunk_matmul=0, dense_matmul=0, quad_matmul=0, chunk_sddmm=0,
+        quad_sddmm=0, mu_factor_update=2, wtq=2, qht=2, dense_objective=4)
 
 
 def test_dense_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -257,3 +258,140 @@ def test_strided_dense_x_solves_on_the_card(card, alg, monkeypatch):
     if alg != "cd":
         c = nt.solve(nt.MultUpdate(obj=alg[4:], maxiter=5, tol=1e-30), view, W0, H0)
         assert torch.equal(a.W, c.W) and torch.equal(a.H, c.H)
+
+
+# ---------------------------------------------------------------------------
+# the quad-tail store, wide tail tiles, GreedyCD
+
+
+def _quad_store(card, order="degree", **kw):
+    Xd = four_class_matrix()
+    r, c, v = coo_of(Xd)
+    return Xd, build_tiled(r, c, v, Xd.shape, device=card, order=order,
+                           **dict(QUAD_BUILD, **kw))
+
+
+@pytest.mark.parametrize("order", ["degree", "natural"])
+@pytest.mark.parametrize("seg", [32, 16])
+@pytest.mark.parametrize("k", [1, 8, 9, 128, 200])
+def test_quad_kernels_match_their_plain_versions_on_the_card(card, order, seg, k):
+    Xd, Xt = _quad_store(card, order, quad_seg=seg, quad_tail_nnz=seg)
+    build.reset_launch_counts()
+    for side in (Xt.fwd, Xt.bwd):
+        assert side.n_qchunks > 0 and side.qpanel_segs.numel() >= 4
+        D = torch.rand(side.cols, k, device=card)
+        got = tsp.quad_matmul(side, D)
+        close(got, tsp.quad_matmul_plain(side, D))
+        assert torch.equal(got, tsp.quad_matmul(side, D))  # the same bits
+        acc = torch.ones(side.rows, k, device=card)
+        assert tsp.quad_matmul(side, D, acc) is acc
+        close(acc, tsp.quad_matmul_plain(side, D) + 1)
+        A = torch.rand(side.rows, k, device=card)
+        smp = tsp.quad_sddmm(side, A, D)
+        close(smp, tsp.quad_sddmm_plain(side, A, D))
+        assert torch.equal(smp, tsp.quad_sddmm(side, A, D))
+        # padding slots give exactly 0
+        assert not smp[side.qinv.long() >= side.perm.shape[0]].any()
+    counts = build.launch_counts()
+    assert (counts["quad_matmul"], counts["quad_sddmm"]) == (6, 4)
+    assert sum(counts.values()) == 10
+    X = torch.from_numpy(Xd).to(card)
+    D = torch.rand(Xd.shape[1], k, device=card)
+    close(tsp.tiled_mm(Xt, D), X @ D)
+    D2 = torch.rand(Xd.shape[0], k, device=card)
+    close(tsp.tiled_mtm(Xt, D2), X.T @ D2)
+    W, H = torch.rand(Xd.shape[0], k, device=card), torch.rand(k, Xd.shape[1], device=card)
+    want = (W.double() @ H.double())[Xt.row_idx.long(), Xt.col_idx.long()]
+    close(tsp.tiled_sddmm(Xt, W, H), want.float())
+    counts = build.launch_counts()
+    assert (counts["quad_matmul"], counts["quad_sddmm"]) == (8, 5)
+
+
+def test_quad_kernel_takes_k_up_to_its_ceiling(card):
+    """The quad product keeps a (128, k) panel in shared memory: k up to
+    ``MAX_K`` launches, one more is refused by the wrapper."""
+    Xd, Xt = _quad_store(card)
+    side = Xt.fwd
+    D = torch.rand(side.cols, tsp.MAX_K, device=card)
+    close(tsp.quad_matmul(side, D), tsp.quad_matmul_plain(side, D))
+    close(tsp.chunk_matmul(side, D), tsp.chunk_matmul_plain(side, D))
+    with pytest.raises(ValueError, match="k must be in"):
+        tsp.quad_matmul(side, torch.zeros(side.cols, tsp.MAX_K + 1, device=card))
+    with pytest.raises(ValueError, match="lives on"):
+        tsp.quad_matmul(side, torch.zeros(side.cols, 8))
+    with pytest.raises(TypeError):
+        tsp.quad_sddmm(side, torch.zeros(side.rows, 8, device=card, dtype=torch.float64),
+                       torch.zeros(side.cols, 8, device=card))
+
+
+@pytest.mark.parametrize("span", [2, 4, 16])
+@pytest.mark.parametrize("k", [9, 128])
+def test_wide_tail_tiles_on_the_card(card, span, k):
+    """Kernels 1 and 4 at ``tail_span > 1``: a slot's column comes from a
+    wide panel."""
+    Xd = four_class_matrix()
+    r, c, v = coo_of(Xd)
+    Xt = build_tiled(r, c, v, Xd.shape, device=card, stripe_tiles=2, group=8,
+                     dense_tile_nnz=1000, tail_span=span, coo_tail_nnz=2)
+    for side in (Xt.fwd, Xt.bwd):
+        assert side.span == span
+        D = torch.rand(side.cols, k, device=card)
+        A = torch.rand(side.rows, k, device=card)
+        close(tsp.chunk_matmul(side, D), tsp.chunk_matmul_plain(side, D))
+        close(tsp.chunk_sddmm(side, A, D), tsp.chunk_sddmm_plain(side, A, D))
+    X = torch.from_numpy(Xd).to(card)
+    D = torch.rand(Xd.shape[1], k, device=card)
+    close(tsp.tiled_mm(Xt, D), X @ D)
+    W, H = torch.rand(Xd.shape[0], k, device=card), torch.rand(k, Xd.shape[1], device=card)
+    want = (W.double() @ H.double())[Xt.row_idx.long(), Xt.col_idx.long()]
+    close(tsp.tiled_sddmm(Xt, W, H), want.float())
+
+
+@pytest.mark.parametrize("alg, used", [
+    ("cd", ("chunk_matmul", "dense_matmul", "quad_matmul")),
+    ("greedycd", ("chunk_matmul", "dense_matmul", "quad_matmul")),
+    ("multdiv", ("chunk_matmul", "dense_matmul", "quad_matmul", "chunk_sddmm",
+                 "quad_sddmm")),
+])
+def test_solve_on_a_quad_store_on_the_card_agrees_with_the_cpu(card, alg, used):
+    Xd = four_class_matrix()
+    r, c, v = coo_of(Xd)
+    rng = np.random.default_rng(3)
+    W0 = rng.random((Xd.shape[0], 6), dtype=np.float32)
+    H0 = rng.random((6, Xd.shape[1]), dtype=np.float32)
+    kw = dict(alg=alg, init="custom", W0=W0, H0=H0, maxiter=3, tol=1e-30)
+    build.reset_launch_counts()
+    a = nt.nnmf(build_tiled(r, c, v, Xd.shape, **QUAD_BUILD), 6, **kw)
+    counts = build.launch_counts()
+    assert a.W.is_cuda and all(counts[name] > 0 for name in used), counts
+    b = nt.nnmf(build_tiled(r, c, v, Xd.shape, device="cpu", **QUAD_BUILD), 6,
+                device="cpu", **kw)
+    # sums in another order, fed through 3 sweeps (GreedyCD picks its
+    # coordinates by comparing scores, so it gets the wider limit)
+    tol = 1e-3 if alg == "greedycd" else 1e-4
+    close(a.W, b.W, rtol=tol, scale=tol)
+    close(a.H, b.H, rtol=tol, scale=tol)
+    assert a.objvalue == pytest.approx(b.objvalue, rel=1e-4)
+    assert a.niters == b.niters == 3
+
+
+def test_greedycd_cascade_gives_the_same_bits_on_the_card(card):
+    """The compaction schedule changes how rows are batched, never a row's
+    result: on the card too."""
+    from nmf_tpu_torch import config
+
+    g = torch.Generator(device=card).manual_seed(7)
+    X = torch.rand(5000, 12, device=card, generator=g) @ torch.rand(12, 300, device=card, generator=g)
+    W0 = torch.rand(5000, 12, device=card, generator=g)
+    H0 = torch.rand(12, 300, device=card, generator=g)
+    old = dict(config.greedycd_cascade)
+    out = []
+    try:
+        for knobs in (dict(off_rows=1 << 30), dict(off_rows=1, min=16),
+                      dict(off_rows=1, min=16, shrink=2)):
+            config.set_greedycd_cascade(**knobs)
+            out.append(nt.solve(nt.GreedyCD(maxiter=4, tol=1e-30), X, W0, H0))
+    finally:
+        config.greedycd_cascade.update(old)
+    for r in out[1:]:
+        assert torch.equal(r.W, out[0].W) and torch.equal(r.H, out[0].H)

@@ -29,6 +29,7 @@ MODULES = [
     "nmf_tpu_torch.io.loader",
     "nmf_tpu_torch.models.common",
     "nmf_tpu_torch.models.coorddesc",
+    "nmf_tpu_torch.models.greedycd",
     "nmf_tpu_torch.models.interface",
     "nmf_tpu_torch.models.multupd",
     "nmf_tpu_torch.ops.matops",
@@ -80,7 +81,9 @@ def test_every_source_of_the_port_is_checked():
     names = {p.name for p in PORT_SOURCES}
     assert {"chip_smoke.py", "chunk_matmul.cu", "dense_matmul.cu", "sparse.py",
             "interface.py", "chunk_sddmm.cu", "mu.cu", "objectives.cu",
-            "wh_tile.cuh", "mu.py", "objectives.py", "multupd.py"} <= names
+            "wh_tile.cuh", "mu.py", "objectives.py", "multupd.py",
+            "greedycd.py", "quad_matmul.cu", "quad_sddmm.cu",
+            "sddmm_warp.cuh"} <= names
 
 
 def test_every_module_of_the_port_is_imported_by_the_check():
@@ -98,8 +101,8 @@ def test_build_lists_every_source_and_entry_point():
     on_disk = {p.name for p in build.CSRC.iterdir()}
     assert set(build.SOURCES) | set(build.HEADERS) == on_disk
     assert set(build.KERNELS) == {
-        "chunk_matmul", "dense_matmul", "chunk_sddmm", "mu_factor_update",
-        "wtq", "qht", "dense_objective"}
+        "chunk_matmul", "dense_matmul", "quad_matmul", "chunk_sddmm",
+        "quad_sddmm", "mu_factor_update", "wtq", "qht", "dense_objective"}
     for name in build.KERNELS:
         assert any(f'extern "C" int nmf_{name}(' in (build.CSRC / s).read_text()
                    for s in build.SOURCES), name
@@ -116,7 +119,12 @@ def _entry_points():
     r, c = np.nonzero(X)
     W, H = torch.rand(12, 3), torch.rand(3, 9)
     Xt = build_tiled(r, c, X[r, c], X.shape, device="cpu")
+    Xq = build_tiled(r, c, X[r, c], X.shape, device="cpu", quad_tail_nnz=32)
     return {
+        "nnmf_greedycd": lambda **kw: nt.nnmf(X, 3, alg="greedycd", init="random", maxiter=2, **kw),
+        "solve_greedycd_quad_store": lambda **kw: nt.solve(nt.GreedyCD(maxiter=2), Xq, W, H, **kw),
+        "build_tiled_quad": lambda **kw: build_tiled(
+            r, c, X[r, c], X.shape, quad_tail_nnz=32, **kw),
         "nnmf": lambda **kw: nt.nnmf(X, 3, alg="cd", init="random", maxiter=1, **kw),
         "solve": lambda **kw: nt.solve(nt.CoordinateDescent(maxiter=1), Xt, W, H, **kw),
         "nnmf_multmse": lambda **kw: nt.nnmf(X, 3, alg="multmse", init="random", maxiter=2, **kw),

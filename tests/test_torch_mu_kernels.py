@@ -116,8 +116,9 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_no_launch():
     assert torch.equal(tobj.kl_objective_kernel(X, W, H),
                        tobj.dense_objective_plain(X, W, H, "kl"))
     assert build.launch_counts() == before
-    assert set(before) == {"chunk_matmul", "dense_matmul", "chunk_sddmm",
-                           "mu_factor_update", "wtq", "qht", "dense_objective"}
+    assert set(before) == {"chunk_matmul", "dense_matmul", "quad_matmul",
+                           "chunk_sddmm", "quad_sddmm", "mu_factor_update", "wtq",
+                           "qht", "dense_objective"}
     assert not any(before.values())
     # float64 keeps its type through the plain versions
     Xd, Wd, Hd = X.double(), W.double(), H.double()

@@ -293,8 +293,8 @@ def test_options_and_result_carried_over_from_jax():
     assert upd == nt.MultUpdate(obj="div", maxiter=4, tol=1e-30, lambda_w=0.01)
     cd = convert.solver_from_fields("CoordinateDescent", dict(maxiter=7, alpha=0.5, key=None))
     assert (cd.maxiter, cd.alpha, cd.generator) == (7, 0.5, None)
-    with pytest.raises(NotImplementedError, match="GreedyCD"):
-        convert.solver_from_fields("GreedyCD", {})
+    with pytest.raises(NotImplementedError, match="ProjectedALS"):
+        convert.solver_from_fields("ProjectedALS", {})
     with pytest.raises(ValueError, match="Invalid value for obj"):
         convert.solver_from_fields("MultUpdate", dict(obj="bogus"))
 

@@ -21,9 +21,10 @@ from nmf_tpu_torch.models import common as tcommon
 from nmf_tpu_torch.ops import matops
 from nmf_tpu_torch.ops.cuda import build
 from nmf_tpu_torch.ops.cuda import sparse as tsp
-from nmf_tpu_torch.ops.sparse_format import DENSE_GROUP, TILE, build_tiled
+from nmf_tpu_torch.ops.sparse_format import DENSE_GROUP, QUAD_GROUP, TILE, build_tiled
 
-from torch_parity import BUILD, DENSE_NNZ, coo_of, jax_tiled_to_dict, three_class_matrix
+from torch_parity import (BUILD, DENSE_NNZ, QUAD_BUILD, QUAD_CASES, coo_of,
+                          four_class_matrix, jax_tiled_to_dict, three_class_matrix)
 
 # under jit, one computation: eager dispatch beside an interpret-mode Pallas
 # call still in flight can deadlock
@@ -221,5 +222,91 @@ def test_slimmed_store_is_refused():
         tsp.tiled_sddmm(Xt.slim(), W, H)
     # a store without the refresh map but with perm is refused too
     half = dataclasses.replace(Xt, fwd=dataclasses.replace(Xt.fwd, inv=None))
+    with pytest.raises(ValueError, match="slim"):
+        tsp.tiled_sddmm(half, W, H)
+
+
+# ---------------------------------------------------------------------------
+# the quad-tail store and wide tail tiles
+
+
+@pytest.mark.parametrize("name", sorted(QUAD_CASES))
+@pytest.mark.parametrize("k", [5, 8])
+def test_tiled_sddmm_on_quad_and_wide_stores_matches_jax_and_dense(name, k):
+    """``rtol=3e-5, atol=1e-4``: the JAX package's own limits for this
+    product on a quad store."""
+    Xd = four_class_matrix()
+    r, c, v = coo_of(Xd)
+    Xt = build_tiled(r, c, v, Xd.shape, device="cpu", **QUAD_CASES[name])
+    Xj = jax_build_tiled(r, c, v, Xd.shape, **QUAD_CASES[name])
+    W, H = _factors(Xd.shape, k)
+    got = tsp.tiled_sddmm(Xt, torch.from_numpy(W), torch.from_numpy(H))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (len(v),)
+    np.testing.assert_allclose(got.numpy(), (W.astype(np.float64) @ H)[r, c],
+                               rtol=3e-5, atol=1e-4)
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(jax_tiled_sddmm(Xj, jnp.asarray(W), jnp.asarray(H))),
+        rtol=3e-5, atol=1e-4)
+    close(matops.sddmm(torch.from_numpy(W), torch.from_numpy(H), Xt), got)
+
+
+def _numpy_quad_slot_loop(side, W, Ht):
+    pps, seg = side.panels_per_stripe, side.quad_seg
+    nper = TILE // seg
+    qinv = side.qinv.numpy().reshape(-1, TILE)
+    nnz = side.perm.shape[0]
+    out = np.zeros(qinv.shape, np.float64)
+    for ch in range(side.n_qchunks):
+        w = ch // QUAD_GROUP
+        c0 = int(side.qwin_panel[w]) * TILE
+        for s in np.flatnonzero(qinv[ch] < nnz):
+            rp = int(side.q_rp[ch * nper + s // seg])
+            r0 = (int(side.qwin_stripe[w]) * pps + rp) * TILE
+            out[ch, s] = (W[r0 + int(side.qlrows[ch, s])].astype(np.float64)
+                          @ Ht[c0 + int(side.qlcols[ch, s])])
+    return out.reshape(-1)
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("name", ["four_classes_natural", "seg16_natural"])
+def test_quad_sddmm_plain_against_a_loop_over_slots(name, which):
+    Xd = four_class_matrix()
+    Xt = build_tiled(*coo_of(Xd), Xd.shape, device="cpu", **QUAD_CASES[name])
+    side = getattr(Xt, which)
+    rng = np.random.default_rng(4)
+    # no zero in the factors: a sample of position (0, 0) would show
+    W = rng.random((side.rows, 9)).astype(np.float32) + 0.5
+    Ht = rng.random((side.cols, 9)).astype(np.float32) + 0.5
+    Wt, Htt = torch.from_numpy(W), torch.from_numpy(Ht)
+    quad = tsp.quad_sddmm_plain(side, Wt, Htt)
+    assert tuple(quad.shape) == (side.n_qchunks * TILE,)
+    close(quad, _numpy_quad_slot_loop(side, W, Ht))
+    # padding slots (most of the store) give exactly 0, stored entries do not
+    pad = side.qinv.numpy() >= side.perm.shape[0]
+    assert pad.mean() > 0.5 and not quad.numpy()[pad].any() and quad.numpy()[~pad].all()
+    # the wrapper takes the plain version on the CPU and counts no launch
+    before = build.launch_counts()
+    assert torch.equal(tsp.quad_sddmm(side, Wt, Htt), quad)
+    out = torch.full((quad.numel(),), 7.0)
+    assert tsp.quad_sddmm(side, Wt, Htt, out) is out and torch.equal(out, quad)
+    assert build.launch_counts() == before and before["quad_sddmm"] == 0
+
+
+def test_quad_sddmm_checks_its_operands_and_the_store():
+    Xd = four_class_matrix()
+    Xt = build_tiled(*coo_of(Xd), Xd.shape, device="cpu", **QUAD_BUILD)
+    side = Xt.fwd
+    with pytest.raises(TypeError):
+        tsp.quad_sddmm(side, torch.zeros(side.rows, 8, dtype=torch.float64),
+                       torch.zeros(side.cols, 8))
+    with pytest.raises(ValueError):
+        tsp.quad_sddmm(side, torch.zeros(side.rows, 8), torch.zeros(side.cols, 7))
+    with pytest.raises(ValueError, match="out must be"):
+        tsp.quad_sddmm(side, torch.zeros(side.rows, 8), torch.zeros(side.cols, 8),
+                       torch.zeros(3))
+    W, H = (torch.from_numpy(a) for a in _factors(Xd.shape, 4))
+    with pytest.raises(ValueError, match="slim"):
+        tsp.tiled_sddmm(Xt.slim(), W, H)
+    half = dataclasses.replace(Xt, fwd=dataclasses.replace(side, qinv=None))
     with pytest.raises(ValueError, match="slim"):
         tsp.tiled_sddmm(half, W, H)

@@ -12,15 +12,19 @@ from nmf_tpu.ops import sparse_format as jsf
 from nmf_tpu_torch import convert
 from nmf_tpu_torch.ops import sparse_format as tsf
 
-from torch_parity import BUILD, coo_of, jax_tiled_to_dict, three_class_matrix
+from torch_parity import (BUILD, QUAD_BUILD, coo_of, four_class_matrix,
+                          jax_tiled_to_dict, three_class_matrix)
 
-# per-side arrays shared by both stores (chunk_rp / dblk_rp are byte-packed
-# on the JAX side and compared after unpacking)
+# per-side arrays shared by both stores (chunk_rp / dblk_rp / q_rp are
+# byte-packed on the JAX side and compared after unpacking)
 SIDE_ARRAYS = ("coords", "vals", "win_panel", "win_stripe", "perm", "inv",
                "dvals", "dblk_panel", "dblk_stripe", "dense_nnz", "dense_slot",
                "coo_rows", "coo_cols", "coo_vals", "coo_nnz")
+QUAD_ARRAYS = ("qvals", "qlrows", "qlcols", "qwin_panel", "qwin_stripe", "qinv")
+PACKED = ("chunk_rp", "dblk_rp", "q_rp")
 SIDE_INTS = ("n_stripes", "n_colpanels", "n_windows", "group",
-             "panels_per_stripe", "rows", "cols", "n_dblocks", "n_coo")
+             "panels_per_stripe", "rows", "cols", "n_dblocks", "n_coo",
+             "span", "n_qchunks", "quad_seg")
 TOP_ARRAYS = ("row_idx", "col_idx", "values", "row_perm", "row_rank",
               "col_perm", "col_rank", "stats")
 
@@ -45,8 +49,17 @@ def _assert_sides_equal(sj, st):
         a, b = getattr(sj, name), getattr(st, name)
         assert a is not None and b is not None, name
         np.testing.assert_array_equal(np.asarray(a), b.numpy(), err_msg=name)
-    np.testing.assert_array_equal(_unpack(sj.chunk_rp), st.chunk_rp.numpy())
-    np.testing.assert_array_equal(_unpack(sj.dblk_rp), st.dblk_rp.numpy())
+    _assert_same_arrays(sj, st, PACKED[:2], unpack=True)
+
+
+def _assert_same_arrays(sj, st, names, unpack=False):
+    """Arrays of the two sides equal, or absent on both."""
+    for name in names:
+        a, b = getattr(sj, name), getattr(st, name)
+        assert (a is None) == (b is None), name
+        if a is not None:
+            a = _unpack(a) if unpack else np.asarray(a)
+            np.testing.assert_array_equal(a, b.numpy(), err_msg=name)
 
 
 @pytest.mark.parametrize("order", ["degree", "natural"])
@@ -171,10 +184,142 @@ def test_slim_drops_refresh_maps_only():
         S.with_values(Xt.values)
 
 
+# quad-tail and wide-tail stores: every class combination the JAX package's
+# own tests build, on the matrix that fills all four classes
+STORES = {
+    "quad32": dict(quad_tail_nnz=32),
+    "quad32_low_threshold": dict(quad_tail_nnz=8),
+    "quad16": dict(quad_tail_nnz=16, quad_seg=16),
+    "quad32_dense": dict(quad_tail_nnz=32, dense_tile_nnz=1000),
+    "quad16_dense": dict(quad_tail_nnz=16, quad_seg=16, dense_tile_nnz=1000),
+    "quad32_dense_band": dict(quad_tail_nnz=32, dense_tile_nnz=1000, coo_tail_nnz=2),
+    "quad16_band": dict(quad_tail_nnz=12, quad_seg=16, coo_tail_nnz=2),
+    "quad32_one_stripe": dict(quad_tail_nnz=32, stripe_tiles=32, group=16),
+    "span2": dict(tail_span=2),
+    "span2_band": dict(tail_span=2, coo_tail_nnz=3),
+    "span4_dense_band": dict(tail_span=4, dense_tile_nnz=1000, coo_tail_nnz=2),
+    "span16": dict(tail_span=16, dense_tile_nnz=1000),
+}
+
+
+def _both_four(name, order="degree", seed=0):
+    Xd = four_class_matrix(seed)
+    r, c, v = coo_of(Xd)
+    kw = dict(dict(stripe_tiles=2, group=8), **STORES[name])
+    Xj = jsf.build_tiled(r, c, v, Xd.shape, order=order, **kw)
+    Xt = tsf.build_tiled(r, c, v, Xd.shape, order=order, device="cpu", **kw)
+    return Xd, Xj, Xt
+
+
+@pytest.mark.parametrize("name", sorted(STORES))
+@pytest.mark.parametrize("order", ["degree", "natural"])
+def test_quad_and_wide_stores_equal_jax(name, order):
+    Xd, Xj, Xt = _both_four(name, order)
+    for sj, st in ((Xj.fwd, Xt.fwd), (Xj.bwd, Xt.bwd)):
+        for f in SIDE_INTS:
+            assert getattr(sj, f) == getattr(st, f), f
+        _assert_same_arrays(sj, st, SIDE_ARRAYS + QUAD_ARRAYS)
+        _assert_same_arrays(sj, st, PACKED, unpack=True)
+        if "quad" in name:
+            assert st.n_qchunks > 0 and st.qpanel_segs.numel() > 0
+            assert st.q_rp.shape == (st.n_qchunks * 128 // st.quad_seg,)
+        else:
+            assert st.span == STORES[name]["tail_span"] and st.qvals is None
+    assert Xj.build_opts == Xt.build_opts
+    # what was asked for is what the store holds
+    f = Xt.fwd
+    assert (f.n_dblocks > 0) == ("dense_tile_nnz" in STORES[name])
+    assert (f.n_coo > 0) == ("coo_tail_nnz" in STORES[name])
+    # the port's own store and the carried-over one are the same object, field
+    # by field, the row-panel index over sub-segments included
+    Xc = convert.tiled_from_numpy(jax_tiled_to_dict(Xj), device="cpu")
+    for sc, st in ((Xc.fwd, Xt.fwd), (Xc.bwd, Xt.bwd)):
+        for fld in dataclasses.fields(st):
+            a, b = getattr(sc, fld.name), getattr(st, fld.name)
+            if isinstance(b, torch.Tensor):
+                assert a.dtype == b.dtype and torch.equal(a, b), fld.name
+            else:
+                assert a == b, fld.name
+
+
+@pytest.mark.parametrize("name", ["quad32_dense_band", "quad16", "quad32_one_stripe"])
+def test_quad_panel_index_covers_every_entry_once(name):
+    Xd, _, Xt = _both_four(name, "natural")
+    for side, M in ((Xt.fwd, Xd), (Xt.bwd, Xd.T)):
+        seg, pps = side.quad_seg, side.panels_per_stripe
+        nper = 128 // seg
+        ptr, segs = side.qpanel_ptr.numpy(), side.qpanel_segs.numpy()
+        assert ptr[0] == 0 and ptr[-1] == len(segs) == len(set(segs))
+        assert len(ptr) == side.n_stripes * pps + 1
+        stripe = np.repeat(side.qwin_stripe.numpy()[:-1], 8 * nper)
+        panel = stripe * pps + side.q_rp.numpy()
+        qv = side.qvals.numpy().reshape(-1, seg)
+        dense = np.zeros(M.shape, np.float32)
+        for r in range(len(ptr) - 1):
+            mine = segs[ptr[r]:ptr[r + 1]]
+            assert (panel[mine] == r).all() and (np.diff(mine) > 0).all()
+            for sg in mine:
+                ch, sl = divmod(int(sg), nper)
+                sl = slice(sl * seg, (sl + 1) * seg)
+                real = side.qvals[ch, sl].numpy() != 0
+                rows = r * 128 + side.qlrows[ch, sl].numpy()[real]
+                cols = int(side.qwin_panel[ch // 8]) * 128 + side.qlcols[ch, sl].numpy()[real]
+                dense[rows, cols] += side.qvals[ch, sl].numpy()[real]
+        # sub-segments left out hold nothing, and claim row panel 0
+        left = np.setdiff1d(np.arange(qv.shape[0]), segs)
+        assert len(left) > 0 and not qv[left].any()
+        assert not side.q_rp.numpy()[left].any()
+        # every entry with at most quad_tail_nnz neighbours in its tile, once
+        quad_nnz = int((qv != 0).sum())
+        assert (dense != 0).sum() == quad_nnz and (dense[dense != 0] == M[dense != 0]).all()
+        nnz_chunks = int((side.vals.numpy() != 0).sum())
+        nnz_dense = int((side.dvals.numpy() != 0).sum()) if side.n_dblocks else 0
+        assert nnz_chunks + nnz_dense + quad_nnz + side.n_coo == (M != 0).sum()
+        # a slimmed store gives the same index from its values alone
+        f = {fld.name: getattr(side, fld.name) for fld in dataclasses.fields(side)}
+        f = {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in f.items()}
+        f.update(perm=None, inv=None, qinv=None, dense_slot=None)
+        again = tsf.row_panel_index(f)
+        np.testing.assert_array_equal(again["qpanel_segs"], segs)
+        np.testing.assert_array_equal(again["qpanel_ptr"], ptr)
+
+
+@pytest.mark.parametrize("name", ["quad32_dense_band", "quad16_dense", "span2_band"])
+def test_with_values_and_slim_on_quad_and_wide_stores(name):
+    import jax.numpy as jnp
+
+    _, Xj, Xt = _both_four(name)
+    new = np.random.default_rng(4).random(Xt.nnz).astype(np.float32)
+    Yt = Xt.with_values(torch.from_numpy(new))
+    Yj = Xj.with_values(jnp.asarray(new))
+    for sj, st, s0 in ((Yj.fwd, Yt.fwd, Xt.fwd), (Yj.bwd, Yt.bwd, Xt.bwd)):
+        _assert_same_arrays(sj, st, ("vals", "dvals", "qvals", "coo_vals"))
+        assert st.qpanel_segs is s0.qpanel_segs and st.qlrows is s0.qlrows
+    same = Xt.with_values(Xt.values)
+    for a, b in ((same.fwd, Xt.fwd), (same.bwd, Xt.bwd)):
+        assert torch.equal(a.vals, b.vals)
+        assert a.qvals is None or torch.equal(a.qvals, b.qvals)
+    S = Xt.slim()
+    for a, b in ((S.fwd, Xt.fwd), (S.bwd, Xt.bwd)):
+        assert a.qinv is None and a.perm is None and a.inv is None
+        for fld in ("qvals", "qlrows", "qlcols", "q_rp", "qpanel_ptr", "qpanel_segs",
+                    "coords"):
+            assert getattr(a, fld) is getattr(b, fld)
+    with pytest.raises(ValueError, match="slim"):
+        S.with_values(Xt.values)
+    if Xt.fwd.n_qchunks:  # a store that lost only its quad refresh map
+        half = dataclasses.replace(Xt, fwd=dataclasses.replace(Xt.fwd, qinv=None))
+        with pytest.raises(ValueError, match="slim"):
+            half.with_values(Xt.values)
+
+
 @pytest.mark.parametrize("kw, exc", [
-    (dict(tail_span=2), NotImplementedError),
-    (dict(tail_span=2, coo_tail_nnz=3), NotImplementedError),
-    (dict(quad_tail_nnz=8), NotImplementedError),
+    (dict(tail_span=3), ValueError),
+    (dict(tail_span=2, quad_tail_nnz=8), ValueError),
+    (dict(quad_tail_nnz=33), ValueError),
+    (dict(quad_tail_nnz=17, quad_seg=16), ValueError),
+    (dict(quad_tail_nnz=0), ValueError),
+    (dict(quad_seg=8), ValueError),
     (dict(layout="grid"), ValueError),
     (dict(coo_tail_nnz=0), ValueError),
     (dict(dense_tile_nnz=10, coo_tail_nnz=10), ValueError),
@@ -184,6 +329,8 @@ def test_build_tiled_refuses(kw, exc):
     r, c, v = coo_of(three_class_matrix())
     with pytest.raises(exc):
         tsf.build_tiled(r, c, v, (300, 260), device="cpu", **kw)
+    with pytest.raises(exc):  # the JAX package refuses the same inputs
+        jsf.build_tiled(r, c, v, (300, 260), **kw)
 
 
 def test_empty_matrix_builds():

@@ -5,6 +5,7 @@ products (interpret mode) and against the dense numpy product.
 Tolerance: ``rtol=2e-5`` with ``atol=1e-5 * max|want|`` — every side sums
 the same float32 terms, in another order."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -15,9 +16,10 @@ from nmf_tpu.ops.sparse_format import build_tiled as jax_build_tiled
 from nmf_tpu_torch.ops import matops
 from nmf_tpu_torch.ops.cuda import build
 from nmf_tpu_torch.ops.cuda import sparse as tsp
-from nmf_tpu_torch.ops.sparse_format import DENSE_GROUP, TILE, build_tiled
+from nmf_tpu_torch.ops.sparse_format import DENSE_GROUP, QUAD_GROUP, TILE, build_tiled
 
-from torch_parity import BUILD, DENSE_NNZ, coo_of, three_class_matrix
+from torch_parity import (BUILD, DENSE_NNZ, QUAD_BUILD, QUAD_CASES, coo_of,
+                          four_class_matrix, three_class_matrix)
 
 
 def close(got, want):
@@ -232,3 +234,131 @@ def test_wrappers_check_their_operand(bad, exc):
             fn(side, bad(side))
     with pytest.raises(ValueError, match="out must be"):
         tsp.dense_matmul(side, torch.zeros(side.cols, 8), torch.zeros(3, 8))
+
+
+# ---------------------------------------------------------------------------
+# the quad-tail store and wide tail tiles
+
+# under jit, one computation: the products of a quad store chain three Pallas
+# calls with sums between them, and eager dispatch beside an interpret-mode
+# call still in flight can deadlock
+jax_tiled_mm = jax.jit(jsp.tiled_mm)
+jax_tiled_mtm = jax.jit(jsp.tiled_mtm)
+
+
+def quad_close(got, want):
+    """The limits the JAX package's own quad-store tests use."""
+    np.testing.assert_allclose(np.asarray(got), np.asarray(want), rtol=3e-5, atol=2e-4)
+
+
+@pytest.mark.parametrize("name", sorted(QUAD_CASES))
+@pytest.mark.parametrize("k", [8, 9])
+def test_mm_mtm_on_quad_and_wide_stores_match_jax_and_dense(name, k):
+    Xd = four_class_matrix()
+    r, c, v = coo_of(Xd)
+    Xt = build_tiled(r, c, v, Xd.shape, device="cpu", **QUAD_CASES[name])
+    Xj = jax_build_tiled(r, c, v, Xd.shape, **QUAD_CASES[name])
+    assert Xt.fwd.n_qchunks > 0 or Xt.fwd.span > 1
+    rng = np.random.default_rng(7)
+    D = rng.random((Xd.shape[1], k)).astype(np.float32)
+    D2 = rng.random((Xd.shape[0], k)).astype(np.float32)
+    got = tsp.tiled_mm(Xt, torch.from_numpy(D))
+    assert got.dtype == torch.float32 and tuple(got.shape) == (Xd.shape[0], k)
+    quad_close(got, Xd @ D)
+    quad_close(got, jax_tiled_mm(Xj, jnp.asarray(D)))
+    got2 = tsp.tiled_mtm(Xt, torch.from_numpy(D2))
+    quad_close(got2, Xd.T @ D2)
+    quad_close(got2, jax_tiled_mtm(Xj, jnp.asarray(D2)))
+    # and through the seam, on a store whose values were refreshed
+    Y = matops.scale_values(Xt, matops.nnz_values(Xt) * 2.0)
+    quad_close(matops.mm(Y, torch.from_numpy(D)) / 2, Xd @ D)
+    quad_close(matops.mm(Xt.slim(), torch.from_numpy(D)), Xd @ D)
+
+
+def test_quad_cases_hold_what_their_names_say():
+    def side(name):
+        Xd = four_class_matrix()
+        return build_tiled(*coo_of(Xd), Xd.shape, device="cpu", **QUAD_CASES[name]).fwd
+
+    s = side("four_classes_natural")
+    assert s.panel_chunks.numel() and s.n_dblocks and s.n_qchunks and s.n_coo
+    ptr = s.qpanel_ptr.numpy()
+    pps = s.panels_per_stripe
+    assert ptr[pps] == 0 and ptr[-1] > 0  # no quad tile in the first stripe
+    assert s.rows % TILE and s.cols % TILE  # the last panels are cut
+    assert ptr[-1] > ptr[-2]  # and the cut row panel holds quad tiles
+    s = side("quad_and_chunks")
+    assert s.n_qchunks and not s.n_dblocks and not s.n_coo
+    s = side("one_stripe_full_chunks")
+    nper = TILE // s.quad_seg
+    filled = (s.qvals.reshape(-1, nper, s.quad_seg) != 0).any(2).sum(1)
+    assert int(filled.max()) == nper  # chunks with every sub-segment in use
+    assert side("seg16_natural").quad_seg == 16
+    assert side("span4_dense_band").span == 4
+
+
+def _numpy_quad_loop(side, D):
+    pps, seg = side.panels_per_stripe, side.quad_seg
+    nper = TILE // seg
+    out = np.zeros((side.n_stripes * pps * TILE, D.shape[1]), np.float64)
+    for sg in side.qpanel_segs.tolist():
+        ch, si = divmod(sg, nper)
+        w = ch // QUAD_GROUP
+        r0 = (int(side.qwin_stripe[w]) * pps + int(side.q_rp[sg])) * TILE
+        c0 = int(side.qwin_panel[w]) * TILE
+        for s in range(si * seg, (si + 1) * seg):
+            val = float(side.qvals[ch, s])
+            if val:
+                out[r0 + int(side.qlrows[ch, s])] += val * D[c0 + int(side.qlcols[ch, s])]
+    return out[: side.rows]
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+@pytest.mark.parametrize("name", ["four_classes_natural", "seg16_degree"])
+def test_quad_matmul_plain_against_a_loop_over_sub_segments(name, which):
+    Xd = four_class_matrix()
+    r, c, v = coo_of(Xd)
+    Xt = build_tiled(r, c, v, Xd.shape, device="cpu", **QUAD_CASES[name])
+    side = getattr(Xt, which)
+    D = np.random.default_rng(2).random((side.cols, 9)).astype(np.float32)
+    Dt = torch.from_numpy(D)
+    quad = tsp.quad_matmul_plain(side, Dt)
+    assert tuple(quad.shape) == (side.rows, 9)
+    close(quad, _numpy_quad_loop(side, D))
+    # the four classes partition the matrix
+    rest = tsp.chunk_matmul_plain(side, Dt) + tsp.dense_matmul_plain(side, Dt)
+    rest = tsp.coo_matmul(side, Dt, rest)
+    if Xt.row_perm is None:
+        close(rest + quad, (Xd if which == "fwd" else Xd.T) @ D)
+    # the wrapper takes the plain version on the CPU and counts no launch
+    before = build.launch_counts()
+    assert torch.equal(tsp.quad_matmul(side, Dt), quad)
+    acc = torch.ones(side.rows, 9)
+    assert tsp.quad_matmul(side, Dt, acc) is acc
+    close(acc, quad.numpy() + 1)
+    assert build.launch_counts() == before and before["quad_matmul"] == 0
+
+
+def test_quad_product_streams_in_pieces(monkeypatch):
+    Xd = four_class_matrix()
+    Xt = build_tiled(*coo_of(Xd), Xd.shape, device="cpu", **QUAD_BUILD)
+    D = torch.from_numpy(np.random.default_rng(5).random((Xd.shape[1], 8)).astype(np.float32))
+    whole = tsp.quad_matmul_plain(Xt.fwd, D)
+    monkeypatch.setattr(tsp, "_PIECE", 4)  # one quad chunk at a time
+    assert Xt.fwd.n_qchunks > 2
+    close(tsp.quad_matmul_plain(Xt.fwd, D), whole)
+
+
+@pytest.mark.parametrize("bad, exc", [
+    (lambda s: torch.zeros(s.cols, 8, dtype=torch.float64), TypeError),
+    (lambda s: torch.zeros(s.cols + 1, 8), ValueError),
+    (lambda s: torch.zeros(8, s.cols).T, ValueError),
+    (lambda s: torch.zeros(s.cols), ValueError),
+])
+def test_quad_matmul_checks_its_operand(bad, exc):
+    Xd = four_class_matrix()
+    side = build_tiled(*coo_of(Xd), Xd.shape, device="cpu", **QUAD_BUILD).fwd
+    with pytest.raises(exc):
+        tsp.quad_matmul(side, bad(side))
+    with pytest.raises(ValueError, match="out must be"):
+        tsp.quad_matmul(side, torch.zeros(side.cols, 8), torch.zeros(3, 8))
