@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA build: ``python3 chip_smoke.py``.
 
-Needs one NVIDIA Hopper card, ``nvcc`` and no network.  It builds the nine
+Needs one NVIDIA Hopper card, ``nvcc`` and no network.  It builds the twelve
 CUDA kernels from ``nmf_tpu_torch/csrc/``, holds each kernel against its plain
-PyTorch version on the card, and drives the ported paths through ``nnmf`` and
-the resumable solver loop:
+PyTorch version on the card (the product and multiplicative-update kernels
+also at every ``k`` they refused before they summed over ``k`` in slabs), and
+drives the ported paths through ``nnmf`` and the resumable solver loop:
 
 * sparse Fast-HALS on the 163,000 x 59,000 power-law problem (about 17.6M
   nonzeros, rank 128) down to relative error 0.84;
@@ -12,10 +13,15 @@ the resumable solver loop:
   to the same relative error or 200 iterations;
 * Fast-HALS, greedy coordinate descent and the KL multiplicative updates on
   the quad-tail store of the same matrix;
+* the ``nnmf`` defaults on the same store: the NNDSVD-ar start over a
+  randomized SVD, timed in its parts, GreedyCD from it to the same relative
+  error, and the literal ``nnmf(X, 128)``; a normalised random start with a
+  second replicate;
 * multiplicative updates (KL divergence and MSE) on the first tiled store;
 * multiplicative updates on a dense 100,000 x 10,000 low-rank problem at rank
   64, and on the two small dense problems (500 x 500 rank 8 to relative
-  error 0.010, 2000 x 1000 rank 32 to 0.020).
+  error 0.010, 2000 x 1000 rank 32 to 0.020); ``nnmf`` with its defaults on
+  the dense problem.
 
 Every phase prints one JSON line; any failure ends the run with a non-zero
 exit code.  There is no CPU path: without a card the script fails at once.
@@ -47,6 +53,8 @@ REL_TOL = 2e-5
 # rounding of each W @ H entry, which averages out over 1e9 terms
 OBJECTIVE_TOL = 2e-6
 MONOTONE_TOL = 1e-4  # an objective may rise by this much, relative, per step
+# column sums added in double and rounded once; the scaling divides once
+EW_REL_TOL = 1e-6
 TARGET_RELERR = 0.84
 P, N, K = 163_000, 59_000, 128
 DP, DN, DK = 100_000, 10_000, 64  # the dense multiplicative-update problem
@@ -459,6 +467,133 @@ def check_dense_kernels(X, W, H, label, timed):
     return rec
 
 
+def _rel_each(got, want):
+    """Largest ``|got - want| / |want|`` over the entries, in float64."""
+    want = want.to(torch.float64)
+    return float(((got.to(torch.float64) - want).abs() / want.abs()).max())
+
+
+def check_elementwise(shape, timed, gen):
+    """Kernels 10-12 at one shape: ``projectnn`` bit for bit against its
+    plain version, the column sums and the scaling within ``EW_REL_TOL``
+    of each entry of their plain versions run in float64, the scaling also
+    bit for bit against the float32 division given the same sums."""
+    from nmf_tpu_torch.ops.cuda import elementwise as E
+
+    m, n = shape
+    label = f"elementwise {m}x{n}"
+    A = torch.randn(shape, generator=gen, device="cuda")
+    Apos = A.abs() + 0.1
+    rec = {}
+
+    got = E.projectnn(A)
+    torch.cuda.synchronize()
+    want = E.projectnn_plain(A)
+    if not torch.equal(got.view(torch.int32), want.view(torch.int32)):
+        fail(f"{label} projectnn: not bit-equal to its plain version")
+    rec["projectnn"] = {
+        "max_abs_err": float((got - want).abs().max()), "bit_equal": True,
+        "same_bits": _same_bits(f"{label} projectnn", lambda: E.projectnn(A)),
+        "bit_equal_to_clamp_min": torch.equal(
+            got.view(torch.int32), A.clamp_min(0).view(torch.int32)),
+    }
+    s = E.colsum(Apos)
+    torch.cuda.synchronize()
+    r = _held(f"{label} colsum", s, E.colsum_plain(Apos.double()), EW_REL_TOL, (n,))
+    r["max_rel_err_each"] = _rel_each(s, E.colsum_plain(Apos.double()))
+    if not r["max_rel_err_each"] <= EW_REL_TOL:
+        fail(f"{label} colsum: {r['max_rel_err_each']} relative to float64")
+    r["same_bits"] = _same_bits(f"{label} colsum", lambda: E.colsum(Apos))
+    rec["colsum"] = r
+    out = E.scale_cols(Apos, s)
+    torch.cuda.synchronize()
+    want = E.scale_cols_plain(Apos.double(), E.colsum_plain(Apos.double()))
+    r = _held(f"{label} scale_cols", out, want, EW_REL_TOL, shape)
+    r["max_rel_err_each"] = _rel_each(out, want)
+    if not r["max_rel_err_each"] <= EW_REL_TOL:
+        fail(f"{label} scale_cols: {r['max_rel_err_each']} relative to float64")
+    if not torch.equal(out, E.scale_cols_plain(Apos, s)):
+        fail(f"{label} scale_cols: not the bits of the float32 division")
+    r["same_bits"] = _same_bits(f"{label} scale_cols", lambda: E.scale_cols(Apos, s))
+    rec["scale_cols"] = r
+    if timed:
+        # bytes: each input read once, each output written once; operations:
+        # one compare, one add (in double) or one division an entry
+        for name, fn, plain, lib, nbytes in (
+            ("projectnn", lambda: E.projectnn(A), lambda: E.projectnn_plain(A),
+             lambda: A.clamp_min(0), 8 * m * n),
+            ("colsum", lambda: E.colsum(Apos), lambda: E.colsum_plain(Apos),
+             lambda: Apos.sum(0), 4 * m * n + 4 * n),
+            ("scale_cols", lambda: E.scale_cols(Apos, s),
+             lambda: E.scale_cols_plain(Apos, s), lambda: Apos / s, 8 * m * n + 4 * n),
+        ):
+            bound_ms, by = bound_of(nbytes, m * n)
+            rec[name].update(ms=time_ms(fn), plain_ms=time_ms(plain),
+                             library_ms=time_ms(lib), bound_ms=bound_ms,
+                             bound_by=by, bytes=nbytes)
+    return rec
+
+
+def check_k_ceilings(rs, cs, vs, shape):
+    """Every k that a kernel refused before it summed over k in slabs, at a
+    small shape, against the plain version in float64 within ``REL_TOL``:
+    the dense multiplicative-update kernels and the objective at one past
+    each old ceiling (182, 372, 436) and at 512; the chunk and quad products
+    at one past their panel's 450 and at 512, where the whole product runs
+    in column slabs."""
+    from nmf_tpu_torch.ops.cuda import build
+    from nmf_tpu_torch.ops.cuda import mu as M
+    from nmf_tpu_torch.ops.cuda import objectives as O
+    from nmf_tpu_torch.ops.cuda import sparse as S
+    from nmf_tpu_torch.ops.sparse_format import build_tiled
+
+    out = {"dense": {}, "sparse": {}}
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    delta = 3.45e-4
+    for k in (183, 373, 437, 512):
+        X = torch.rand((300, 260), generator=gen, device="cuda")
+        W = torch.rand((300, k), generator=gen, device="cuda")
+        H = torch.rand((k, 260), generator=gen, device="cuda")
+        Xd, Wd, Hd = X.double(), W.double(), H.double()
+        r = {}
+        for name, fn, plain in (("wtq", M.wtq, M.wtq_plain), ("qht", M.qht, M.qht_plain)):
+            r[name] = _held(f"k_ceilings {name} k={k}", fn(X, W, H, delta),
+                            plain(Xd, Wd, Hd, delta), REL_TOL)["rel_err"]
+        for side, F, G, C in (("H", H, W.T @ W, W.T @ X), ("W", W.T, H @ H.T, (X @ H.T).T)):
+            got = M.mu_factor_update(F, G, C, 0.01, delta)
+            want = M.mu_factor_update_plain(F.double(), G.double(), C.double(), 0.01, delta)
+            r[f"mu_factor_update_{side}"] = _held(
+                f"k_ceilings mu_factor_update {side} k={k}", got, want, REL_TOL)["rel_err"]
+        for kind, fn in (("mse", O.mse_objective_kernel), ("kl", O.kl_objective_kernel)):
+            r[f"objective_{kind}"] = _held(
+                f"k_ceilings objective {kind} k={k}", fn(X, W, H).reshape(1),
+                O.dense_objective_plain(Xd, Wd, Hd, kind).reshape(1), REL_TOL)["rel_err"]
+        out["dense"][k] = r
+    Xdense = torch.zeros(shape, dtype=torch.float64, device="cuda")
+    Xdense[torch.from_numpy(rs).long().cuda(), torch.from_numpy(cs).long().cuda()] = \
+        torch.from_numpy(vs).double().cuda()
+    for tag, opts in (("chunk", dict(dense_tile_nnz=192, coo_tail_nnz=3)),
+                      ("quad", dict(dense_tile_nnz=192, quad_tail_nnz=32))):
+        Xs = build_tiled(rs, cs, vs, shape, **opts)
+        for k in (S.MAX_K + 1, 512):
+            D = torch.rand((shape[1], k), generator=gen, device="cuda")
+            D2 = torch.rand((shape[0], k), generator=gen, device="cuda")
+            build.reset_launch_counts()
+            r = {"mm": _held(f"k_ceilings {tag} mm k={k}", S.tiled_mm(Xs, D),
+                             Xdense @ D.double(), REL_TOL)["rel_err"],
+                 "mtm": _held(f"k_ceilings {tag} mtm k={k}", S.tiled_mtm(Xs, D2),
+                              Xdense.T @ D2.double(), REL_TOL)["rel_err"]}
+            r["launches"] = {n_: c for n_, c in build.launch_counts().items() if c}
+            slabs = 2 * -(-k // S.MAX_K)
+            if r["launches"].get("chunk_matmul") != slabs or (
+                    tag == "quad" and r["launches"].get("quad_matmul") != slabs):
+                fail(f"k_ceilings {tag} k={k}: launches {r['launches']}, "
+                     f"expected {slabs} slabs")
+            out["sparse"][f"{tag}_k{k}"] = r
+        del Xs
+    return out
+
+
 # ---------------------------------------------------------------------------
 # the main path
 
@@ -831,6 +966,190 @@ def solve_quad_store(Xq, W0, H0, hals_history):
     return out
 
 
+def _timed(parts, name, fn):
+    """``fn()``, with its seconds (ending in a synchronize) under ``name``."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    parts[name] = time.perf_counter() - t0
+    return out
+
+
+def nndsvd_in_parts(X):
+    """``nndsvd(X, K, variant="ar")`` as ``nnmf`` calls it (seed 0), timed
+    whole with the launch counts of its run, then step by step (the same
+    calls from the same generators, a synchronize after each step); the
+    randomized SVD's checks: the orthonormality of U, and
+    ``||X - U S V'||^2 = ||X||^2 - sum(s^2)`` with both sides read."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.init import initialization as I
+    from nmf_tpu_torch.ops import matops, tsqr
+    from nmf_tpu_torch.ops.cuda import build
+
+    xsq = float(X.stats[1])
+    out = {}
+    build.reset_launch_counts()
+    W, H = _timed(out, "nndsvd_s", lambda: nt.nndsvd(
+        X, K, variant="ar", generator=torch.Generator().manual_seed(0)))
+    out["launches"] = build.launch_counts()
+    parts = {}
+    gsvd, gar = I.child_generators(torch.Generator().manual_seed(0), 2)
+    p, n = X.shape
+    l = K + 10
+    omega = _timed(parts, "draw_s", lambda: torch.randn(
+        (n, l), generator=gsvd, dtype=torch.float64).to("cuda", torch.float32))
+    Y = _timed(parts, "sketch_s", lambda: matops.mm(X, omega))
+    Q = _timed(parts, "first_qr_s", lambda: tsqr.cholesky_qr(Y))
+    Xt = matops.transpose(X)
+
+    def power(Q):
+        for _ in range(2):
+            Q = tsqr.cholesky_qr(matops.mm(X, tsqr.cholesky_qr(matops.mm(Xt, Q))))
+        return Q
+
+    Q = _timed(parts, "power_iterations_s", lambda: power(Q))
+    one_qr = _timed(parts, "one_qr_s", lambda: tsqr.cholesky_qr(Y))  # for scale
+    B = _timed(parts, "qtx_s", lambda: matops.mtm(Q.T, X))
+    Ub, s, Vt = _timed(parts, "small_svd_s", lambda: torch.linalg.svd(B, full_matrices=False))
+    U, s, V = _timed(parts, "rotate_s", lambda: ((Q @ Ub)[:, :K], s[:K], Vt[:K, :].T))
+
+    def factors():
+        r = torch.rand(K, generator=gar, dtype=torch.float32)
+        Wb, Ht = I._nndsvd_factors(U, s, V, matops.mean(X), 2, True, r, torch.float32)
+        return Wb, Ht.T.contiguous()
+
+    W2, H2 = _timed(parts, "factor_build_s", factors)
+    out["parts"] = parts
+    out["parts_sum_s"] = sum(v for k_, v in parts.items() if k_ != "one_qr_s")
+    # the band's atomics change the last bits of a product from run to run,
+    # and singular vectors of close singular values turn with them, so the
+    # two starts are compared by what does not turn: their singular values
+    # and their relative error
+    s_whole = nt.rsvd(X, K, generator=I.child_generators(
+        torch.Generator().manual_seed(0), 2)[0])[1]
+    out["s_rel_diff_whole_vs_parts"] = float(((s_whole - s).abs() / s_whole).max())
+    out["W_rel_diff_whole_vs_parts"] = float((W2 - W).norm() / W.norm())
+    out["initial_relerr_parts"] = relerr_of(X, W2, H2, xsq)[1]
+    out["svd_shape"] = [list(B.shape), l]
+    eye = torch.eye(K, dtype=torch.float64, device="cuda")
+    UtU = U.double().T @ U.double()
+    VtV = V.double().T @ V.double()
+    out["rsvd_U_orthonormality"] = float((UtU - eye).abs().max())
+    sd = s.double()
+    UtXV = matops.mtm(U.T.contiguous(), X).double() @ V.double()
+    lhs = xsq - 2 * float((sd * torch.diagonal(UtXV)).sum()) + float(
+        ((sd[:, None] * UtU * sd[None, :]) * VtV).sum())
+    rhs = xsq - float((sd * sd).sum())
+    out["rsvd_identity"] = {"residual_sq": lhs, "xsq_minus_sum_s_sq": rhs,
+                            "rel_to_xsq": abs(lhs - rhs) / xsq}
+    # the last CholeskyQR pass shifts a Gram close to I by l * eps * trace,
+    # about l^2 eps: U is orthonormal to that in float32, and the identity
+    # (which assumes it) holds to twice that of ||X||^2
+    shift = l * l * float(torch.finfo(torch.float32).eps)
+    out["qr_shift_of_last_pass"] = shift
+    if not (out["rsvd_U_orthonormality"] <= 2 * shift
+            and abs(lhs - rhs) <= 4 * shift * xsq):
+        fail(f"rsvd checks: {out['rsvd_U_orthonormality']}, {out['rsvd_identity']}")
+    out["singular_values_head"] = s[:8].tolist()
+    if not (tuple(W.shape) == (p, K) and tuple(H.shape) == (K, n)
+            and bool(torch.isfinite(W).all()) and bool(torch.isfinite(H).all())
+            and bool((W >= 0).all()) and bool((H >= 0).all())):
+        fail("nndsvd returned a bad start")
+    out["initial_relerr"] = relerr_of(X, W, H, xsq)[1]
+    if not (out["s_rel_diff_whole_vs_parts"] <= 1e-4
+            and abs(out["initial_relerr"] - out["initial_relerr_parts"]) <= 1e-2):
+        fail(f"nndsvd in parts differs from nndsvd: {out}")
+    del Y, Q, B, omega, W2, H2, one_qr
+    return out, W, H
+
+
+def _result_ok(label, res, shape_w, shape_h):
+    if not (tuple(res.W.shape) == shape_w and tuple(res.H.shape) == shape_h
+            and bool(torch.isfinite(res.W).all()) and bool(torch.isfinite(res.H).all())
+            and bool((res.W >= 0).all()) and bool((res.H >= 0).all())):
+        fail(f"{label}: nnmf returned a bad result: {res}")
+
+
+def solve_defaults(X, t_start):
+    """The ``nnmf`` defaults on the store: the NNDSVD-ar start in its parts,
+    GreedyCD from it through ``solve_main_path`` (to the target or 200
+    iterations, the count reported and not limited), then the literal
+    ``nnmf(X, K)`` with every default (``maxiter=60`` instead of 100 when the
+    script has already run 600 s), each with the launch counts of its run."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models.greedycd import GreedyCD
+    from nmf_tpu_torch.ops.cuda import build
+
+    xsq = float(X.stats[1])
+    init, W, H = nndsvd_in_parts(X)
+    W0, H0 = W.cpu().numpy(), H.cpu().numpy()
+    del W, H
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    solved, _ = solve_main_path(X, W0, H0, "greedycd", GreedyCD(maxiter=100),
+                                max_iters=200, must_reach=False)
+    solved["launches"] = build.launch_counts()
+    solved["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    _need_launches("solve_defaults greedycd", solved["launches"],
+                   ("chunk_matmul", "dense_matmul", "projectnn"))
+    capped = time.perf_counter() - t_start > 600
+    kw = dict(maxiter=60) if capped else {}
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    lit = {}
+    res = _timed(lit, "seconds", lambda: nt.nnmf(X, K, **kw))
+    lit["launches"] = build.launch_counts()
+    _result_ok("nnmf(X, 128)", res, (P, K), (K, N))
+    _need_launches("nnmf(X, 128)", lit["launches"],
+                   ("chunk_matmul", "dense_matmul", "projectnn"))
+    lit.update(niters=res.niters, converged=res.converged, objvalue=res.objvalue,
+               relerr=relerr_of(X, res.W, res.H, xsq)[1],
+               maxiter=60 if capped else 100, capped_at_600_s=capped,
+               seconds_per_iteration=lit["seconds"] / max(res.niters, 1),
+               peak_device_memory_bytes=torch.cuda.max_memory_allocated())
+    return {"init": init, "greedycd_from_nndsvdar": solved, "nnmf_defaults": lit}
+
+
+def solve_random_replicates(X):
+    """``nnmf(X, K, alg="cd", init="random", replicates=2, maxiter=5)``: two
+    normalised random starts, so the column-sum and scaling kernels run."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.cuda import build
+
+    build.reset_launch_counts()
+    out = {}
+    res = _timed(out, "seconds", lambda: nt.nnmf(
+        X, K, alg="cd", init="random", replicates=2, maxiter=5))
+    out["launches"] = build.launch_counts()
+    _result_ok("replicates", res, (P, K), (K, N))
+    _need_launches("replicates", out["launches"],
+                   ("chunk_matmul", "dense_matmul", "colsum", "scale_cols"))
+    out.update(niters=res.niters, objvalue=res.objvalue,
+               relerr=relerr_of(X, res.W, res.H, float(X.stats[1]))[1])
+    return out
+
+
+def solve_defaults_dense(X):
+    """``nnmf(X, DK, maxiter=20)`` with the default init and solver on the
+    dense problem."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.cuda import build
+
+    xsq = float((X * X).sum(dtype=torch.float64))
+    build.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    res = _timed(out, "seconds", lambda: nt.nnmf(X, DK, maxiter=20))
+    out["launches"] = build.launch_counts()
+    _result_ok("nnmf(Xd, 64)", res, (DP, DK), (DK, DN))
+    _need_launches("nnmf(Xd, 64)", out["launches"], ("projectnn", "dense_objective"))
+    out.update(niters=res.niters, converged=res.converged, objvalue=res.objvalue,
+               relerr=relerr_of(X, res.W, res.H, xsq)[1],
+               peak_device_memory_bytes=torch.cuda.max_memory_allocated())
+    return out
+
+
 def time_to_target(label, X, upd, W0, H0, target, chunk, max_iters=5000):
     """Iterations and seconds of the resumable loop, in chunks of ``chunk``
     iterations with one relative-error read a chunk, until
@@ -1023,6 +1342,17 @@ def main():
                  for n, r in edge.items()})
     del Xe
 
+    # kernels 10-12 at the shapes the paths give them (GreedyCD's W and H
+    # half-steps and the normalised start at ttt4, the dense problem's W)
+    # and at a ragged edge
+    gen = torch.Generator(device="cuda").manual_seed(7)
+    ew = {f"{m}x{n}": check_elementwise((m, n), timed=True, gen=gen)
+          for m, n in ((P, K), (N, K), (DP, DK), (1000, 777))}
+    say("kernels_elementwise", card=smi, tolerance=EW_REL_TOL, **ew)
+    # every k a kernel refused before it summed over k in slabs
+    say("k_ceilings", tolerance=REL_TOL, shape=[3000, 2500],
+        **check_k_ceilings(rs, cs, vs, (3000, 2500)))
+
     rng = np.random.default_rng(0)
     t0 = time.perf_counter()
     rows, cols, vals = _movielens_like(rng)
@@ -1118,6 +1448,14 @@ def main():
     del Xq
     torch.cuda.empty_cache()
 
+    # 4d. the nnmf defaults: NNDSVD-ar over the randomized SVD, GreedyCD from
+    # it, the literal nnmf(X, 128); a normalised random start with a replicate
+    defaults = solve_defaults(X, t_start)
+    say("solve_defaults", target=TARGET_RELERR, card=smi, **defaults)
+    replicates = solve_random_replicates(X)
+    say("solve_random_replicates", card=smi, **replicates)
+    torch.cuda.empty_cache()
+
     # 5. the second path: multiplicative updates on the same store
     mu_sparse = solve_mu_sparse(X, W0, H0)
     say("solve_mu_sparse", shape=[P, N], k=K, card=smi, **mu_sparse)
@@ -1140,6 +1478,8 @@ def main():
     torch.cuda.empty_cache()
     mu_dense = solve_mu_dense(Xd, Wd0, Hd0)
     say("solve_mu_dense", shape=[DP, DN], k=DK, card=smi, **mu_dense)
+    dense_defaults = solve_defaults_dense(Xd)
+    say("solve_defaults_dense", shape=[DP, DN], k=DK, card=smi, **dense_defaults)
     del Xd
 
     # 7. the report: launches are those of the paths' runs, each read with
@@ -1156,6 +1496,11 @@ def main():
         "solve_mu_dense_multmse": mu_dense["multmse"]["launches"],
         "ttt1": mu_dense["ttt1"]["launches"],
         "ttt2": mu_dense["ttt2"]["launches"],
+        "nndsvd_init": defaults["init"]["launches"],
+        "solve_defaults_greedycd": defaults["greedycd_from_nndsvdar"]["launches"],
+        "nnmf_defaults": defaults["nnmf_defaults"]["launches"],
+        "solve_random_replicates": replicates["launches"],
+        "nnmf_defaults_dense": dense_defaults["launches"],
     }
     csrc = "nmf_tpu_torch/csrc/"
     pallas = "nmf_tpu/ops/pallas/"
@@ -1170,6 +1515,12 @@ def main():
         "mu_factor_update": (csrc + "mu.cu", pallas + "mu.py:54", dense["mu_factor_update"]),
         "wtq": (csrc + "mu.cu", pallas + "mu.py:99", {"": dense["wtq"]}),
         "qht": (csrc + "mu.cu", pallas + "mu.py:143", {"": dense["qht"]}),
+        "projectnn": (csrc + "elementwise.cu", pallas + "elementwise.py:37",
+                      {"W": ew[f"{P}x{K}"]["projectnn"], "H": ew[f"{N}x{K}"]["projectnn"]}),
+        "colsum": (csrc + "elementwise.cu", pallas + "elementwise.py:67",
+                   {"": ew[f"{P}x{K}"]["colsum"]}),
+        "scale_cols": (csrc + "elementwise.cu", pallas + "elementwise.py:74",
+                       {"": ew[f"{P}x{K}"]["scale_cols"]}),
     }
     kernels = []
     for name, (source, replaces, parts) in meta.items():

@@ -9,19 +9,22 @@ imports ``torch`` and ``numpy`` only.
 Ported so far: the ``nnmf`` front door for Fast-HALS coordinate descent
 (``alg="cd"``), greedy coordinate descent (``alg="greedycd"``, the default)
 and the multiplicative updates (``alg="multmse"``, ``alg="multdiv"``) with
-random or custom initialization, on dense tensors and on the tiled sparse
-store (``ops.sparse_format.build_tiled``).  Entry points
-run on the card unless the caller passes ``device="cpu"``.
+random, custom or NNDSVD initialization (``init="nndsvdar"``, the default,
+over a randomized SVD), on dense tensors and on the tiled sparse store
+(``ops.sparse_format.build_tiled``): ``nnmf(X, k)`` runs with every default.
+Entry points run on the card unless the caller passes ``device="cpu"``.
 """
 
 from . import config
-from .init.initialization import randinit
+from .init.initialization import nndsvd, randinit
 from .models.common import Result, Trace, nmf_checksize, solve, stop_condition
 from .models.coorddesc import CoordinateDescent
 from .models.greedycd import GreedyCD
 from .models.interface import nnmf, solve_replicates
 from .models.multupd import MultUpdate
+from .ops.linalg import pdrsolve, pdsolve
 from .ops.objectives import gkldiv, kl_objective, mse_objective, sqL2dist
+from .ops.rsvd import rsvd
 from .utils.numeric import adddiag, normalize1, normalize1_cols, projectnn
 
 __version__ = "0.1.0"
@@ -38,6 +41,10 @@ __all__ = [
     "GreedyCD",
     "MultUpdate",
     "randinit",
+    "nndsvd",
+    "rsvd",
+    "pdsolve",
+    "pdrsolve",
     "mse_objective",
     "kl_objective",
     "gkldiv",

@@ -11,41 +11,40 @@
 // two per entry for kind 1.
 //
 // Design: the TPU kernel adds every tile's sum into one scalar that the
-// sequential grid revisits.  Here one thread block owns 64 rows of X, stages
-// its rows of W once and walks the column tiles (wh_tile.cuh), each thread
+// sequential grid revisits.  Here one thread block owns 64 rows of X and
+// walks the column tiles (wh_tile.cuh), each thread
 // adding the terms of its 4 x 4 piece into a double.  The block sums its 256
 // doubles in a fixed order (shuffles inside a warp, then the 8 warps in
 // turn) and writes one partial; a second, one-block kernel sums the partials
 // in a fixed order, in double, and writes the float result.  No atomics: two
 // runs give the same bits.  Rows and columns past the edge read as x = 0,
-// wh = 0, where both terms vanish.  Shared memory is
-// (64 * (k4 + 4) + k4 * 68) floats, k4 = k rounded up to a multiple of 4: the
-// largest k is 436.
+// wh = 0, where both terms vanish.  The W @ H tile sums over k in slabs of
+// WH_KS (wh_tile.cuh), so any k fits: shared memory is
+// (64 * (kw + 4) + kw * 68) floats, kw = k rounded up to a multiple of 4 and
+// at most WH_KS; the W rows are staged once when k fits one slab.
 
 #include "wh_tile.cuh"
 
+template <bool ONE>
 __global__ void __launch_bounds__(WH_NT)
 objective_kernel(const float* __restrict__ X, const float* __restrict__ W,
                  const float* __restrict__ H, double* __restrict__ partial,
                  int p, int n, int k, int kind, int xvec) {
   extern __shared__ __align__(16) float sm[];
   __shared__ double warp_sum[WH_NT / 32];
-  const int kp4 = (k + 3) & ~3;
-  const int ldk = kp4 + 4;
-  float* Ws = sm;                 // 64 x ldk, staged once
-  float* Hs = Ws + WH_T * ldk;    // kp4 x WH_LD
+  const int kw = wh_slab(k);
+  const int ldk = kw + 4;
+  float* Ws = sm;                 // 64 x ldk: the block's W rows, one slab
+  float* Hs = Ws + WH_T * ldk;    // kw x WH_LD
   const int tx = threadIdx.x & 15, ty = threadIdx.x >> 4;
   const int i0 = blockIdx.x * WH_T;
 
-  stage_w(Ws, ldk, W, i0, p, k, kp4);
+  if (ONE) stage_w(Ws, ldk, W, i0, p, k, 0, kw);  // once for the walk
   double s = 0.0;
   for (int j0 = 0; j0 < n; j0 += WH_T) {
-    __syncthreads();  // the previous tile's Hs is consumed
-    stage_h(Hs, H, j0, n, k, kp4);
     float x[4][4], wh[4][4];
-    load_x(x, X, i0 + 4 * ty, j0 + 4 * tx, p, n, xvec);
-    __syncthreads();
-    wh_tile(wh, Ws, ldk, Hs, kp4, 4 * ty, 4 * tx);
+    wh_tile<ONE>(wh, x, X, xvec, Ws, ldk, Hs, W, H, i0, j0, p, n, k, true,
+                 4 * ty, 4 * tx, WH_NO_SLAB, nullptr, 0);
 #pragma unroll
     for (int a = 0; a < 4; ++a)
 #pragma unroll
@@ -97,16 +96,16 @@ extern "C" int nmf_dense_objective(const float* X, const float* W,
                                    int p, int n, int k, int kind, int xvec,
                                    void* stream) {
   if (p <= 0 || n <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
-  const int kp4 = (k + 3) & ~3;
+  const int kw = wh_slab(k);
   const size_t smem =
-      ((size_t)WH_T * (kp4 + 4) + (size_t)kp4 * WH_LD) * sizeof(float);
+      ((size_t)WH_T * (kw + 4) + (size_t)kw * WH_LD) * sizeof(float);
+  auto kernel = k <= WH_KS ? objective_kernel<true> : objective_kernel<false>;
   cudaError_t e = cudaFuncSetAttribute(
-      objective_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (e != cudaSuccess) return (int)e;
   cudaStream_t st = (cudaStream_t)stream;
   const int nparts = (p + WH_T - 1) / WH_T;
-  objective_kernel<<<nparts, WH_NT, smem, st>>>(X, W, H, partial, p, n, k, kind,
-                                                xvec);
+  kernel<<<nparts, WH_NT, smem, st>>>(X, W, H, partial, p, n, k, kind, xvec);
   e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   objective_reduce_kernel<<<1, WH_NT, 0, st>>>(partial, nparts,

@@ -10,6 +10,14 @@
 // float4: 8 loads for 64 fused multiply-adds.  Exact fp32 FMA on the CUDA
 // cores, sums in increasing t: the same bits from run to run.
 //
+// The reduction over k runs in slabs of WH_KS: one slab of the W rows and of
+// the H columns sits in shared memory at a time and the piece of the tile
+// stays in registers across slabs (the ordinary GEMM k-loop), so any k
+// fits.  The additions stay in increasing t across slabs: a k that fits one
+// slab sums exactly as a k cut into several.  Where k fits one slab, the
+// operand that does not change along the caller's walk is staged once
+// before the walk.
+//
 // Shared tiles that are 64 wide have a row stride of 68 floats: rows stay 16
 // byte aligned for the float4 reads and the two rows a warp reads at once
 // fall into different banks.
@@ -22,6 +30,7 @@
 #define WH_T 64     // tile edge
 #define WH_LD 68    // row stride of a 64-wide shared tile
 #define WH_NT 256   // threads per block
+#define WH_KS 128   // depth of one k-slab
 
 // acc[a][b] += sum_{t < T} A[a * lda + t] * B[t * ldb + b];  T % 4 == 0, A
 // points at the thread's first row, B at its first column.
@@ -64,21 +73,30 @@ __device__ __forceinline__ void zero_tile(float (&acc)[4][4]) {
     for (int b = 0; b < 4; ++b) acc[a][b] = 0.f;
 }
 
-// Ws[i][r] = W[i0 + i][r] for 64 rows of W (p x k), r < kp4; zero outside W.
+// Width of the staged slabs for a given k: k rounded up to a multiple of 4,
+// at most WH_KS.  Shared W tiles have a row stride of this plus 4.
+__host__ __device__ __forceinline__ int wh_slab(int k) {
+  const int kp4 = (k + 3) & ~3;
+  return kp4 < WH_KS ? kp4 : WH_KS;
+}
+
+// Ws[i][r] = W[i0 + i][r0 + r] for 64 rows of W (p x k), r < kw; zero
+// outside W.
 __device__ __forceinline__ void stage_w(float* Ws, int ldk, const float* W,
-                                        int i0, int p, int k, int kp4) {
-  for (int t = threadIdx.x; t < WH_T * kp4; t += WH_NT) {
-    const int i = t / kp4, r = t - i * kp4, gi = i0 + i;
-    Ws[i * ldk + r] = (gi < p && r < k) ? W[(size_t)gi * k + r] : 0.f;
+                                        int i0, int p, int k, int r0, int kw) {
+  for (int t = threadIdx.x; t < WH_T * kw; t += WH_NT) {
+    const int i = t / kw, r = t - i * kw, gi = i0 + i, gr = r0 + r;
+    Ws[i * ldk + r] = (gi < p && gr < k) ? W[(size_t)gi * k + gr] : 0.f;
   }
 }
 
-// Hs[r][j] = H[r][j0 + j] for 64 columns of H (k x n), r < kp4; zero outside.
+// Hs[r][j] = H[r0 + r][j0 + j] for 64 columns of H (k x n), r < kw; zero
+// outside H.
 __device__ __forceinline__ void stage_h(float* Hs, const float* H, int j0,
-                                        int n, int k, int kp4) {
-  for (int t = threadIdx.x; t < kp4 * WH_T; t += WH_NT) {
-    const int r = t >> 6, j = t & 63, gj = j0 + j;
-    Hs[r * WH_LD + j] = (r < k && gj < n) ? H[(size_t)r * n + gj] : 0.f;
+                                        int n, int k, int r0, int kw) {
+  for (int t = threadIdx.x; t < kw * WH_T; t += WH_NT) {
+    const int r = t >> 6, j = t & 63, gj = j0 + j, gr = r0 + r;
+    Hs[r * WH_LD + j] = (gr < k && gj < n) ? H[(size_t)gr * n + gj] : 0.f;
   }
 }
 
@@ -102,11 +120,61 @@ __device__ __forceinline__ void load_x(float (&x)[4][4], const float* X,
   }
 }
 
-// wh = the thread's piece of Ws (64 x kp4, rows a0..a0+3) @ Hs (kp4 x 64,
-// columns b0..b0+3).
-__device__ __forceinline__ void wh_tile(float (&wh)[4][4], const float* Ws,
-                                        int ldk, const float* Hs, int kp4,
-                                        int a0, int b0) {
+// Wt[c][i] = W[i0 + i][c0 + c]: a 64 x 64 transposed slab of W (p x k).
+__device__ __forceinline__ void stage_wt(float* Wt, const float* W, int i0,
+                                         int c0, int p, int k) {
+  for (int t = threadIdx.x; t < WH_T * WH_T; t += WH_NT) {
+    const int i = t >> 6, c = t & 63, gi = i0 + i, gc = c0 + c;
+    Wt[c * WH_LD + i] = (gi < p && gc < k) ? W[(size_t)gi * k + gc] : 0.f;
+  }
+}
+
+// Ht[j][c] = H[c0 + c][j0 + j]: a 64 x 64 transposed slab of H (k x n).
+__device__ __forceinline__ void stage_ht(float* Ht, const float* H, int j0,
+                                         int c0, int n, int k) {
+  for (int t = threadIdx.x; t < WH_T * WH_T; t += WH_NT) {
+    const int c = t >> 6, j = t & 63, gj = j0 + j, gc = c0 + c;
+    Ht[j * WH_LD + c] = (gc < k && gj < n) ? H[(size_t)gc * n + gj] : 0.f;
+  }
+}
+
+enum { WH_NO_SLAB = 0, WH_W_SLAB = 1, WH_H_SLAB = 2 };
+
+// wh = the thread's piece (rows a0.., columns b0..) of
+// W[i0:i0+64, :] @ H[:, j0:j0+64], summed over k one slab at a time into
+// Ws (64 x ldk) and Hs (slab x WH_LD), and x = the thread's piece of X at
+// (i0 + a0, j0 + b0).  ``ONE``: k fits one slab (k <= WH_KS), known when
+// the kernel is compiled, so the walk over slabs vanishes and the code is
+// that of a single product.  ``fixed_w``: W is the operand that stays the
+// same along the caller's walk (else H); with ONE the caller staged it whole
+// before the walk and it is not staged again here.  ``slab``: the caller's
+// own 64 x 64 transposed slab of components c0.. (WH_W_SLAB: stage_wt into
+// T, WH_H_SLAB: stage_ht into T) is staged with the first slab, and x loaded
+// after it, so their loads overlap the staging.  Begins with a barrier, so
+// the caller's shared operands of its previous step must be consumed by
+// then; ends after the last slab's product, with no barrier.
+template <bool ONE>
+__device__ __forceinline__ void wh_tile(float (&wh)[4][4], float (&x)[4][4],
+                                        const float* X, int xvec, float* Ws,
+                                        int ldk, float* Hs, const float* W,
+                                        const float* H, int i0, int j0, int p,
+                                        int n, int k, bool fixed_w, int a0,
+                                        int b0, int slab, float* T, int c0) {
+  const int kp4 = (k + 3) & ~3;
+  const int nslabs = ONE ? 1 : (kp4 + WH_KS - 1) / WH_KS;
   zero_tile(wh);
-  tile_fma(wh, Ws + a0 * ldk, ldk, Hs + b0, WH_LD, kp4);
+  for (int sl = 0; sl < nslabs; ++sl) {
+    const int r0 = sl * WH_KS;
+    const int kw = ONE ? kp4 : min(WH_KS, kp4 - r0);
+    __syncthreads();  // the previous slab's (or step's) operands are consumed
+    if (!(ONE && fixed_w)) stage_w(Ws, ldk, W, i0, p, k, r0, kw);
+    if (!(ONE && !fixed_w)) stage_h(Hs, H, j0, n, k, r0, kw);
+    if (sl == 0) {
+      if (slab == WH_W_SLAB) stage_wt(T, W, i0, c0, p, k);
+      if (slab == WH_H_SLAB) stage_ht(T, H, j0, c0, n, k);
+      load_x(x, X, i0 + a0, j0 + b0, p, n, xvec);
+    }
+    __syncthreads();
+    tile_fma(wh, Ws + a0 * ldk, ldk, Hs + b0, WH_LD, kw);
+  }
 }

@@ -6,9 +6,9 @@ Same validation rules, init and algorithm dispatch, replicate policy and
 ``tol=cbrt(eps(T)/100)``, ``replicates=1``.
 
 Ported so far: ``alg`` in ``("cd", "greedycd", "multmse", "multdiv")`` with
-``init`` in ``("random", "custom")``.  Every other documented value raises
-``NotImplementedError`` naming the value — the default ``init`` included,
-until the initializers are ported.
+``init`` in ``("random", "nndsvd", "nndsvda", "nndsvdar", "custom")``, so
+``nnmf(X, k)`` runs with every default.  Every other documented value
+raises ``NotImplementedError`` naming the value.
 """
 
 from __future__ import annotations
@@ -18,7 +18,7 @@ import warnings
 import torch
 
 from .. import config
-from ..init.initialization import randinit
+from ..init.initialization import child_generators, nndsvd, randinit
 from ..ops import matops
 from ..utils.dtypes import default_tol
 from .common import Result, solve
@@ -31,7 +31,7 @@ __all__ = ["nnmf", "solve_replicates"]
 _ALGS = ("projals", "alspgrad", "multmse", "multdiv", "cd", "greedycd", "spa")
 _INITS = ("random", "nndsvd", "nndsvda", "nndsvdar", "spa", "custom")
 _PORTED_ALGS = ("cd", "greedycd", "multmse", "multdiv")
-_PORTED_INITS = ("random", "custom")
+_PORTED_INITS = ("random", "nndsvd", "nndsvda", "nndsvdar", "custom")
 
 
 def _check_nonneg(A, name):
@@ -41,12 +41,6 @@ def _check_nonneg(A, name):
         ok = bool((A >= 0).all())
     if not ok:
         raise ValueError(f"The elements of {name} must be non-negative.")
-
-
-def _child_generators(generator, n):
-    """``n`` independent CPU generators drawn from ``generator``."""
-    seeds = torch.randint(0, 2**62, (n,), generator=generator).tolist()
-    return [torch.Generator().manual_seed(s) for s in seeds]
 
 
 def nnmf(
@@ -72,15 +66,8 @@ def nnmf(
 
     ``X`` is a dense array or tensor (moved to ``device``) or a ``TiledCSR``
     built on ``device``.  ``generator`` (a CPU ``torch.Generator``; seeded
-    from ``seed`` when not given) drives every random draw.
-
-    On a dense float32 ``X`` on the card the multiplicative updates hold a
-    ``k x k`` Gram or a ``k``-deep tile in shared memory, so ``k`` has a
-    ceiling there: ``ops.cuda.mu.MU_MAX_K`` for ``alg="multmse"``,
-    ``ops.cuda.mu.QUOTIENT_MAX_K`` for ``alg="multdiv"``, and
-    ``ops.cuda.objectives.OBJECTIVE_MAX_K`` for either once ``X`` has more
-    than 4M entries.  A larger ``k`` raises ``ValueError``; a ``TiledCSR``,
-    the CPU and float64 take any ``k``.
+    from ``seed`` when not given) drives every random draw.  ``initdata``
+    hands the NNDSVD inits their singular triplets (see ``nndsvd``).
     """
     dev = config.resolve_device(device)
     if matops.is_sparse(X):
@@ -132,10 +119,14 @@ def nnmf(
         tol = default_tol(T)
     if generator is None:
         generator = torch.Generator().manual_seed(seed)
-    ginit, grep, gshuf = _child_generators(generator, 3)
+    ginit, grep, gshuf = child_generators(generator, 3)
 
     if init == "random":
         W, H = randinit(X, k, normalize=True, generator=ginit, device=dev)
+    elif init in ("nndsvd", "nndsvda", "nndsvdar"):
+        variant = {"nndsvd": "std", "nndsvda": "a", "nndsvdar": "ar"}[init]
+        W, H = nndsvd(X, k, variant=variant, initdata=initdata, generator=ginit,
+                      device=dev)
     else:
         W, H = W0, H0
 
@@ -168,7 +159,7 @@ def solve_replicates(
         return ret
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    for sub in _child_generators(generator, replicates - 1):
+    for sub in child_generators(generator, replicates - 1):
         Wr, Hr = randinit(
             X, k, zeroh=not initH, normalize=True, generator=sub, device=dev
         )

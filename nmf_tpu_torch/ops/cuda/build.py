@@ -21,14 +21,14 @@ from pathlib import Path
 import torch
 
 __all__ = ["load_kernels", "launch", "launch_counts", "reset_launch_counts",
-           "largest_k", "KERNELS", "NVCC_FLAGS", "SMEM_PER_BLOCK"]
+           "KERNELS", "NVCC_FLAGS", "SMEM_PER_BLOCK"]
 
 _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = (
     "chunk_matmul.cu", "dense_matmul.cu", "quad_matmul.cu", "chunk_sddmm.cu",
-    "quad_sddmm.cu", "mu.cu", "objectives.cu",
+    "quad_sddmm.cu", "mu.cu", "objectives.cu", "elementwise.cu",
 )
 # wh_tile.cuh: mu.cu and objectives.cu; sddmm_warp.cuh: the two sddmm sources
 HEADERS = ("wh_tile.cuh", "sddmm_warp.cuh")
@@ -42,6 +42,7 @@ SMEM_PER_BLOCK = 232448  # bytes of shared memory one thread block may use
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
+_S = ctypes.c_size_t
 _ARGTYPES = {
     # panel_ptr, panel_chunks, win_panel, coords, vals, D, out,
     # n_rowpanels, group, span, rows, k, stream
@@ -65,6 +66,12 @@ _ARGTYPES = {
     "nmf_qht": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P],
     # X, W, H, partial, out, p, n, k, kind, xvec, stream
     "nmf_dense_objective": [_P] * 5 + [_I] * 5 + [_P],
+    # A, out, count, vec, stream
+    "nmf_projectnn": [_P, _P, _S, _I, _P],
+    # A, partial, out, m, n, stream
+    "nmf_colsum": [_P] * 3 + [_I] * 2 + [_P],
+    # A, sums, out, count, n, vec, stream
+    "nmf_scale_cols": [_P] * 3 + [_S, _I, _I, _P],
 }
 
 # one entry point ``nmf_<name>`` and one launch count per kernel
@@ -136,15 +143,6 @@ def load_kernels():
         fn.restype = ctypes.c_int
     _lib = lib
     return lib
-
-
-def largest_k(smem_bytes) -> int:
-    """The largest k whose kernel fits a block's shared memory, given the
-    bytes the kernel's launcher asks for at k."""
-    k = 1
-    while smem_bytes(k + 1) <= SMEM_PER_BLOCK:
-        k += 1
-    return k
 
 
 def launch(name: str, *args) -> None:

@@ -13,6 +13,12 @@
   axis; where that gives the card too few blocks the walk is cut into runs
   whose partial outputs a second small kernel adds in a fixed order.
 
+Every kernel sums over ``k`` one slab at a time (``MU_SLAB`` rows of G and F
+for ``mu_factor_update``, ``WH_SLAB`` components of the ``W @ H`` tile for
+``wtq`` and ``qht``), keeping its sums in registers across slabs: any ``k``
+fits the card's shared memory, and a ``k`` that fits one slab sums in the
+order it would unslabbed.
+
 Each wrapper launches its kernel for float32 tensors on the card or raises;
 it takes the plain version beside it for tensors on the CPU and for float64
 (the kernels are float32 only; float64 is the parity-test type and runs the
@@ -23,23 +29,18 @@ from __future__ import annotations
 
 import torch
 
-from .build import largest_k, launch
+from .build import launch
 
 __all__ = [
     "mu_factor_update", "mu_factor_update_plain", "wtq", "wtq_plain", "qht",
-    "qht_plain", "walk_splits", "MU_MAX_K", "QUOTIENT_MAX_K",
+    "qht_plain", "walk_splits", "MU_SLAB", "WH_SLAB",
 ]
 
-
-def round4(k):
-    return -(-k // 4) * 4
-
-
-# shared memory of the kernels in csrc/mu.cu, as their launchers compute it
-MU_MAX_K = largest_k(lambda k: 4 * (k * (round4(k) + 4) + 2 * k * 65))
-QUOTIENT_MAX_K = largest_k(
-    lambda k: 4 * (round4(k) * 68 + 64 * (round4(k) + 4) + 2 * 64 * 68)
-)
+# depth of one k-slab in shared memory: ``MU_KS`` of csrc/mu.cu (also the
+# rows of the result a thread block of mu_factor_update takes) and ``WH_KS``
+# of csrc/wh_tile.cuh (the W @ H tile of wtq, qht and the objective kernel)
+MU_SLAB = 64
+WH_SLAB = 128
 
 
 # ---------------------------------------------------------------------------
@@ -70,10 +71,8 @@ def mu_factor_update(F, G, C, lam, delta):
         return mu_factor_update_plain(F, G, C, lam, delta)
     if F.dtype != torch.float32:
         raise TypeError(f"the kernel takes float32, got {F.dtype}")
-    if not 1 <= k <= MU_MAX_K:
-        raise ValueError(
-            f"k must be in [1, {MU_MAX_K}] for the mu_factor_update kernel, got {k}"
-        )
+    if k < 1:
+        raise ValueError(f"k must be at least 1 for the mu_factor_update kernel, got {k}")
     if F.is_contiguous() and C.is_contiguous():
         trans = 0
         out = torch.empty_like(F)
@@ -107,7 +106,7 @@ def qht_plain(X, W, H, delta):
     return (X / (W @ H + delta)) @ H.T
 
 
-def check_dense_problem(X, W, H, max_k, what):
+def check_dense_problem(X, W, H, what):
     """Shapes, types and places of a dense ``(X, W, H)`` handed to a kernel;
     returns ``(p, n, k, W, H, xvec)`` with the factors row-major.  ``xvec``
     says that a row piece of X may be read as one 16-byte load."""
@@ -128,8 +127,8 @@ def check_dense_problem(X, W, H, max_k, what):
             f"X must be contiguous (row-major) for the {what} kernel; "
             "call X.contiguous() first"
         )
-    if not 1 <= k <= max_k:
-        raise ValueError(f"k must be in [1, {max_k}] for the {what} kernel, got {k}")
+    if k < 1:
+        raise ValueError(f"k must be at least 1 for the {what} kernel, got {k}")
     xvec = int(n % 4 == 0 and X.data_ptr() % 16 == 0)
     return p, n, k, W.contiguous(), H.contiguous(), xvec
 
@@ -152,7 +151,7 @@ def _quotient_product(name, X, W, H, delta):
     plain, owned_axis = {"wtq": (wtq_plain, 1), "qht": (qht_plain, 0)}[name]
     if not X.is_cuda or X.dtype == torch.float64:
         return plain(X, W, H, delta)
-    p, n, k, W, H, xvec = check_dense_problem(X, W, H, QUOTIENT_MAX_K, name)
+    p, n, k, W, H, xvec = check_dense_problem(X, W, H, name)
     shape = (k, n) if name == "wtq" else (p, k)
     splits = walk_splits(X.shape[owned_axis], X.shape[1 - owned_axis], k, X.device)
     out = torch.empty(shape, dtype=torch.float32, device=X.device)

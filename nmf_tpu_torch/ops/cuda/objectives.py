@@ -12,22 +12,17 @@ from __future__ import annotations
 
 import torch
 
-from .build import largest_k, launch
-from .mu import check_dense_problem, round4
+from .build import launch
+from .mu import check_dense_problem
 
 __all__ = [
     "mse_objective_kernel", "kl_objective_kernel", "dense_objective_plain",
-    "sqL2dist", "gkldiv", "OBJECTIVE_MAX_K",
+    "sqL2dist", "gkldiv",
 ]
 
 KINDS = ("mse", "kl")
 # Column-block size of the plain version.
 _BLOCK_N = 2048
-# shared memory of the kernel as its launcher computes it, plus its eight
-# per-warp doubles
-OBJECTIVE_MAX_K = largest_k(
-    lambda k: 4 * (64 * (round4(k) + 4) + round4(k) * 68) + 64
-)
 
 
 def sqL2dist(a, b):
@@ -68,9 +63,7 @@ def dense_objective_plain(X, W, H, kind):
 def _objective(X, W, H, kind):
     if not X.is_cuda or X.dtype == torch.float64:
         return dense_objective_plain(X, W, H, kind)
-    p, n, k, W, H, xvec = check_dense_problem(
-        X, W, H, OBJECTIVE_MAX_K, "objective"
-    )
+    p, n, k, W, H, xvec = check_dense_problem(X, W, H, "objective")
     partial = torch.empty(-(-p // 64), dtype=torch.float64, device=X.device)
     out = torch.empty(1, dtype=torch.float32, device=X.device)
     launch(

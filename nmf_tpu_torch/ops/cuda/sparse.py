@@ -248,10 +248,7 @@ def coo_matmul(side: TiledSideC, D, out):
     return out
 
 
-def tiled_matmul_t(side: TiledSideC, D):
-    """``X @ D`` for one tiling orientation, in the tiling's coordinates;
-    returns (rows, k) float32."""
-    D = D.to(torch.float32).contiguous()
+def _tiled_matmul_slab(side: TiledSideC, D):
     out = chunk_matmul(side, D)
     if side.n_dblocks:
         out = dense_matmul(side, D, out)
@@ -260,6 +257,23 @@ def tiled_matmul_t(side: TiledSideC, D):
     if side.n_coo:
         out = coo_matmul(side, D, out)
     return out
+
+
+def tiled_matmul_t(side: TiledSideC, D):
+    """``X @ D`` for one tiling orientation, in the tiling's coordinates;
+    returns (rows, k) float32.  Any k: a D wider than ``MAX_K`` is cut into
+    column slabs of at most ``MAX_K`` and the whole chain (chunks, dense
+    blocks, quad chunks, band) runs per slab.  Every kernel computes each
+    output column on its own (thread j owns column j), so the slabs give the
+    bits one launch over all of D would give."""
+    D = D.to(torch.float32).contiguous()
+    k = D.shape[1]
+    if k <= MAX_K:
+        return _tiled_matmul_slab(side, D)
+    return torch.cat([
+        _tiled_matmul_slab(side, D[:, c0 : c0 + MAX_K].contiguous())
+        for c0 in range(0, k, MAX_K)
+    ], dim=1)
 
 
 def tiled_mm(X: TiledCSR, D):

@@ -1,8 +1,15 @@
-"""Small numeric utilities: plain functions on tensors."""
+"""Small numeric utilities: plain functions on tensors.
+
+``projectnn`` and ``normalize1_cols`` stand alone between PyTorch's launches
+(nothing fuses them into the ops around them), so on the card they run the
+elementwise kernels of ``ops/cuda/elementwise.py``; on the CPU and in float64
+they run those kernels' plain versions."""
 
 from __future__ import annotations
 
 import torch
+
+from ..ops.cuda import elementwise
 
 __all__ = ["adddiag", "normalize1", "normalize1_cols", "projectnn", "safe_div"]
 
@@ -22,12 +29,12 @@ def normalize1(a):
 
 def normalize1_cols(a):
     """Scale each column of ``a`` to sum to one."""
-    return a / a.sum(dim=0, keepdim=True)
+    return elementwise.scale_cols(a, elementwise.colsum(a))
 
 
 def projectnn(A):
-    """Project all entries onto the non-negative orthant."""
-    return A.clamp_min(0)
+    """Project all entries onto the non-negative orthant (NaN is kept)."""
+    return elementwise.projectnn(A)
 
 
 def safe_div(num, den):

@@ -77,8 +77,13 @@ def test_wrappers_refuse_what_the_kernels_do_not_take(card):
     Xd = three_class_matrix()
     r, c, v = coo_of(Xd)
     side = build_tiled(r, c, v, Xd.shape, device=card, **BUILD).fwd
+    # one past the chunk kernel's panel: the kernel refuses it, the whole
+    # product takes it in column slabs
+    D = torch.rand(side.cols, tsp.MAX_K + 1, device=card)
     with pytest.raises(ValueError, match="k must be in"):
-        tsp.chunk_matmul(side, torch.zeros(side.cols, tsp.MAX_K + 1, device=card))
+        tsp.chunk_matmul(side, D)
+    want = tsp.dense_matmul_plain(side, D, tsp.chunk_matmul_plain(side, D))
+    close(tsp.tiled_matmul_t(side, D), tsp.coo_matmul(side, D, want))
     with pytest.raises(ValueError, match="lives on"):
         tsp.chunk_matmul(side, torch.zeros(side.cols, 8))
     with pytest.raises(TypeError):
@@ -169,7 +174,8 @@ def test_mu_kernels_match_their_plain_versions_on_the_card(card, p, n, k):
         assert float(got) == float(fn(X, W, H))
     assert build.launch_counts() == dict(
         chunk_matmul=0, dense_matmul=0, quad_matmul=0, chunk_sddmm=0,
-        quad_sddmm=0, mu_factor_update=2, wtq=2, qht=2, dense_objective=4)
+        quad_sddmm=0, mu_factor_update=2, wtq=2, qht=2, dense_objective=4,
+        projectnn=0, colsum=0, scale_cols=0)
 
 
 def test_dense_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -180,11 +186,12 @@ def test_dense_wrappers_refuse_what_the_kernels_do_not_take(card):
         tmu.qht(X, W.half(), H.half(), 1e-3)
     with pytest.raises(ValueError, match="lives on"):
         tobj.mse_objective_kernel(X, W.cpu(), H)
-    big = tmu.MU_MAX_K + 1
-    with pytest.raises(ValueError, match="k must be in"):
-        tmu.mu_factor_update(torch.zeros(big, 8, device=card),
-                             torch.zeros(big, big, device=card),
-                             torch.zeros(big, 8, device=card), 0.0, 1e-3)
+    # one past the old ceiling (G in shared memory): now one slab at a time
+    big = 183
+    F, C = torch.rand(big, 70, device=card), torch.rand(big, 70, device=card)
+    G = torch.rand(big, big, device=card)
+    close(tmu.mu_factor_update(F, G, C, 0.0, 1e-3),
+          tmu.mu_factor_update_plain(F.double(), G.double(), C.double(), 0.0, 1e-3).float())
     with pytest.raises(ValueError, match="row-major"):
         tmu.mu_factor_update(H, W.T @ W, (X.T @ W).T, 0.0, 1e-3)
     # float64 on the card takes the plain expression and launches nothing
@@ -309,14 +316,19 @@ def test_quad_kernels_match_their_plain_versions_on_the_card(card, order, seg, k
 
 def test_quad_kernel_takes_k_up_to_its_ceiling(card):
     """The quad product keeps a (128, k) panel in shared memory: k up to
-    ``MAX_K`` launches, one more is refused by the wrapper."""
+    ``MAX_K`` launches, one more is refused by the wrapper and taken by the
+    whole product in column slabs."""
     Xd, Xt = _quad_store(card)
     side = Xt.fwd
     D = torch.rand(side.cols, tsp.MAX_K, device=card)
     close(tsp.quad_matmul(side, D), tsp.quad_matmul_plain(side, D))
     close(tsp.chunk_matmul(side, D), tsp.chunk_matmul_plain(side, D))
+    D = torch.rand(side.cols, tsp.MAX_K + 1, device=card)
     with pytest.raises(ValueError, match="k must be in"):
-        tsp.quad_matmul(side, torch.zeros(side.cols, tsp.MAX_K + 1, device=card))
+        tsp.quad_matmul(side, D)
+    X = torch.from_numpy(Xd).to(card)
+    Dm = torch.rand(Xd.shape[1], tsp.MAX_K + 1, device=card)
+    close(tsp.tiled_mm(Xt, Dm), (X.double() @ Dm.double()).float())
     with pytest.raises(ValueError, match="lives on"):
         tsp.quad_matmul(side, torch.zeros(side.cols, 8))
     with pytest.raises(TypeError):
@@ -395,3 +407,136 @@ def test_greedycd_cascade_gives_the_same_bits_on_the_card(card):
         config.greedycd_cascade.update(old)
     for r in out[1:]:
         assert torch.equal(r.W, out[0].W) and torch.equal(r.H, out[0].H)
+
+
+# ---------------------------------------------------------------------------
+# no k ceiling: the formerly refused k against the plain versions
+
+
+@pytest.mark.parametrize("k", [183, 373, 437, 451, 512])
+def test_dense_kernels_take_any_k(card, k):
+    X, W, H = _dense_problem(300, 260, k, card)
+    Xd, Wd, Hd = X.double(), W.double(), H.double()
+    delta = 3.45e-4
+    for fn, plain in ((tmu.wtq, tmu.wtq_plain), (tmu.qht, tmu.qht_plain)):
+        got = fn(X, W, H, delta)
+        close(got, plain(Xd, Wd, Hd, delta).float())
+        assert torch.equal(got, fn(X, W, H, delta))
+    G, C = W.T @ W, W.T @ X
+    got = tmu.mu_factor_update(H, G, C, 0.01, delta)
+    close(got, tmu.mu_factor_update_plain(Hd, G.double(), C.double(), 0.01, delta).float())
+    G2, C2 = H @ H.T, X @ H.T
+    got = tmu.mu_factor_update(W.T, G2, C2.T, 0.01, delta)
+    close(got, tmu.mu_factor_update_plain(Wd.T, G2.double(), C2.double().T, 0.01, delta).float())
+    for kind, fn in (("mse", tobj.mse_objective_kernel), ("kl", tobj.kl_objective_kernel)):
+        want = tobj.dense_objective_plain(Xd, Wd, Hd, kind)
+        assert float(fn(X, W, H)) == pytest.approx(float(want), rel=1e-5)
+
+
+@pytest.mark.parametrize("k", [183, 373, 437, 451, 512])
+@pytest.mark.parametrize("store", ["chunk", "quad"])
+def test_sparse_products_take_any_k(card, store, k):
+    if store == "chunk":
+        Xd = three_class_matrix()
+        r, c, v = coo_of(Xd)
+        Xt = build_tiled(r, c, v, Xd.shape, device=card, **BUILD)
+    else:
+        Xd, Xt = _quad_store(card)
+    X = torch.from_numpy(Xd).to(card).double()
+    build.reset_launch_counts()
+    D = torch.rand(Xd.shape[1], k, device=card)
+    close(tsp.tiled_mm(Xt, D), (X @ D.double()).float())
+    D2 = torch.rand(Xd.shape[0], k, device=card)
+    close(tsp.tiled_mtm(Xt, D2), (X.T @ D2.double()).float())
+    slabs = 2 * -(-k // tsp.MAX_K)
+    counts = build.launch_counts()
+    assert counts["chunk_matmul"] == slabs
+    assert store == "chunk" or counts["quad_matmul"] == slabs
+
+
+# ---------------------------------------------------------------------------
+# kernels 10-12: the elementwise kernels
+
+
+@pytest.mark.parametrize("shape", [(1000, 777), (163_000, 128), (7, 3), (1, 1)])
+def test_elementwise_kernels_match_their_plain_versions(card, shape):
+    from nmf_tpu_torch.ops.cuda import elementwise as ew
+
+    g = torch.Generator(device=card).manual_seed(sum(shape))
+    A = torch.randn(shape, device=card, generator=g)
+    build.reset_launch_counts()
+    got = ew.projectnn(A)
+    assert torch.equal(got, ew.projectnn_plain(A))
+    assert torch.equal(got, ew.projectnn(A))
+    assert torch.equal(ew.projectnn(A.T), ew.projectnn_plain(A.T))
+    Apos = A.abs() + 0.1
+    s = ew.colsum(Apos)
+    want = ew.colsum_plain(Apos.double())
+    np.testing.assert_allclose(s.cpu().numpy(), want.cpu().numpy(), rtol=1e-6)
+    assert torch.equal(s, ew.colsum(Apos))
+    out = ew.scale_cols(Apos, s)
+    assert torch.equal(out, ew.scale_cols_plain(Apos, s))  # IEEE division
+    np.testing.assert_allclose(
+        out.cpu().numpy(), (Apos.double() / want).cpu().numpy(), rtol=1e-6)
+    assert build.launch_counts() == dict.fromkeys(build.KERNELS, 0) | dict(
+        projectnn=3, colsum=2, scale_cols=1)
+
+
+def test_projectnn_kernel_keeps_nan_signed_zero_and_inf(card):
+    from nmf_tpu_torch.ops.cuda import elementwise as ew
+
+    vals = torch.tensor([-0.0, 0.0, float("nan"), -float("nan"), float("inf"),
+                         -float("inf"), -1e-38, 1e-45, -2.5, 3.0])
+    A = vals.repeat(1001).reshape(1430, 7).to(card)  # ragged: not a multiple of 4
+    for X in (A, A[1:].contiguous()):  # 16-byte aligned and not
+        got = ew.projectnn(X)
+        want = ew.projectnn_plain(X)
+        assert torch.equal(got.view(torch.int32), want.view(torch.int32))  # every bit
+        assert torch.equal(torch.isnan(got), torch.isnan(X))
+
+
+def test_numeric_utils_route_to_the_kernels_on_the_card(card):
+    from nmf_tpu_torch.utils import numeric
+
+    A = torch.rand(5000, 40, device=card)
+    build.reset_launch_counts()
+    numeric.projectnn(A - 0.5)
+    numeric.normalize1_cols(A)
+    counts = build.launch_counts()
+    assert (counts["projectnn"], counts["colsum"], counts["scale_cols"]) == (1, 1, 1)
+    build.reset_launch_counts()
+    numeric.projectnn(A.double())  # float64 takes the plain version
+    assert not any(build.launch_counts().values())
+
+
+def test_nnmf_with_every_default_runs_the_kernels(card):
+    Xd = three_class_matrix()
+    r, c, v = coo_of(Xd)
+    build.reset_launch_counts()
+    res = nt.nnmf(build_tiled(r, c, v, Xd.shape, **BUILD), 6, maxiter=5)
+    counts = build.launch_counts()
+    assert res.W.is_cuda and res.niters >= 1
+    assert all(counts[n] > 0 for n in ("chunk_matmul", "dense_matmul", "projectnn")), counts
+    build.reset_launch_counts()
+    nt.nnmf(build_tiled(r, c, v, Xd.shape, **BUILD), 6, alg="cd", init="random",
+            replicates=2, maxiter=2)
+    counts = build.launch_counts()
+    assert counts["colsum"] == counts["scale_cols"] == 2, counts
+
+
+def test_rsvd_on_the_card_agrees_with_the_cpu_in_float64(card):
+    rng = np.random.default_rng(8)
+    p, n, k = 3000, 2500, 20
+    Xd = (rng.random((p, 12)) @ rng.random((12, n))).astype(np.float32)
+    Xd[rng.random((p, n)) < 0.9] = 0.0
+    r, c, v = coo_of(Xd)
+    Xt = build_tiled(r, c, v, (p, n), dense_tile_nnz=192, coo_tail_nnz=3)
+    U, s, V = nt.rsvd(Xt, k, generator=torch.Generator().manual_seed(3))
+    Uc, sc, Vc = nt.rsvd(Xd.astype(np.float64), k, generator=torch.Generator().manual_seed(3),
+                         device="cpu")
+    assert U.is_cuda and U.dtype == torch.float32
+    np.testing.assert_allclose(s.cpu().numpy(), sc.numpy(), rtol=1e-4)
+    # orthonormal as far as the last CholeskyQR pass's shift allows: it adds
+    # l * eps * trace(G) to a Gram close to I, about l^2 eps (1.1e-4 here)
+    shift = (k + 10) ** 2 * torch.finfo(torch.float32).eps
+    assert float((U.T @ U - torch.eye(k, device=card)).abs().max()) <= 2 * shift

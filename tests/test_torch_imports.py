@@ -32,10 +32,14 @@ MODULES = [
     "nmf_tpu_torch.models.greedycd",
     "nmf_tpu_torch.models.interface",
     "nmf_tpu_torch.models.multupd",
+    "nmf_tpu_torch.ops.linalg",
     "nmf_tpu_torch.ops.matops",
     "nmf_tpu_torch.ops.objectives",
+    "nmf_tpu_torch.ops.rsvd",
     "nmf_tpu_torch.ops.sparse_format",
+    "nmf_tpu_torch.ops.tsqr",
     "nmf_tpu_torch.ops.cuda.build",
+    "nmf_tpu_torch.ops.cuda.elementwise",
     "nmf_tpu_torch.ops.cuda.mu",
     "nmf_tpu_torch.ops.cuda.objectives",
     "nmf_tpu_torch.ops.cuda.sparse",
@@ -83,7 +87,8 @@ def test_every_source_of_the_port_is_checked():
             "interface.py", "chunk_sddmm.cu", "mu.cu", "objectives.cu",
             "wh_tile.cuh", "mu.py", "objectives.py", "multupd.py",
             "greedycd.py", "quad_matmul.cu", "quad_sddmm.cu",
-            "sddmm_warp.cuh"} <= names
+            "sddmm_warp.cuh", "elementwise.cu", "elementwise.py", "rsvd.py",
+            "tsqr.py", "linalg.py", "initialization.py"} <= names
 
 
 def test_every_module_of_the_port_is_imported_by_the_check():
@@ -102,7 +107,8 @@ def test_build_lists_every_source_and_entry_point():
     assert set(build.SOURCES) | set(build.HEADERS) == on_disk
     assert set(build.KERNELS) == {
         "chunk_matmul", "dense_matmul", "quad_matmul", "chunk_sddmm",
-        "quad_sddmm", "mu_factor_update", "wtq", "qht", "dense_objective"}
+        "quad_sddmm", "mu_factor_update", "wtq", "qht", "dense_objective",
+        "projectnn", "colsum", "scale_cols"}
     for name in build.KERNELS:
         assert any(f'extern "C" int nmf_{name}(' in (build.CSRC / s).read_text()
                    for s in build.SOURCES), name
@@ -126,6 +132,10 @@ def _entry_points():
         "build_tiled_quad": lambda **kw: build_tiled(
             r, c, X[r, c], X.shape, quad_tail_nnz=32, **kw),
         "nnmf": lambda **kw: nt.nnmf(X, 3, alg="cd", init="random", maxiter=1, **kw),
+        "nnmf_defaults": lambda **kw: nt.nnmf(X, 3, maxiter=2, **kw),
+        "nnmf_defaults_tiled": lambda **kw: nt.nnmf(Xt, 3, maxiter=2, **kw),
+        "nndsvd": lambda **kw: nt.nndsvd(X, 3, variant="ar", **kw),
+        "rsvd": lambda **kw: nt.rsvd(X, 3, **kw),
         "solve": lambda **kw: nt.solve(nt.CoordinateDescent(maxiter=1), Xt, W, H, **kw),
         "nnmf_multmse": lambda **kw: nt.nnmf(X, 3, alg="multmse", init="random", maxiter=2, **kw),
         "nnmf_multdiv": lambda **kw: nt.nnmf(Xt, 3, alg="multdiv", init="random", maxiter=2, **kw),

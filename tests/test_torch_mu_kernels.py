@@ -118,7 +118,8 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_no_launch():
     assert build.launch_counts() == before
     assert set(before) == {"chunk_matmul", "dense_matmul", "quad_matmul",
                            "chunk_sddmm", "quad_sddmm", "mu_factor_update", "wtq",
-                           "qht", "dense_objective"}
+                           "qht", "dense_objective", "projectnn", "colsum",
+                           "scale_cols"}
     assert not any(before.values())
     # float64 keeps its type through the plain versions
     Xd, Wd, Hd = X.double(), W.double(), H.double()
@@ -146,28 +147,37 @@ def test_mu_factor_update_checks_its_operands():
 def test_dense_problem_check(make, exc, msg):
     X, W, H = make(*_t(*_problem(40, 52, 6, seed=6)))
     with pytest.raises(exc, match=msg):
-        tmu.check_dense_problem(X, W, H, tmu.QUOTIENT_MAX_K, "wtq")
+        tmu.check_dense_problem(X, W, H, "wtq")
 
 
 def test_dense_problem_check_settles_layout_and_vector_width():
     X, W, H = _t(*_problem(40, 52, 6, seed=6))
     p, n, k, Wc, Hc, xvec = tmu.check_dense_problem(
-        X, W.T.contiguous().T, H, tmu.QUOTIENT_MAX_K, "wtq")
+        X, W.T.contiguous().T, H, "wtq")
     assert (p, n, k, xvec) == (40, 52, 6, 1) and Wc.is_contiguous() and torch.equal(Wc, W)
-    assert tmu.check_dense_problem(X[:, :51].contiguous(), W, H[:, :51],
-                                   tmu.QUOTIENT_MAX_K, "wtq")[5] == 0
-    with pytest.raises(ValueError, match=r"k must be in \[1, 372\]"):
-        tmu.check_dense_problem(torch.zeros(4, 400), torch.zeros(4, 373),
-                                torch.zeros(373, 400), tmu.QUOTIENT_MAX_K, "wtq")
+    assert tmu.check_dense_problem(X[:, :51].contiguous(), W, H[:, :51], "wtq")[5] == 0
+    # no ceiling on k: the kernels sum over k one slab at a time
+    assert tmu.check_dense_problem(torch.zeros(4, 400), torch.zeros(4, 373),
+                                   torch.zeros(373, 400), "wtq")[2] == 373
+    assert (tmu.MU_SLAB, tmu.WH_SLAB) == (64, 128)
+    with pytest.raises(ValueError, match="k must be at least 1"):
+        tmu.check_dense_problem(torch.zeros(4, 400), torch.zeros(4, 0),
+                                torch.zeros(0, 400), "wtq")
 
 
 @pytest.mark.parametrize("source, limit", [
-    ("mu.cu", ("MU_MAX_K", "QUOTIENT_MAX_K")),
-    ("objectives.cu", ("OBJECTIVE_MAX_K",)),
+    ("mu.cu", (("MU_KS", "MU_SLAB"),)),
+    ("wh_tile.cuh", (("WH_KS", "WH_SLAB"),)),
 ])
 def test_largest_k_stated_in_the_sources_is_the_wrappers(source, limit):
-    """Each kernel's note states the largest k its shared memory allows; the
-    wrapper computes the same number from the same formula."""
-    stated = [int(m) for m in re.findall(r"largest\s+k\s+is\s+(\d+)", (CSRC / source).read_text())]
-    have = [getattr(tmu if source == "mu.cu" else tobj, name) for name in limit]
-    assert stated == have
+    """No kernel states a largest k any more (any k fits: the reduction runs
+    in slabs); the slab width each source defines is the wrapper's, and the
+    notes of the three dense sources say that any k fits."""
+    text = (CSRC / source).read_text()
+    for define, name in limit:
+        stated = re.findall(rf"#define\s+{define}\s+(\d+)", text)
+        assert [int(v) for v in stated] == [getattr(tmu, name)]
+    for src in ("mu.cu", "objectives.cu", "wh_tile.cuh"):
+        text = (CSRC / src).read_text().replace("//", "")
+        assert not re.search(r"largest\s+k\s+is", text), src
+        assert re.search(r"any\s+k\s+fits", text), src

@@ -244,10 +244,28 @@ def test_unported_alg_says_so(alg):
 
 
 @pytest.mark.parametrize("init", ["nndsvd", "nndsvda", "nndsvdar", "spa"])
-def test_unported_init_says_so(init):
-    alg = "spa" if init == "spa" else "cd"
-    with pytest.raises(NotImplementedError, match=f"init='{init}' is not ported yet"):
-        nt.nnmf(_small(), 3, alg=alg, init=init, device="cpu")
+def test_unported_init_says_so(init, monkeypatch):
+    """``spa`` is not ported and says so; the NNDSVD inits are, and dispatch
+    to ``nndsvd`` with the JAX package's variant and ``initdata``."""
+    from nmf_tpu_torch.models import interface
+
+    if init == "spa":
+        with pytest.raises(NotImplementedError, match=f"init='{init}' is not ported yet"):
+            nt.nnmf(_small(), 3, alg="spa", init=init, device="cpu")
+        return
+    seen = {}
+    real = interface.nndsvd
+
+    def spy(X, k, **kw):
+        seen.update(kw)
+        return real(X, k, **kw)
+
+    monkeypatch.setattr(interface, "nndsvd", spy)
+    data = (np.ones((12, 3)), np.ones(3), np.ones((9, 3)))
+    nt.nnmf(_small(), 3, alg="cd", init=init, initdata=data, maxiter=1, device="cpu")
+    assert seen["variant"] == {"nndsvd": "std", "nndsvda": "a", "nndsvdar": "ar"}[init]
+    assert seen["initdata"] is data
+    assert seen["device"] == torch.device("cpu")
 
 
 @pytest.mark.parametrize("alg, cls, obj", [
@@ -277,6 +295,8 @@ def test_ported_alg_dispatches_to_its_solver(alg, cls, obj, monkeypatch):
 
 
 def test_defaults_are_the_jax_packages_and_not_ported_yet():
+    """The front door's defaults are the JAX package's, and ``nnmf(X, k)``
+    runs with all of them (NNDSVD-ar over a randomized SVD, GreedyCD)."""
     import inspect
 
     pj = inspect.signature(nmf_tpu.nnmf).parameters
@@ -286,8 +306,16 @@ def test_defaults_are_the_jax_packages_and_not_ported_yet():
         assert pt[name].default == pj[name].default, name
         assert pt[name].kind == pj[name].kind
     assert pt["device"].default == "cuda"
-    with pytest.raises(NotImplementedError, match="nndsvdar"):
-        nt.nnmf(_small(), 3, device="cpu")
+    X = _small()
+    res = nt.nnmf(X, 3, device="cpu")
+    assert tuple(res.W.shape) == (12, 3) and tuple(res.H.shape) == (3, 9)
+    assert 1 <= res.niters <= 100 and bool((res.W >= 0).all() and (res.H >= 0).all())
+    rel = float(torch.linalg.norm(torch.as_tensor(X) - res.W @ res.H)
+                / torch.linalg.norm(torch.as_tensor(X)))
+    assert rel < 0.5
+    # the same seed gives the same run
+    again = nt.nnmf(X, 3, device="cpu")
+    assert torch.equal(again.W, res.W) and again.niters == res.niters
 
 
 @pytest.mark.parametrize("alg", ["cd", "multmse", "multdiv"])
