@@ -23,9 +23,11 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
   error 0.010, 2000 x 1000 rank 32 to 0.020); ``nnmf`` with its defaults on
   the dense problem.
 
-Every phase prints one JSON line; any failure ends the run with a non-zero
-exit code.  There is no CPU path: without a card the script fails at once.
-The last line is ``{"ok": true, "device": {...}}``.
+Kernels 1 and 3 are also run with most row panels cut into several pieces
+(phase ``kernels_split``).  Every phase prints one JSON line; any failure
+ends the run with a non-zero exit code.  There is no CPU path: without a
+card the script fails at once.  The last line is
+``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
@@ -218,11 +220,30 @@ def _bound(side, cls, k, nnz):
     return (*bound_of(nbytes, flops), nbytes, flops, n_items)
 
 
+def balance(side, cls):
+    """How the work of one store class is spread over thread blocks: the
+    pieces, the panels split into several, the most entries in one piece and
+    in one panel."""
+    q = "q" if cls == "quad" else ""
+    items = getattr(side, "qpanel_segs" if q else "panel_chunks").long()
+    ptr = getattr(side, "qpanel_ptr" if q else "panel_ptr").long()
+    nreal = getattr(side, "qseg_nreal" if q else "chunk_nreal")
+    cum = torch.zeros(items.numel() + 1, dtype=torch.int64, device=items.device)
+    cum[1:] = nreal[items].long().cumsum(0)
+    pp = getattr(side, q + "piece_ptr").long()
+    return {"pieces": pp.numel() - 1,
+            "panels": int((ptr.diff() > 0).sum()),
+            "split_panels": getattr(side, q + "split_panel").numel(),
+            "max_entries_in_a_piece": int((cum[pp[1:]] - cum[pp[:-1]]).max()),
+            "max_entries_in_a_panel": int((cum[ptr[1:]] - cum[ptr[:-1]]).max())}
+
+
 def check_kernels(X, k, label, timed, classes=("chunk", "dense")):
     """Each product kernel of ``classes`` against its plain version, both
     orientations.  Returns ``{kernel: {side: record}}``; exits when a result
     disagrees.  The quad kernel is held against its plain version run in
-    float64."""
+    float64.  The chunk and quad kernels' records carry the store's
+    balance (``balance``)."""
     from nmf_tpu_torch.ops.cuda import sparse as S
 
     kernels = {
@@ -249,6 +270,8 @@ def check_kernels(X, k, label, timed, classes=("chunk", "dense")):
                     and scale > 0 and err <= REL_TOL * scale):
                 fail(f"{label} {name} {sname}: error {err} against scale {scale}")
             r["same_bits"] = _same_bits(f"{label} {name} {sname}", lambda: kern(side, D))
+            if cls != "dense":
+                r["balance"] = balance(side, cls)
             if timed:
                 A, nnz = _class_csr(side, cls)
                 lib = torch.sparse.mm(A, D)
@@ -267,6 +290,42 @@ def check_kernels(X, k, label, timed, classes=("chunk", "dense")):
                 del A, lib
             rec[name][sname] = r
             del got, want
+    return rec
+
+
+def check_split(X, k, label, cls, cap, timed):
+    """Kernel 1 (``cls`` "chunk") or 3 ("quad") on both sides of ``X`` with
+    its pieces cut again at ``cap`` entries, so that most panels are split
+    (the record says how many) and the pass that adds their partial panels
+    in piece order runs: against the plain version (float64 for the quad
+    kernel) within ``REL_TOL``, the same bits twice."""
+    from nmf_tpu_torch.ops.cuda import sparse as S
+    from nmf_tpu_torch.ops.sparse_format import recut_pieces
+
+    name, kern, plain = (("chunk_matmul", S.chunk_matmul, S.chunk_matmul_plain)
+                         if cls == "chunk" else
+                         ("quad_matmul", S.quad_matmul, S.quad_matmul_plain))
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    rec = {}
+    for sname, side in (("fwd", X.fwd), ("bwd", X.bwd)):
+        cut = recut_pieces(side, cap, None) if cls == "chunk" else \
+            recut_pieces(side, None, cap)
+        bal = balance(cut, cls)
+        if not bal["split_panels"]:
+            fail(f"{label} {name} {sname}: cap {cap} splits no panel")
+        D = torch.rand((side.cols, k), generator=gen, device="cuda")
+        got = kern(cut, D)
+        torch.cuda.synchronize()
+        want = plain(side, D.double() if cls == "quad" else D)
+        r = _held(f"{label} {name} {sname} cap={cap}", got, want, REL_TOL,
+                  (side.rows, k))
+        r["same_bits"] = _same_bits(f"{label} {name} {sname} cap={cap}",
+                                    lambda: kern(cut, D))
+        r.update(cap=cap, balance=bal)
+        if timed:
+            r["ms"] = time_ms(lambda: kern(cut, D))
+        rec[sname] = r
+        del got, want, cut
     return rec
 
 
@@ -539,8 +598,8 @@ def check_k_ceilings(rs, cs, vs, shape):
     small shape, against the plain version in float64 within ``REL_TOL``:
     the dense multiplicative-update kernels and the objective at one past
     each old ceiling (182, 372, 436) and at 512; the chunk and quad products
-    at one past their panel's 450 and at 512, where the whole product runs
-    in column slabs."""
+    at 451 (one past their earlier panel's 450), at one past their panel's
+    ``MAX_K`` and at 512, where the whole product runs in column slabs."""
     from nmf_tpu_torch.ops.cuda import build
     from nmf_tpu_torch.ops.cuda import mu as M
     from nmf_tpu_torch.ops.cuda import objectives as O
@@ -575,7 +634,7 @@ def check_k_ceilings(rs, cs, vs, shape):
     for tag, opts in (("chunk", dict(dense_tile_nnz=192, coo_tail_nnz=3)),
                       ("quad", dict(dense_tile_nnz=192, quad_tail_nnz=32))):
         Xs = build_tiled(rs, cs, vs, shape, **opts)
-        for k in (S.MAX_K + 1, 512):
+        for k in sorted({451, S.MAX_K + 1, 512}):
             D = torch.rand((shape[1], k), generator=gen, device="cuda")
             D2 = torch.rand((shape[0], k), generator=gen, device="cuda")
             build.reset_launch_counts()
@@ -1403,6 +1462,11 @@ def main():
     quad_sddmm = check_sddmm(Xq, torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda(),
                              "quad store", timed=True, cls="quad")
     say("kernels_quad", tolerance=REL_TOL, card=smi, **quad, quad_sddmm=quad_sddmm)
+    # kernels 1 and 3 with most panels split: the pass that adds partial
+    # panels in piece order, on both stores
+    say("kernels_split", tolerance=REL_TOL, card=smi,
+        chunk_matmul=check_split(X, K, "full store", "chunk", 256, timed=True),
+        quad_matmul=check_split(Xq, K, "quad store", "quad", 64, timed=True))
 
     # 4. the first path: sparse Fast-HALS
     from nmf_tpu_torch.models import common

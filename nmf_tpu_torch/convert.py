@@ -18,6 +18,7 @@ from .models.coorddesc import CoordinateDescent
 from .models.greedycd import GreedyCD
 from .models.multupd import MultUpdate
 from .ops.sparse_format import (
+    INDEX_FIELDS,
     TiledCSR,
     TiledSideC,
     row_panel_index,
@@ -32,9 +33,7 @@ _SOLVERS = {"CoordinateDescent": CoordinateDescent, "GreedyCD": GreedyCD,
             "MultUpdate": MultUpdate}
 
 _SIDE_FIELDS = tuple(
-    f for f in TiledSideC.__dataclass_fields__
-    if f not in ("panel_ptr", "panel_chunks", "dpanel_ptr", "dpanel_blocks",
-                 "qpanel_ptr", "qpanel_segs")
+    f for f in TiledSideC.__dataclass_fields__ if f not in INDEX_FIELDS
 )
 _TOP_ARRAYS = ("row_idx", "col_idx", "values", "row_perm", "row_rank",
                "col_perm", "col_rank", "stats")
@@ -61,8 +60,8 @@ def tiled_from_numpy(d, device=config.DEFAULT_DEVICE) -> TiledCSR:
     ``TiledCSR`` given as a dict: ``fwd`` and ``bwd`` are dicts of that
     side's fields, every array a numpy array, every count an int.  The
     byte-packed ``chunk_rp`` / ``dblk_rp`` / ``q_rp`` are unpacked to one
-    int32 per chunk / block / quad sub-segment and the row-panel index is
-    derived."""
+    int32 per chunk / block / quad sub-segment and the row-panel index (with
+    its pieces) is derived."""
     dev = config.resolve_device(device)
     top = {name: to_tensor(d.get(name), dev) for name in _TOP_ARRAYS}
     return TiledCSR(

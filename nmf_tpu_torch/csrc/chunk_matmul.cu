@@ -11,101 +11,53 @@
 // read again for every nonzero of a column, so the gathers mostly hit the
 // 50 MB L2, and the floor is the store, D and the output moved once each.
 //
-// Design: one thread block owns one 128-row output panel.  The panel
-// (128 x k floats, 64 KB at k = 128) lives in shared memory, zeroed at the
-// start and written to device memory once at the end, so blocks share no
-// output and need no atomics.  The block walks the panel's chunk list (the
-// store's row-panel index); thread j owns column j of the panel, so every
-// thread visits the chunk's slots in stored order and the summation order
-// is fixed: results are the same from run to run.  A chunk's 128 (coord,
-// value) pairs are staged in shared memory by one coalesced load; trailing
-// padding slots (value 0) are cut off with a ballot, and the gathers of 8
-// slots are issued together before their adds to keep loads in flight.
-// A chunk tile may span several col panels (wide tail tiles): a slot's local
-// column then runs to span * 128 and the window's panel counts wide panels,
-// so the gathered row is one index either way.
-// Panels carry very different numbers of chunks on degree-ordered data;
-// the heaviest panels come first in block order, nothing else balances them.
+// Design: the walk of piece_walk.cuh over the chunks of each piece of a row
+// panel's chunk list (the pieces are built once per store on the host, by
+// ops/sparse_format.py:row_panel_index).  A chunk's entries are its first
+// chunk_nreal slots, each ``lcol << 7 | lrow``; a chunk tile may span several
+// col panels (wide tail tiles), so a slot's local column runs to span * 128
+// and the window's panel counts wide panels: the gathered row is one index
+// either way.  Every row of the output is written: a panel without chunks
+// keeps one empty piece, which writes zeros.
 
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "piece_walk.cuh"
 
-#define TILE 128
-#define UNROLL 8
+struct ChunkItems {
+  const int* nreal;
+  const int* win_panel;
+  const int* coords;
+  const float* vals;
+  int group, span;
 
-__global__ void __launch_bounds__(TILE)
-chunk_matmul_kernel(const int* __restrict__ panel_ptr,
-                    const int* __restrict__ panel_chunks,
-                    const int* __restrict__ win_panel,
-                    const int* __restrict__ coords,
-                    const float* __restrict__ vals,
-                    const float* __restrict__ D,
-                    float* __restrict__ out,
-                    int group, int span, int rows, int k) {
-  extern __shared__ float acc[];  // TILE x k, row-major
-  __shared__ int s_coord[TILE];
-  __shared__ float s_val[TILE];
-  __shared__ unsigned s_mask[TILE / 32];
-
-  const int tid = threadIdx.x;
-  const int panel = blockIdx.x;
-  const int npan = TILE * k;
-  for (int i = tid; i < npan; i += TILE) acc[i] = 0.f;
-
-  const int beg = panel_ptr[panel];
-  const int end = panel_ptr[panel + 1];
-  for (int it = beg; it < end; ++it) {
-    const int chunk = panel_chunks[it];
-    const size_t cbase = (size_t)win_panel[chunk / group] * span * TILE;
-    __syncthreads();  // the previous chunk's staged slots are consumed
-    const float v = vals[(size_t)chunk * TILE + tid];
-    s_coord[tid] = coords[(size_t)chunk * TILE + tid];
-    s_val[tid] = v;
-    const unsigned m = __ballot_sync(0xffffffffu, v != 0.f);
-    if ((tid & 31) == 0) s_mask[tid >> 5] = m;
-    __syncthreads();
-    int nreal = 0;  // one past the last slot with a nonzero value
-    for (int w = TILE / 32 - 1; w >= 0; --w) {
-      const unsigned mw = s_mask[w];
-      if (mw) { nreal = w * 32 + 32 - __clz(mw); break; }
-    }
-    for (int j = tid; j < k; j += TILE) {
-      for (int s0 = 0; s0 < nreal; s0 += UNROLL) {
-        float d[UNROLL];
-        int r[UNROLL];
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) {
-          const int c = s_coord[s0 + u];
-          const float vv = s_val[s0 + u];
-          r[u] = c & (TILE - 1);
-          d[u] = (vv != 0.f) ? vv * D[(cbase + (size_t)(c >> 7)) * k + j] : 0.f;
-        }
-#pragma unroll
-        for (int u = 0; u < UNROLL; ++u) acc[r[u] * k + j] += d[u];
-      }
-    }
+  // loads only: what they read is used a batch later
+  __device__ __forceinline__ void item(int id, int& n, long long& first,
+                                       int& cpanel) const {
+    n = nreal[id];
+    first = (long long)id * TILE;
+    cpanel = win_panel[id / group];
   }
-  __syncthreads();
-  const int valid = min(TILE, rows - panel * TILE) * k;
-  float* dst = out + (size_t)panel * TILE * k;
-  for (int i = tid; i < valid; i += TILE) dst[i] = acc[i];
-}
+  __device__ __forceinline__ void slot(long long s, int cpanel, int& row,
+                                       int& drow, float& v) const {
+    const int c = coords[s];
+    v = vals[s];
+    row = c & (TILE - 1);
+    drow = cpanel * span * TILE + (c >> 7);
+  }
+};
 
 // out (rows x k) = chunk store @ D (cols x k); every row of out is written.
-// Returns the CUDA error code of the launch (0 = success).
-extern "C" int nmf_chunk_matmul(const int* panel_ptr, const int* panel_chunks,
-                                const int* win_panel, const int* coords,
-                                const float* vals, const float* D, float* out,
-                                int n_rowpanels, int group, int span, int rows,
-                                int k, void* stream) {
-  if (n_rowpanels <= 0) return 0;
-  const size_t smem = (size_t)TILE * k * sizeof(float);
-  cudaError_t e = cudaFuncSetAttribute(
-      chunk_matmul_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
-  if (e != cudaSuccess) return (int)e;
-  chunk_matmul_kernel<<<n_rowpanels, TILE, smem, (cudaStream_t)stream>>>(
-      panel_ptr, panel_chunks, win_panel, coords, vals, D, out, group, span, rows,
-      k);
-  return (int)cudaGetLastError();
+// parts holds the partial panels of the split panels (n_parts x 128 x k).
+// Returns the CUDA error code of the launches (0 = success).
+extern "C" int nmf_chunk_matmul(const int* piece_ptr, const int* piece_panel,
+                                const int* piece_part, const int* split_ptr,
+                                const int* split_panel, const int* panel_chunks,
+                                const int* chunk_nreal, const int* win_panel,
+                                const int* coords, const float* vals,
+                                const float* D, float* out, float* parts,
+                                int n_pieces, int n_split, int group, int span,
+                                int rows, int k, void* stream) {
+  const ChunkItems st{chunk_nreal, win_panel, coords, vals, group, span};
+  return piece_walk::launch(st, piece_ptr, piece_panel, piece_part, split_ptr,
+                            split_panel, panel_chunks, D, out, parts, n_pieces,
+                            n_split, rows, k, 0, (cudaStream_t)stream);
 }

@@ -30,8 +30,9 @@ SOURCES = (
     "chunk_matmul.cu", "dense_matmul.cu", "quad_matmul.cu", "chunk_sddmm.cu",
     "quad_sddmm.cu", "mu.cu", "objectives.cu", "elementwise.cu",
 )
-# wh_tile.cuh: mu.cu and objectives.cu; sddmm_warp.cuh: the two sddmm sources
-HEADERS = ("wh_tile.cuh", "sddmm_warp.cuh")
+# wh_tile.cuh: mu.cu and objectives.cu; sddmm_warp.cuh: the two sddmm sources;
+# piece_walk.cuh: the chunk and quad products
+HEADERS = ("wh_tile.cuh", "sddmm_warp.cuh", "piece_walk.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -44,15 +45,17 @@ _I = ctypes.c_int
 _F = ctypes.c_float
 _S = ctypes.c_size_t
 _ARGTYPES = {
-    # panel_ptr, panel_chunks, win_panel, coords, vals, D, out,
-    # n_rowpanels, group, span, rows, k, stream
-    "nmf_chunk_matmul": [_P] * 7 + [_I] * 5 + [_P],
+    # piece_ptr, piece_panel, piece_part, split_ptr, split_panel,
+    # panel_chunks, chunk_nreal, win_panel, coords, vals, D, out, parts,
+    # n_pieces, n_split, group, span, rows, k, stream
+    "nmf_chunk_matmul": [_P] * 13 + [_I] * 6 + [_P],
     # dpanel_ptr, dpanel_blocks, dblk_panel, dvals, D, out,
     # n_rowpanels, dgroup, rows, cols, k, stream
     "nmf_dense_matmul": [_P] * 6 + [_I] * 5 + [_P],
-    # qpanel_ptr, qpanel_segs, qwin_panel, qlrows, qlcols, qvals, D, out,
-    # n_rowpanels, qgroup, seg, rows, k, stream
-    "nmf_quad_matmul": [_P] * 8 + [_I] * 5 + [_P],
+    # qpiece_ptr, qpiece_panel, qpiece_part, qsplit_ptr, qsplit_panel,
+    # qpanel_segs, qseg_nreal, qwin_panel, qlrows, qlcols, qvals, D, out,
+    # parts, n_pieces, n_split, qgroup, seg, rows, k, stream
+    "nmf_quad_matmul": [_P] * 14 + [_I] * 6 + [_P],
     # coords, inv, chunk_rp, win_panel, win_stripe, W, Ht, out,
     # n_chunks, group, panels_per_stripe, span, rows, cols, k, nnz, stream
     "nmf_chunk_sddmm": [_P] * 8 + [_I] * 8 + [_P],

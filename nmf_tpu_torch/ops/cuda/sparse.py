@@ -24,8 +24,12 @@ kernel or raises.  ``build.launch_counts()`` counts kernel launches, and
 nothing else.
 
 Everything is float32 with D row-major ``(n, k)``: one gathered row of D is
-``4k`` contiguous bytes.  The three product kernels give one thread block
-sole ownership of a 128-row output panel and sum in an order fixed by the
+``4k`` contiguous bytes.  The dense kernel gives one thread block sole
+ownership of a 128-row output panel.  The chunk and quad kernels give one
+block a *piece* of a panel (the store's pieces, ``sparse_format``): a panel
+of one piece is written straight to the output, the pieces of a split panel
+write partial panels to a scratch tensor that the wrapper allocates and a
+second pass adds them in piece order.  All three sum in an order fixed by the
 store, so their results are the same from run to run.  The COO band's
 ``index_add_`` uses atomics on the card: its float sums can differ in the
 last bits between runs.
@@ -46,9 +50,8 @@ __all__ = [
     "tiled_sddmm",
 ]
 
-# the chunk and quad kernels keep a (128, k) float panel in shared memory,
-# beside up to 2 KB of staged slots
-MAX_K = (SMEM_PER_BLOCK - 2048) // (TILE * 4)
+# the chunk and quad kernels keep a (128, k) float panel in shared memory
+MAX_K = SMEM_PER_BLOCK // (TILE * 4)
 # slots / blocks / band entries handled at once by the plain versions and the
 # COO band: bounds the (piece, k) temporaries to 128 MB at k = 128
 _PIECE = 1 << 18
@@ -81,8 +84,25 @@ def _check_out(side: TiledSideC, D, out, k) -> None:
         )
 
 
+def _check_aligned(k, *tensors) -> None:
+    """For an even k the chunk and quad kernels move two floats at a time:
+    D and out must start on an 8-byte boundary.  Checked on every device, so
+    that a call that runs here also runs on the card."""
+    for A in tensors:
+        if A is not None and k % 2 == 0 and A.data_ptr() % 8:
+            raise ValueError(
+                "for an even k, D and out must start on an 8-byte boundary "
+                "(a view at an odd offset of a float32 tensor does not)"
+            )
+
+
 def _n_rowpanels(side: TiledSideC) -> int:
     return -(-side.rows // TILE)
+
+
+def _parts(n_parts, k, device):
+    """Scratch for the partial panels of the split panels."""
+    return torch.empty((n_parts, TILE, k), dtype=torch.float32, device=device)
 
 
 # ---------------------------------------------------------------------------
@@ -114,17 +134,22 @@ def chunk_matmul_plain(side: TiledSideC, D):
 def chunk_matmul(side: TiledSideC, D):
     """``X_chunks @ D`` (rows, k) for one orientation's chunk store."""
     k = _check_operand(side, D)
+    _check_aligned(k, D)
     if not D.is_cuda:
         return chunk_matmul_plain(side, D)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}] for the chunk kernel, got {k}")
     out = torch.empty((side.rows, k), dtype=torch.float32, device=D.device)
+    parts = _parts(side.n_parts, k, D.device)
     launch(
         "chunk_matmul",
-        side.panel_ptr.data_ptr(), side.panel_chunks.data_ptr(),
-        side.win_panel.data_ptr(), side.coords.data_ptr(),
-        side.vals.data_ptr(), D.data_ptr(), out.data_ptr(),
-        _n_rowpanels(side), side.group, side.span, side.rows, k,
+        side.piece_ptr.data_ptr(), side.piece_panel.data_ptr(),
+        side.piece_part.data_ptr(), side.split_ptr.data_ptr(),
+        side.split_panel.data_ptr(), side.panel_chunks.data_ptr(),
+        side.chunk_nreal.data_ptr(), side.win_panel.data_ptr(),
+        side.coords.data_ptr(), side.vals.data_ptr(), D.data_ptr(),
+        out.data_ptr(), parts.data_ptr(), side.piece_panel.numel(),
+        side.split_panel.numel(), side.group, side.span, side.rows, k,
     )
     return out
 
@@ -217,19 +242,24 @@ def quad_matmul(side: TiledSideC, D, out=None):
     ``out`` starts from zeros when not given.  Returns ``out``."""
     k = _check_operand(side, D)
     _check_out(side, D, out, k)
+    _check_aligned(k, D, out)
     if not D.is_cuda:
         return quad_matmul_plain(side, D, out)
     if not 1 <= k <= MAX_K:
         raise ValueError(f"k must be in [1, {MAX_K}] for the quad kernel, got {k}")
     if out is None:
         out = torch.zeros((side.rows, k), dtype=torch.float32, device=D.device)
+    parts = _parts(side.n_qparts, k, D.device)
     launch(
         "quad_matmul",
-        side.qpanel_ptr.data_ptr(), side.qpanel_segs.data_ptr(),
-        side.qwin_panel.data_ptr(), side.qlrows.data_ptr(),
-        side.qlcols.data_ptr(), side.qvals.data_ptr(), D.data_ptr(),
-        out.data_ptr(), _n_rowpanels(side), QUAD_GROUP, side.quad_seg,
-        side.rows, k,
+        side.qpiece_ptr.data_ptr(), side.qpiece_panel.data_ptr(),
+        side.qpiece_part.data_ptr(), side.qsplit_ptr.data_ptr(),
+        side.qsplit_panel.data_ptr(), side.qpanel_segs.data_ptr(),
+        side.qseg_nreal.data_ptr(), side.qwin_panel.data_ptr(),
+        side.qlrows.data_ptr(), side.qlcols.data_ptr(), side.qvals.data_ptr(),
+        D.data_ptr(), out.data_ptr(), parts.data_ptr(),
+        side.qpiece_panel.numel(), side.qsplit_panel.numel(), QUAD_GROUP,
+        side.quad_seg, side.rows, k,
     )
     return out
 
@@ -264,8 +294,9 @@ def tiled_matmul_t(side: TiledSideC, D):
     returns (rows, k) float32.  Any k: a D wider than ``MAX_K`` is cut into
     column slabs of at most ``MAX_K`` and the whole chain (chunks, dense
     blocks, quad chunks, band) runs per slab.  Every kernel computes each
-    output column on its own (thread j owns column j), so the slabs give the
-    bits one launch over all of D would give."""
+    output column on its own (a thread owns its columns, and the pieces of a
+    split panel are added element by element), so the slabs give the bits
+    one launch over all of D would give."""
     D = D.to(torch.float32).contiguous()
     k = D.shape[1]
     if k <= MAX_K:

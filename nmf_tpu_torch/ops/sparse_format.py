@@ -25,7 +25,10 @@ input, with two differences that belong to the card: ``chunk_rp``,
 ``dblk_rp`` and ``q_rp`` hold one int32 per chunk / block / sub-segment (no
 byte packing), and each side carries a *row-panel index* — for every 128-row
 output panel the list of chunks, of dense blocks and of quad sub-segments
-that add into it — which is what lets one thread block own one output panel.
+that add into it — which is what lets one thread block own one output panel,
+and the *pieces* that cut the chunk and quad lists into runs of at most
+``PIECE_ENTRIES`` entries, so that the work of a heavy panel is shared by
+several thread blocks and added in a fixed order.
 
 The binning is numpy on the host; the built arrays are tensors on ``device``.
 """
@@ -62,6 +65,17 @@ __all__ = [
 ]
 
 _REFRESH_MAPS = ("perm", "inv", "qinv", "dense_nnz", "dense_slot", "coo_nnz")
+# entries (stored nonzeros) one piece of a panel's work list holds at most;
+# at least TILE, so that every chunk fits one piece
+PIECE_ENTRIES = 2048
+_PIECES = ("piece_ptr", "piece_panel", "piece_part", "split_ptr", "split_panel",
+           "n_parts")
+_QPIECES = ("qpiece_ptr", "qpiece_panel", "qpiece_part", "qsplit_ptr",
+            "qsplit_panel", "n_qparts")
+# what ``row_panel_index`` derives from the stored arrays
+INDEX_FIELDS = ("panel_ptr", "panel_chunks", "dpanel_ptr", "dpanel_blocks",
+                "qpanel_ptr", "qpanel_segs", "chunk_nreal", "qseg_nreal",
+                *_PIECES, *_QPIECES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -131,6 +145,30 @@ class TiledSideC:
     dpanel_blocks: torch.Tensor | None = None  # (n real blocks,) int32
     qpanel_ptr: torch.Tensor | None = None  # (n_stripes*pps + 1,) int32
     qpanel_segs: torch.Tensor | None = None  # (n real sub-segments,) int32
+    # pieces: each panel's list cut into runs of consecutive chunks holding at
+    # most ``PIECE_ENTRIES`` entries together, one thread block a piece.
+    # Piece p adds ``panel_chunks[piece_ptr[p]:piece_ptr[p+1]]`` into row panel
+    # ``piece_panel[p]``; a panel of the output without chunks keeps one empty
+    # piece (its rows are written as zeros).  A panel of several pieces is *split*: piece
+    # p writes a partial panel to row ``piece_part[p]`` of a scratch tensor
+    # (-1: the panel's only piece, written straight to the output), and the
+    # partials of split panel ``split_panel[s]`` are rows
+    # ``split_ptr[s]:split_ptr[s+1]``, added in piece order.  ``q*`` is the
+    # same over the quad sub-segments, where a panel without any gets no piece.
+    chunk_nreal: torch.Tensor | None = None  # (nchunks,) int32 entries, at the front
+    piece_ptr: torch.Tensor | None = None  # (n_pieces + 1,) int32
+    piece_panel: torch.Tensor | None = None  # (n_pieces,) int32
+    piece_part: torch.Tensor | None = None  # (n_pieces,) int32
+    split_ptr: torch.Tensor | None = None  # (n_split + 1,) int32
+    split_panel: torch.Tensor | None = None  # (n_split,) int32
+    n_parts: int = 0  # pieces of split panels (rows of the scratch)
+    qseg_nreal: torch.Tensor | None = None  # (nq * TILE // quad_seg,) int32
+    qpiece_ptr: torch.Tensor | None = None
+    qpiece_panel: torch.Tensor | None = None
+    qpiece_part: torch.Tensor | None = None
+    qsplit_ptr: torch.Tensor | None = None
+    qsplit_panel: torch.Tensor | None = None
+    n_qparts: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,13 +312,60 @@ def _by_panel(panel_of_item, real, n_panels):
     return ptr.astype(np.int32), items[o].astype(np.int32)
 
 
+def _front_count(real):
+    """Per row of the (items, slots) mask ``real``: one past its last real
+    slot (0 when it has none).  The binner packs an item's entries at its
+    front, so this is the item's count of entries."""
+    last = real.shape[1] - np.argmax(real[:, ::-1], axis=1)
+    return np.where(real.any(1), last, 0).astype(np.int32)
+
+
+def _cut_pieces(ptr, items, nreal, cap, keep_empty, names):
+    """Cut each panel's list ``items[ptr[r]:ptr[r+1]]`` into pieces: runs of
+    consecutive items holding at most ``cap`` entries together (``nreal``
+    per item), cut greedily in list order, so a panel of at most ``cap``
+    entries is one piece.  The first ``keep_empty`` panels get one empty
+    piece when they have no items.  Returns the six piece fields under
+    ``names``."""
+    counts = nreal[items]
+    if len(counts) and cap < counts.max():
+        raise ValueError(
+            f"a piece must hold the largest item's {counts.max()} entries, "
+            f"got a cap of {cap}")
+    cum = np.zeros(len(items) + 1, np.int64)
+    np.cumsum(counts, out=cum[1:])
+    starts, panels = [], []
+    for r in range(len(ptr) - 1):
+        b, e = int(ptr[r]), int(ptr[r + 1])
+        if b == e and r < keep_empty:
+            starts.append(b)
+            panels.append(r)
+        while b < e:
+            starts.append(b)
+            panels.append(r)
+            # past the last item that keeps the piece within the cap
+            b = min(int(np.searchsorted(cum, cum[b] + cap, side="right")) - 1, e)
+    piece_ptr = np.append(np.asarray(starts, np.int64), len(items)).astype(np.int32)
+    piece_panel = np.asarray(panels, np.int32)
+    n_of = np.bincount(piece_panel, minlength=len(ptr) - 1)
+    split = n_of[piece_panel] > 1
+    piece_part = np.full(len(panels), -1, np.int32)
+    piece_part[split] = np.arange(int(split.sum()), dtype=np.int32)
+    split_panel = np.flatnonzero(n_of > 1).astype(np.int32)
+    split_ptr = np.zeros(len(split_panel) + 1, np.int32)
+    np.cumsum(n_of[split_panel], out=split_ptr[1:])
+    return dict(zip(names, (piece_ptr, piece_panel, piece_part, split_ptr,
+                            split_panel, int(split.sum()))))
+
+
 def row_panel_index(f):
     """The row-panel index of one side from its stored arrays (numpy, in a
-    dict keyed like ``TiledSideC``).  A chunk, block or quad sub-segment
-    takes part when it holds any entry of the pattern — read off the refresh
-    maps where the side has them, else off the stored values, where an
-    all-zero chunk, block or sub-segment adds nothing either way.  That
-    leaves out the sub-segments nothing was packed into, whose row panel
+    dict keyed like ``TiledSideC``), with each item's count of entries and
+    the pieces of at most ``PIECE_ENTRIES`` entries.  A chunk, block or quad
+    sub-segment takes part when it holds any entry of the pattern — read off
+    the refresh maps where the side has them, else off the stored values,
+    where an all-zero chunk, block or sub-segment adds nothing either way.
+    That leaves out the sub-segments nothing was packed into, whose row panel
     reads 0."""
     pps, group = f["panels_per_stripe"], f["group"]
     n_panels = f["n_stripes"] * pps
@@ -289,10 +374,14 @@ def row_panel_index(f):
     panel = stripe * pps + f["chunk_rp"]
     if f.get("inv") is not None and f.get("perm") is not None:
         # padding slots point one past the last CSR-order entry
-        real = (f["inv"].reshape(nchunks, TILE) != len(f["perm"])).any(1)
+        slots = f["inv"].reshape(nchunks, TILE) != len(f["perm"])
     else:
-        real = (f["vals"] != 0).any(1) | (f["coords"] != 0).any(1)
-    out = dict(zip(("panel_ptr", "panel_chunks"), _by_panel(panel, real, n_panels)))
+        slots = (f["vals"] != 0) | (f["coords"] != 0)
+    nreal = _front_count(slots)
+    out = dict(zip(("panel_ptr", "panel_chunks"), _by_panel(panel, nreal > 0, n_panels)))
+    out["chunk_nreal"] = nreal
+    out.update(_cut_pieces(out["panel_ptr"], out["panel_chunks"], nreal, PIECE_ENTRIES,
+                           -(-f["rows"] // TILE), _PIECES))
     if f["n_dblocks"]:
         dstripe = np.repeat(f["dblk_stripe"][:-1].astype(np.int64), DENSE_GROUP)
         dpanel = dstripe * pps + f["dblk_rp"]
@@ -310,14 +399,39 @@ def row_panel_index(f):
         qstripe = np.repeat(f["qwin_stripe"][:-1].astype(np.int64), QUAD_GROUP * nper)
         qpanel = qstripe * pps + f["q_rp"]
         if f.get("qinv") is not None and f.get("perm") is not None:
-            qreal = (f["qinv"].reshape(-1, seg) != len(f["perm"])).any(1)
+            qslots = f["qinv"].reshape(-1, seg) != len(f["perm"])
         else:
-            qreal = (f["qvals"].reshape(-1, seg) != 0).any(1) | (
-                (f["qlrows"] | f["qlcols"]).reshape(-1, seg) != 0).any(1)
+            qslots = (f["qvals"].reshape(-1, seg) != 0) | (
+                (f["qlrows"] | f["qlcols"]).reshape(-1, seg) != 0)
+        qnreal = _front_count(qslots)
         out.update(
-            zip(("qpanel_ptr", "qpanel_segs"), _by_panel(qpanel, qreal, n_panels))
+            zip(("qpanel_ptr", "qpanel_segs"), _by_panel(qpanel, qnreal > 0, n_panels))
         )
+        out["qseg_nreal"] = qnreal
+        out.update(_cut_pieces(out["qpanel_ptr"], out["qpanel_segs"], qnreal,
+                               PIECE_ENTRIES, 0, _QPIECES))
     return out
+
+
+def recut_pieces(side: TiledSideC, cap=None, qcap=None) -> TiledSideC:
+    """``side`` with its chunk pieces cut again at ``cap`` entries and its
+    quad pieces at ``qcap`` (None keeps them).  A small cap splits most
+    panels: the tests and the card's checks use it to run the pass that adds
+    partial panels."""
+    host = lambda t: t.cpu().numpy()
+    kw = {}
+    if cap is not None:
+        kw.update(_cut_pieces(host(side.panel_ptr), host(side.panel_chunks),
+                              host(side.chunk_nreal), cap, -(-side.rows // TILE),
+                              _PIECES))
+    if qcap is not None and side.qpanel_ptr is not None:
+        kw.update(_cut_pieces(host(side.qpanel_ptr), host(side.qpanel_segs),
+                              host(side.qseg_nreal), qcap, 0, _QPIECES))
+    dev = side.coords.device
+    return dataclasses.replace(side, **{
+        name: to_tensor(v, dev) if isinstance(v, np.ndarray) else v
+        for name, v in kw.items()
+    })
 
 
 def _build_side_compact(rows, cols, vals, p, n, stripe_tiles, group,

@@ -8,6 +8,8 @@ only PyTorch is installed::
     python -m pytest --noconftest -m gpu tests/test_torch_gpu.py -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -17,7 +19,7 @@ from nmf_tpu_torch.ops.cuda import build
 from nmf_tpu_torch.ops.cuda import mu as tmu
 from nmf_tpu_torch.ops.cuda import objectives as tobj
 from nmf_tpu_torch.ops.cuda import sparse as tsp
-from nmf_tpu_torch.ops.sparse_format import build_tiled
+from nmf_tpu_torch.ops.sparse_format import build_tiled, recut_pieces
 
 from torch_parity import (BUILD, QUAD_BUILD, coo_of, four_class_matrix,
                           three_class_matrix)
@@ -452,6 +454,60 @@ def test_sparse_products_take_any_k(card, store, k):
     counts = build.launch_counts()
     assert counts["chunk_matmul"] == slabs
     assert store == "chunk" or counts["quad_matmul"] == slabs
+
+
+# ---------------------------------------------------------------------------
+# kernels 1 and 3 with their panels cut into pieces
+
+
+@pytest.mark.parametrize("k", [9, 128, 451])
+@pytest.mark.parametrize("store", ["chunk", "quad32", "quad16"])
+def test_split_panels_match_the_plain_versions_on_the_card(card, store, k):
+    """Kernels 1 and 3 with most panels cut into pieces (caps as small as
+    each store takes): the partial panels, added in piece order by the second
+    pass, give the plain version's product and the same bits twice, kernel 3
+    still adds into ``out``, and the whole product takes k = 451 in column
+    slabs."""
+    if store == "chunk":
+        Xd = three_class_matrix()
+        r, c, v = coo_of(Xd)
+        Xt = build_tiled(r, c, v, Xd.shape, device=card, **BUILD)
+    else:
+        seg = int(store[-2:])
+        Xd, Xt = _quad_store(card, quad_seg=seg, quad_tail_nnz=seg)
+    Xt = dataclasses.replace(
+        Xt, **{name: recut_pieces(getattr(Xt, name), 128, Xt.fwd.quad_seg)
+               for name in ("fwd", "bwd")})
+    build.reset_launch_counts()
+    for side in (Xt.fwd, Xt.bwd):
+        D = torch.rand(side.cols, min(k, tsp.MAX_K), device=card)
+        if store == "chunk":
+            assert side.n_parts > 0 and side.split_panel.numel() > 0
+            got = tsp.chunk_matmul(side, D)
+            close(got, tsp.chunk_matmul_plain(side, D))
+            assert torch.equal(got, tsp.chunk_matmul(side, D))
+        else:
+            assert side.n_qparts > 0 and side.qsplit_panel.numel() > 0
+            got = tsp.quad_matmul(side, D)
+            close(got, tsp.quad_matmul_plain(side, D))
+            assert torch.equal(got, tsp.quad_matmul(side, D))
+            acc = torch.ones(side.rows, D.shape[1], device=card)
+            assert tsp.quad_matmul(side, D, acc) is acc
+            close(acc, tsp.quad_matmul_plain(side, D) + 1)
+    # one count a call: the second pass is part of the kernel's launch
+    counts = build.launch_counts()
+    direct = 4 if store == "chunk" else 6
+    assert counts["chunk_matmul" if store == "chunk" else "quad_matmul"] == direct
+    assert sum(counts.values()) == direct
+    X = torch.from_numpy(Xd).to(card).double()
+    D = torch.rand(Xd.shape[1], k, device=card)
+    close(tsp.tiled_mm(Xt, D), (X @ D.double()).float())
+    D2 = torch.rand(Xd.shape[0], k, device=card)
+    close(tsp.tiled_mtm(Xt, D2), (X.T @ D2.double()).float())
+    slabs = 2 * -(-k // tsp.MAX_K)
+    counts = build.launch_counts()
+    assert counts["chunk_matmul"] == (direct if store == "chunk" else 0) + slabs
+    assert store == "chunk" or counts["quad_matmul"] == direct + slabs
 
 
 # ---------------------------------------------------------------------------

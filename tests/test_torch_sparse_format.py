@@ -107,6 +107,174 @@ def test_row_panel_index_covers_every_entry_once():
         assert nnz_chunks + nnz_dense + side.n_coo == (M != 0).sum()
 
 
+# the pieces' fields of each class, in ``_cut_pieces``'s order
+PIECE_FIELDS = ("piece_ptr", "piece_panel", "piece_part", "split_ptr", "split_panel",
+                "n_parts")
+QPIECE_FIELDS = ("qpiece_ptr", "qpiece_panel", "qpiece_part", "qsplit_ptr",
+                 "qsplit_panel", "n_qparts")
+
+
+def _piece_store(name, order):
+    if name == "chunk":
+        return _both(order)
+    return _both_four(name, order)
+
+
+def _check_pieces(side, quad, cap):
+    """The pieces of one class: each panel's list covered once and in order,
+    cut greedily at ``cap`` entries; split panels' partials listed in piece
+    order; the items' counts are their nonzero values, packed at the front."""
+    h = lambda name: getattr(side, name).numpy() if isinstance(
+        getattr(side, name), torch.Tensor) else getattr(side, name)
+    if quad:
+        ptr, items, nreal = h("qpanel_ptr"), h("qpanel_segs"), h("qseg_nreal")
+        slots = side.qvals.numpy().reshape(-1, side.quad_seg)
+        pp, pan, part, sptr, span, n_parts = map(h, QPIECE_FIELDS)
+        keep = 0
+    else:
+        ptr, items, nreal = h("panel_ptr"), h("panel_chunks"), h("chunk_nreal")
+        slots = side.vals.numpy()
+        pp, pan, part, sptr, span, n_parts = map(h, PIECE_FIELDS)
+        keep = -(-side.rows // 128)
+    live = slots != 0
+    np.testing.assert_array_equal(nreal, live.sum(1))
+    assert not (np.arange(slots.shape[1]) >= nreal[:, None])[live].any()
+    assert pp[0] == 0 and pp[-1] == len(items) and (np.diff(pp) >= 0).all()
+    assert (np.diff(pan) >= 0).all()
+    entries = np.array([nreal[items[a:b]].sum() for a, b in zip(pp[:-1], pp[1:])])
+    assert entries.max(initial=0) <= cap
+    splits = []
+    for r in range(len(ptr) - 1):
+        mine = np.flatnonzero(pan == r)
+        if ptr[r] == ptr[r + 1]:
+            assert len(mine) == (r < keep) and entries[mine].sum() == 0
+            continue
+        assert pp[mine[0]] == ptr[r] and pp[mine[-1] + 1] == ptr[r + 1]
+        assert (np.diff(mine) == 1).all()
+        total = nreal[items[ptr[r]:ptr[r + 1]]].sum()
+        assert (len(mine) == 1) == (total <= cap)
+        # greedy: a piece ends where its panel's next item would not fit
+        for p in mine[:-1]:
+            assert entries[p] + nreal[items[pp[p + 1]]] > cap
+        if len(mine) > 1:
+            splits.append(r)
+            assert (part[mine] == np.arange(len(mine)) + part[mine[0]]).all()
+        else:
+            assert part[mine[0]] == -1
+    np.testing.assert_array_equal(span, splits)
+    assert n_parts == (part >= 0).sum() == sptr[-1]
+    np.testing.assert_array_equal(np.diff(sptr), np.bincount(pan)[splits])
+    np.testing.assert_array_equal(np.sort(part[part >= 0]), np.arange(n_parts))
+
+
+PIECE_STORES = ["chunk", "quad32_dense_band", "quad16", "span4_dense_band"]
+
+
+@pytest.mark.parametrize("order", ["degree", "natural"])
+@pytest.mark.parametrize("name", PIECE_STORES)
+def test_pieces_cover_each_panel_once_within_the_cap(name, order):
+    _, _, Xt = _piece_store(name, order)
+    for side in (Xt.fwd, Xt.bwd):
+        quad = side.qpanel_ptr is not None
+        _check_pieces(side, False, tsf.PIECE_ENTRIES)
+        cut = tsf.recut_pieces(side, 128, side.quad_seg)
+        _check_pieces(cut, False, 128)
+        assert cut.n_parts > 0 or side.panel_chunks.numel() < 2
+        if quad:
+            _check_pieces(side, True, tsf.PIECE_ENTRIES)
+            _check_pieces(cut, True, side.quad_seg)
+            assert cut.n_qparts > 0
+        with pytest.raises(ValueError, match="largest item"):
+            tsf.recut_pieces(side, int(side.chunk_nreal.max()) - 1)
+
+
+def _pieces_product(side, D, quad):
+    """The card's grouping on the CPU: each piece summed on its own in
+    float32, entry by entry in store order, then a split panel's partial
+    panels added in piece order (kernel 3 adds the result into zeros)."""
+    h = lambda t: t.numpy()
+    k = D.shape[1]
+    if quad:
+        seg = side.quad_seg
+        nper = 128 // seg
+        items, nreal = h(side.qpanel_segs), h(side.qseg_nreal)
+        pp, pan, part, sptr, span, n_parts = (getattr(side, f) for f in QPIECE_FIELDS)
+        chunk = items // nper
+        base = chunk * 128 + (items % nper) * seg
+        cbase = h(side.qwin_panel)[chunk // 8] * 128
+        lrow, lcol = h(side.qlrows).ravel(), h(side.qlcols).ravel()
+        val = h(side.qvals).ravel()
+    else:
+        items, nreal = h(side.panel_chunks), h(side.chunk_nreal)
+        pp, pan, part, sptr, span, n_parts = (getattr(side, f) for f in PIECE_FIELDS)
+        base = items * 128
+        cbase = h(side.win_panel)[items // side.group] * side.span * 128
+        co = h(side.coords).ravel()
+        lrow, lcol, val = co & 127, co >> 7, h(side.vals).ravel()
+    pp, pan, part, sptr, span = map(h, (pp, pan, part, sptr, span))
+    out = np.zeros((side.rows, k), np.float32)
+    parts = np.zeros((n_parts, 128, k), np.float32)
+    for p in range(len(pan)):
+        acc = np.zeros((128, k), np.float32)
+        for i in range(pp[p], pp[p + 1]):
+            s = np.arange(base[i], base[i] + nreal[items[i]])
+            # np.add.at adds in index order, one entry after another
+            np.add.at(acc, lrow[s], val[s, None] * D[cbase[i] + lcol[s]])
+        if part[p] >= 0:
+            parts[part[p]] = acc
+        else:
+            r0 = pan[p] * 128
+            out[r0:r0 + 128] = acc[:len(out[r0:r0 + 128])]
+    for s, r in enumerate(span):
+        acc = parts[sptr[s]].copy()
+        for q in range(sptr[s] + 1, sptr[s + 1]):
+            acc += parts[q]
+        out[r * 128:r * 128 + 128] = acc[:len(out[r * 128:r * 128 + 128])]
+    return out
+
+
+@pytest.mark.parametrize("name", PIECE_STORES)
+def test_split_pieces_add_up_to_the_plain_product(name):
+    from nmf_tpu_torch.ops.cuda import sparse as tsp
+
+    _, _, Xt = _piece_store(name, "degree")
+    rng = np.random.default_rng(6)
+    for side in (Xt.fwd, Xt.bwd):
+        D = rng.random((side.cols, 5), dtype=np.float32)
+        want = tsp.chunk_matmul_plain(side, torch.from_numpy(D)).numpy()
+        for s in (side, tsf.recut_pieces(side, 128, side.quad_seg)):
+            got = _pieces_product(s, D, False)
+            np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5 * np.abs(want).max())
+        if side.qpanel_ptr is not None:
+            want = tsp.quad_matmul_plain(side, torch.from_numpy(D)).numpy()
+            cut = tsf.recut_pieces(side, None, side.quad_seg)
+            assert cut.n_qparts > 0
+            got = _pieces_product(cut, D, True)
+            np.testing.assert_allclose(got, want, rtol=2e-5, atol=1e-5 * np.abs(want).max())
+
+
+def test_chunk_and_quad_products_refuse_misaligned_operands():
+    """For an even k the kernels move float2: D and out must start on an
+    8-byte boundary, which a view at an odd float offset misses."""
+    from nmf_tpu_torch.ops.cuda import sparse as tsp
+
+    side = _piece_store("quad32_dense_band", "degree")[2].fwd
+    for k in (4, 5):
+        flat = torch.rand(side.cols * k + 2, generator=torch.Generator().manual_seed(k))
+        odd, even = flat[1:][: side.cols * k].view(-1, k), flat[2:].view(-1, k)
+        out = torch.zeros(side.rows * k + 1)[1:].view(-1, k)
+        if k % 2:
+            assert torch.equal(tsp.chunk_matmul(side, odd),
+                               tsp.chunk_matmul_plain(side, odd))
+            tsp.quad_matmul(side, odd, out)
+            continue
+        with pytest.raises(ValueError, match="8-byte"):
+            tsp.chunk_matmul(side, odd)
+        with pytest.raises(ValueError, match="8-byte"):
+            tsp.quad_matmul(side, even, out)
+        assert torch.equal(tsp.chunk_matmul(side, even), tsp.chunk_matmul_plain(side, even))
+
+
 def test_convert_gives_the_ports_own_store():
     _, Xj, Xt = _both("degree", seed=1)
     Xc = convert.tiled_from_numpy(jax_tiled_to_dict(Xj), device="cpu")
@@ -125,8 +293,10 @@ def test_convert_gives_the_ports_own_store():
     Xs = convert.tiled_from_numpy(d, device="cpu")
     assert Xs.values is None and Xs.fwd.perm is None
     for ss, st in ((Xs.fwd, Xt.fwd), (Xs.bwd, Xt.bwd)):
-        for name in ("panel_ptr", "panel_chunks", "dpanel_ptr", "dpanel_blocks"):
-            assert torch.equal(getattr(ss, name), getattr(st, name)), name
+        for name in ("panel_ptr", "panel_chunks", "dpanel_ptr", "dpanel_blocks",
+                     "chunk_nreal", *PIECE_FIELDS):
+            a, b = getattr(ss, name), getattr(st, name)
+            assert a == b if isinstance(b, int) else torch.equal(a, b), name
 
 
 def test_factors_from_numpy():
@@ -177,7 +347,7 @@ def test_slim_drops_refresh_maps_only():
         for name in ("perm", "inv", "dense_nnz", "dense_slot", "coo_nnz"):
             assert getattr(a, name) is None
         for name in ("coords", "vals", "dvals", "coo_vals", "panel_chunks",
-                     "dpanel_blocks"):
+                     "dpanel_blocks", "chunk_nreal", *PIECE_FIELDS):
             assert getattr(a, name) is getattr(b, name)
     assert S.row_perm is Xt.row_perm and S.stats is Xt.stats
     with pytest.raises(ValueError, match="slim"):
@@ -280,8 +450,8 @@ def test_quad_panel_index_covers_every_entry_once(name):
         f = {k: v.numpy() if isinstance(v, torch.Tensor) else v for k, v in f.items()}
         f.update(perm=None, inv=None, qinv=None, dense_slot=None)
         again = tsf.row_panel_index(f)
-        np.testing.assert_array_equal(again["qpanel_segs"], segs)
-        np.testing.assert_array_equal(again["qpanel_ptr"], ptr)
+        for fld in ("qpanel_ptr", "qpanel_segs", "qseg_nreal", *QPIECE_FIELDS):
+            np.testing.assert_array_equal(again[fld], getattr(side, fld), err_msg=fld)
 
 
 @pytest.mark.parametrize("name", ["quad32_dense_band", "quad16_dense", "span2_band"])
@@ -303,7 +473,7 @@ def test_with_values_and_slim_on_quad_and_wide_stores(name):
     for a, b in ((S.fwd, Xt.fwd), (S.bwd, Xt.bwd)):
         assert a.qinv is None and a.perm is None and a.inv is None
         for fld in ("qvals", "qlrows", "qlcols", "q_rp", "qpanel_ptr", "qpanel_segs",
-                    "coords"):
+                    "coords", "qseg_nreal", *QPIECE_FIELDS):
             assert getattr(a, fld) is getattr(b, fld)
     with pytest.raises(ValueError, match="slim"):
         S.with_values(Xt.values)
