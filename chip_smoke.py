@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA build: ``python3 chip_smoke.py``.
 
-Needs one NVIDIA Hopper card, ``nvcc`` and no network.  It builds the twelve
-CUDA kernels from ``nmf_tpu_torch/csrc/``, holds each kernel against its plain
+Needs one NVIDIA Hopper card, ``nvcc`` and no network.  It builds the
+thirteen CUDA kernels from ``nmf_tpu_torch/csrc/`` (the twelve that replace
+the TPU kernels and the COO band's), holds each kernel against its plain
 PyTorch version on the card (the product and multiplicative-update kernels
 also at every ``k`` they refused before they summed over ``k`` in slabs), and
 drives the ported paths through ``nnmf`` and the resumable solver loop:
@@ -23,8 +24,10 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
   error 0.010, 2000 x 1000 rank 32 to 0.020); ``nnmf`` with its defaults on
   the dense problem.
 
-Kernels 1 and 3 are also run with most row panels cut into several pieces
-(phase ``kernels_split``).  Every phase prints one JSON line; any failure
+Kernels 1, 2 and 3 are also run with most row panels cut into several
+pieces (phase ``kernels_split``), and the products over the first store and
+five HALS iterations on it give the same bits twice (phase
+``same_bits_products``).  Every phase prints one JSON line; any failure
 ends the run with a non-zero exit code.  There is no CPU path: without a
 card the script fails at once.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -32,6 +35,7 @@ card the script fails at once.  The last line is
 
 from __future__ import annotations
 
+import contextlib
 import json
 import math
 import statistics
@@ -44,7 +48,10 @@ import torch
 
 # H100 SXM data-sheet peaks used for the bounds
 MEM_BYTES_PER_S = 3.35e12
-FP32_FLOPS = 67e12  # CUDA cores; every kernel is exact fp32
+FP32_FLOPS = 67e12  # CUDA cores
+# tensor cores, dense TF32: the dense-tile kernel (kernel 2) does each of its
+# float32 products as three TF32 ones (3xTF32), exact to float32's rounding
+TF32_FLOPS = 495e12
 
 # kernel vs plain version: f32 sums taken in another order.  The longest run
 # of float32 additions in one thread is about 10,000 terms (qht walks all of
@@ -107,12 +114,12 @@ def _lowrank_noisy_on_card(rng, p, n, k, noise=0.01):
     return X
 
 
-def bound_of(nbytes, flops):
+def bound_of(nbytes, flops, rate=FP32_FLOPS):
     """Least milliseconds the card could take for this work, and what bounds
     it: every input read once and the output written once at the memory rate,
-    against the flops at the fp32 CUDA-core peak."""
+    against the flops at ``rate`` (the fp32 CUDA-core peak unless given)."""
     t_bytes = nbytes / MEM_BYTES_PER_S * 1e3
-    t_ops = flops / FP32_FLOPS * 1e3
+    t_ops = flops / rate * 1e3
     return max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations"
 
 
@@ -178,6 +185,8 @@ def _class_csr(side, cls):
         rows, cols = quad_rows_cols(side, 0, side.n_qchunks, side.qvals.device)
         keep = side.qvals != 0
         rows, cols, vals = rows[keep], cols[keep], side.qvals[keep]
+    elif cls == "band":
+        rows, cols, vals = side.coo_rows.long(), side.coo_cols.long(), side.coo_vals
     else:
         ids = side.dpanel_blocks.long()
         win = ids // DENSE_GROUP
@@ -195,7 +204,10 @@ def _class_csr(side, cls):
 def _bound(side, cls, k, nnz):
     """Least milliseconds the card could take: every input read once and the
     output written once at the memory rate, against the flops this data
-    needs at the fp32 CUDA-core peak."""
+    needs at the fp32 CUDA-core peak; for the dense class (whose kernel runs
+    on the tensor cores) at the TF32 peak for three times the flops, with
+    the CUDA-core bound as a seventh value.  Returns (ms, by, bytes, flops,
+    items, CUDA-core ms)."""
     from nmf_tpu_torch.ops.sparse_format import TILE
 
     d_and_out = 4 * k * (side.cols + side.rows)
@@ -211,13 +223,24 @@ def _bound(side, cls, k, nnz):
         nbytes = (n_items * (side.quad_seg * 12 + 4) + 4 * side.qpanel_ptr.numel()
                   + 4 * side.qwin_panel.numel() + d_and_out + 4 * k * side.rows)
         flops = 2 * nnz * k
+    elif cls == "band":
+        # the row pointer, a column and a value an entry; the rows of D the
+        # band reads, and the rows of the output it adds into (read, written)
+        n_items = side.n_coo
+        d_rows = int(torch.unique(side.coo_cols).numel())
+        out_rows = int((side.coo_ptr.diff() > 0).sum())
+        nbytes = (4 * side.coo_ptr.numel() + 8 * n_items + 4 * k * d_rows
+                  + 8 * k * out_rows)
+        flops = 2 * nnz * k
     else:
         n_items = side.dpanel_blocks.numel()
         # the dense kernel adds into its output: read once and written once
         nbytes = (n_items * (TILE * TILE * 4 + 4) + 4 * side.dpanel_ptr.numel()
                   + 4 * side.dblk_panel.numel() + d_and_out + 4 * k * side.rows)
         flops = 2 * TILE * TILE * k * n_items
-    return (*bound_of(nbytes, flops), nbytes, flops, n_items)
+        return (*bound_of(nbytes, 3 * flops, TF32_FLOPS), nbytes, flops, n_items,
+                bound_of(nbytes, flops)[0])
+    return (*bound_of(nbytes, flops), nbytes, flops, n_items, None)
 
 
 def balance(side, cls):
@@ -238,18 +261,24 @@ def balance(side, cls):
             "max_entries_in_a_panel": int((cum[ptr[1:]] - cum[ptr[:-1]]).max())}
 
 
-def check_kernels(X, k, label, timed, classes=("chunk", "dense")):
+def check_kernels(X, k, label, timed, classes=("chunk", "dense", "band")):
     """Each product kernel of ``classes`` against its plain version, both
     orientations.  Returns ``{kernel: {side: record}}``; exits when a result
-    disagrees.  The quad kernel is held against its plain version run in
-    float64.  The chunk and quad kernels' records carry the store's
-    balance (``balance``)."""
+    disagrees.  The quad, dense and band kernels are held against their plain
+    versions run in float64.  The chunk and quad kernels' records carry the
+    store's balance (``balance``), the dense kernel's its pieces."""
     from nmf_tpu_torch.ops.cuda import sparse as S
 
     kernels = {
         "chunk": ("chunk_matmul", S.chunk_matmul, S.chunk_matmul_plain),
         "dense": ("dense_matmul", S.dense_matmul, S.dense_matmul_plain),
         "quad": ("quad_matmul", S.quad_matmul, S.quad_matmul_plain),
+        # the band adds into an output: here into zeros
+        "band": ("coo_matmul",
+                 lambda side, D: S.coo_matmul(side, D, torch.zeros(
+                     (side.rows, D.shape[1]), dtype=torch.float32, device=D.device)),
+                 lambda side, D: S.coo_matmul_plain(side, D, torch.zeros(
+                     (side.rows, D.shape[1]), dtype=D.dtype, device=D.device))),
     }
     gen = torch.Generator(device="cuda").manual_seed(1)
     rec = {kernels[cls][0]: {} for cls in classes}
@@ -258,11 +287,12 @@ def check_kernels(X, k, label, timed, classes=("chunk", "dense")):
         for cls in classes:
             name, kern, plain = kernels[cls]
             if (cls == "dense" and not side.n_dblocks) or (
-                    cls == "quad" and not side.qpanel_segs.numel()):
+                    cls == "quad" and not side.qpanel_segs.numel()) or (
+                    cls == "band" and not side.n_coo):
                 fail(f"{label}: the {sname} side has no {cls} entry to check")
             got = kern(side, D)
             torch.cuda.synchronize()
-            want = plain(side, D.double()) if cls == "quad" else plain(side, D)
+            want = plain(side, D) if cls == "chunk" else plain(side, D.double())
             scale = float(want.abs().max())
             err = float((got - want).abs().max())
             r = {"max_abs_err": err, "rel_err": err / scale, "scale": scale}
@@ -270,18 +300,29 @@ def check_kernels(X, k, label, timed, classes=("chunk", "dense")):
                     and scale > 0 and err <= REL_TOL * scale):
                 fail(f"{label} {name} {sname}: error {err} against scale {scale}")
             r["same_bits"] = _same_bits(f"{label} {name} {sname}", lambda: kern(side, D))
-            if cls != "dense":
+            if cls in ("chunk", "quad"):
                 r["balance"] = balance(side, cls)
+            elif cls == "dense":
+                r["pieces"] = {"pieces": side.dpiece_panel.numel(),
+                               "split_panels": side.dsplit_panel.numel(),
+                               "cap_blocks": int(side.dpiece_ptr.diff().max())}
             if timed:
                 A, nnz = _class_csr(side, cls)
                 lib = torch.sparse.mm(A, D)
                 lerr = float((lib - want).abs().max())
                 if not lerr <= 1e-4 * scale:
                     fail(f"{label} {name} {sname}: yardstick disagrees ({lerr})")
-                bound_ms, by, nbytes, flops, n_items = _bound(side, cls, k, nnz)
+                bound_ms, by, nbytes, flops, n_items, core_ms = _bound(side, cls, k, nnz)
+                if core_ms is not None:
+                    r["bound_ms_cuda_core"] = core_ms
+                run, run_plain = lambda: kern(side, D), lambda: plain(side, D)
+                if cls == "band":  # into one output, not a new one a call
+                    acc = torch.zeros((side.rows, k), device="cuda")
+                    run = lambda: S.coo_matmul(side, D, acc)
+                    run_plain = lambda: S.coo_matmul_plain(side, D, acc)
                 r.update(
-                    ms=time_ms(lambda: kern(side, D)),
-                    plain_ms=time_ms(lambda: plain(side, D), reps=3),
+                    ms=time_ms(run),
+                    plain_ms=time_ms(run_plain, reps=3),
                     library_ms=time_ms(lambda: torch.sparse.mm(A, D), reps=3),
                     bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=flops,
                     nnz=nnz, items=n_items,
@@ -294,29 +335,37 @@ def check_kernels(X, k, label, timed, classes=("chunk", "dense")):
 
 
 def check_split(X, k, label, cls, cap, timed):
-    """Kernel 1 (``cls`` "chunk") or 3 ("quad") on both sides of ``X`` with
-    its pieces cut again at ``cap`` entries, so that most panels are split
-    (the record says how many) and the pass that adds their partial panels
-    in piece order runs: against the plain version (float64 for the quad
-    kernel) within ``REL_TOL``, the same bits twice."""
+    """Kernel 1 (``cls`` "chunk"), 2 ("dense") or 3 ("quad") on both sides
+    of ``X`` with its pieces cut again at ``cap`` entries (blocks for kernel
+    2), so that most panels are split (the record says how many) and the
+    pass that adds their partial panels in piece order runs: against the
+    plain version (float64 for kernels 2 and 3) within ``REL_TOL``, the same
+    bits twice."""
     from nmf_tpu_torch.ops.cuda import sparse as S
     from nmf_tpu_torch.ops.sparse_format import recut_pieces
 
-    name, kern, plain = (("chunk_matmul", S.chunk_matmul, S.chunk_matmul_plain)
-                         if cls == "chunk" else
-                         ("quad_matmul", S.quad_matmul, S.quad_matmul_plain))
+    name, kern, plain, cap_name = {
+        "chunk": ("chunk_matmul", S.chunk_matmul, S.chunk_matmul_plain, "cap"),
+        "dense": ("dense_matmul", S.dense_matmul, S.dense_matmul_plain, "dcap"),
+        "quad": ("quad_matmul", S.quad_matmul, S.quad_matmul_plain, "qcap")}[cls]
     gen = torch.Generator(device="cuda").manual_seed(8)
     rec = {}
     for sname, side in (("fwd", X.fwd), ("bwd", X.bwd)):
-        cut = recut_pieces(side, cap, None) if cls == "chunk" else \
-            recut_pieces(side, None, cap)
-        bal = balance(cut, cls)
+        cut = recut_pieces(side, **{cap_name: cap})
+        if cls == "dense":
+            per_panel = side.dpanel_ptr.diff()
+            bal = {"pieces": cut.dpiece_panel.numel(),
+                   "split_panels": cut.dsplit_panel.numel(),
+                   "panels": int((per_panel > 0).sum()),
+                   "max_blocks_in_a_panel": int(per_panel.max())}
+        else:
+            bal = balance(cut, cls)
         if not bal["split_panels"]:
             fail(f"{label} {name} {sname}: cap {cap} splits no panel")
         D = torch.rand((side.cols, k), generator=gen, device="cuda")
         got = kern(cut, D)
         torch.cuda.synchronize()
-        want = plain(side, D.double() if cls == "quad" else D)
+        want = plain(side, D if cls == "chunk" else D.double())
         r = _held(f"{label} {name} {sname} cap={cap}", got, want, REL_TOL,
                   (side.rows, k))
         r["same_bits"] = _same_bits(f"{label} {name} {sname} cap={cap}",
@@ -327,6 +376,27 @@ def check_split(X, k, label, cls, cap, timed):
         rec[sname] = r
         del got, want, cut
     return rec
+
+
+def same_bits_products(X, W0, H0):
+    """The two products over the store (which has a band) and five HALS
+    iterations from one start, each run twice: the same bits, or the run
+    fails.  Nothing on the path adds with atomics."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.cuda import sparse as S
+
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    out = {"band_entries": [X.fwd.n_coo, X.bwd.n_coo]}
+    for name, fn, rows in (("tiled_mm", S.tiled_mm, N), ("tiled_mtm", S.tiled_mtm, P)):
+        D = torch.rand((rows, K), generator=gen, device="cuda")
+        out[name] = _same_bits(f"same_bits_products {name}", lambda: fn(X, D))
+    kw = dict(alg="cd", init="custom", W0=W0, H0=H0, tol=1e-30, maxiter=5)
+    a, b = nt.nnmf(X, K, **kw), nt.nnmf(X, K, **kw)
+    if not (torch.equal(a.W, b.W) and torch.equal(a.H, b.H)):
+        fail("same_bits_products: five HALS iterations from one start gave "
+             "different factors in two runs")
+    out.update(hals_5_iterations=True, objvalue=a.objvalue)
+    return out
 
 
 def _rel_err(got, want):
@@ -599,7 +669,8 @@ def check_k_ceilings(rs, cs, vs, shape):
     the dense multiplicative-update kernels and the objective at one past
     each old ceiling (182, 372, 436) and at 512; the chunk and quad products
     at 451 (one past their earlier panel's 450), at one past their panel's
-    ``MAX_K`` and at 512, where the whole product runs in column slabs."""
+    ``MAX_K`` and at 512, where the whole product runs in column slabs; the
+    dense-tile kernel alone at all of these k, also the same bits twice."""
     from nmf_tpu_torch.ops.cuda import build
     from nmf_tpu_torch.ops.cuda import mu as M
     from nmf_tpu_torch.ops.cuda import objectives as O
@@ -649,6 +720,19 @@ def check_k_ceilings(rs, cs, vs, shape):
                 fail(f"k_ceilings {tag} k={k}: launches {r['launches']}, "
                      f"expected {slabs} slabs")
             out["sparse"][f"{tag}_k{k}"] = r
+        if tag == "chunk":
+            # kernel 2 alone takes any k (a thread block a 128-column slice)
+            out["dense_matmul"] = {}
+            for k in (183, 373, 437, 451, S.MAX_K + 1, 512):
+                r = {}
+                for sname, side in (("fwd", Xs.fwd), ("bwd", Xs.bwd)):
+                    D = torch.rand((side.cols, k), generator=gen, device="cuda")
+                    lab = f"k_ceilings dense_matmul {sname} k={k}"
+                    r[sname] = _held(lab, S.dense_matmul(side, D),
+                                     S.dense_matmul_plain(side, D.double()),
+                                     REL_TOL)["rel_err"]
+                    _same_bits(lab, lambda: S.dense_matmul(side, D))
+                out["dense_matmul"][k] = r
         del Xs
     return out
 
@@ -766,6 +850,42 @@ def solve_main_path(X, W0, H0, alg, upd, max_iters, must_reach):
     return out, (Xr, w, h)
 
 
+@contextlib.contextmanager
+def counted_masked_steps(active_sums=False):
+    """Counts GreedyCD's masked steps while the block runs: yields a list
+    that gets ``[rows, steps, sum of the active rows over the steps]`` for
+    every half-step.  The counts read nothing back to the host; the sums
+    (``active_sums``) add one device sum a step."""
+    from nmf_tpu_torch.models import greedycd as G
+
+    log = []
+    step, rows_fn = G._masked_step, G._greedy_rows
+
+    def counted_step(W, c, active, *a):
+        log[-1][1] += 1
+        if active_sums:
+            log[-1][2] += active.sum()
+        return step(W, c, active, *a)
+
+    def counted_rows(W, *a):
+        log.append([W.shape[0], 0, torch.zeros((), dtype=torch.int64, device="cuda")])
+        return rows_fn(W, *a)
+
+    G._masked_step, G._greedy_rows = counted_step, counted_rows
+    try:
+        yield log
+    finally:
+        G._masked_step, G._greedy_rows = step, rows_fn
+
+
+def masked_step_counts(log):
+    """The masked steps of a counted run: each half-step's, their total and
+    the most in one half-step."""
+    steps = [n for _, n, _ in log]
+    return {"half_steps": len(steps), "masked_steps": sum(steps),
+            "max_in_a_half_step": max(steps, default=0), "per_half_step": steps}
+
+
 def greedycd_steps(X, W0, H0, iters=10):
     """Masked steps of every GreedyCD half-step over the first ``iters``
     iterations: the steps the half-step ran (its slowest row's count) and the
@@ -777,23 +897,8 @@ def greedycd_steps(X, W0, H0, iters=10):
     upd, _ = G.GreedyCD(maxiter=100)._resolved(torch.float32)
     Xr, w, h, _ = common.renumbered_problem(
         X, torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda())
-    log = []
-    step, rows_fn = G._masked_step, G._greedy_rows
-
-    def counted_step(W, c, active, *a):
-        log[-1][1] += 1
-        log[-1][2] += active.sum()
-        return step(W, c, active, *a)
-
-    def counted_rows(W, *a):
-        log.append([W.shape[0], 0, torch.zeros((), dtype=torch.int64, device="cuda")])
-        return rows_fn(W, *a)
-
-    G._masked_step, G._greedy_rows = counted_step, counted_rows
-    try:
+    with counted_masked_steps(active_sums=True) as log:
         common._solve_while_from(upd, (), Xr, w, h, 0, iters, 1e-30, with_objective=False)
-    finally:
-        G._masked_step, G._greedy_rows = step, rows_fn
     per_half = [{"rows": rows, "steps": steps, "mean_steps": float(tot) / rows}
                 for rows, steps, tot in log]
     if len(per_half) != 2 * iters or not all(h["steps"] <= K * K for h in per_half):
@@ -984,8 +1089,8 @@ def solve_mu_sparse(X, W0, H0, iters=20):
     xsq = float(X.stats[1])
     out = {}
     for alg, obj, names in (
-        ("multdiv", "div", ("chunk_matmul", "dense_matmul", "chunk_sddmm")),
-        ("multmse", "mse", ("chunk_matmul", "dense_matmul")),
+        ("multdiv", "div", ("chunk_matmul", "dense_matmul", "coo_matmul", "chunk_sddmm")),
+        ("multmse", "mse", ("chunk_matmul", "dense_matmul", "coo_matmul")),
     ):
         r = _traced_run(f"solve_mu_sparse {alg}", X, K, alg, W0, H0, iters, xsq)
         _need_launches(f"solve_mu_sparse {alg}", r["launches"], names)
@@ -1081,10 +1186,9 @@ def nndsvd_in_parts(X):
     W2, H2 = _timed(parts, "factor_build_s", factors)
     out["parts"] = parts
     out["parts_sum_s"] = sum(v for k_, v in parts.items() if k_ != "one_qr_s")
-    # the band's atomics change the last bits of a product from run to run,
-    # and singular vectors of close singular values turn with them, so the
-    # two starts are compared by what does not turn: their singular values
-    # and their relative error
+    # singular vectors of close singular values turn with any change in the
+    # last bits, so the two starts are compared by what does not turn: their
+    # singular values and their relative error
     s_whole = nt.rsvd(X, K, generator=I.child_generators(
         torch.Generator().manual_seed(0), 2)[0])[1]
     out["s_rel_diff_whole_vs_parts"] = float(((s_whole - s).abs() / s_whole).max())
@@ -1135,7 +1239,8 @@ def solve_defaults(X, t_start):
     GreedyCD from it through ``solve_main_path`` (to the target or 200
     iterations, the count reported and not limited), then the literal
     ``nnmf(X, K)`` with every default (``maxiter=60`` instead of 100 when the
-    script has already run 600 s), each with the launch counts of its run."""
+    script has already run 600 s), each with the launch counts and the
+    masked steps of its run."""
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.models.greedycd import GreedyCD
     from nmf_tpu_torch.ops.cuda import build
@@ -1146,22 +1251,26 @@ def solve_defaults(X, t_start):
     del W, H
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
-    solved, _ = solve_main_path(X, W0, H0, "greedycd", GreedyCD(maxiter=100),
-                                max_iters=200, must_reach=False)
+    with counted_masked_steps() as log:
+        solved, _ = solve_main_path(X, W0, H0, "greedycd", GreedyCD(maxiter=100),
+                                    max_iters=200, must_reach=False)
     solved["launches"] = build.launch_counts()
+    solved["masked_steps"] = masked_step_counts(log)
     solved["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
     _need_launches("solve_defaults greedycd", solved["launches"],
-                   ("chunk_matmul", "dense_matmul", "projectnn"))
+                   ("chunk_matmul", "dense_matmul", "coo_matmul", "projectnn"))
     capped = time.perf_counter() - t_start > 600
     kw = dict(maxiter=60) if capped else {}
     torch.cuda.reset_peak_memory_stats()
     build.reset_launch_counts()
     lit = {}
-    res = _timed(lit, "seconds", lambda: nt.nnmf(X, K, **kw))
+    with counted_masked_steps() as log:
+        res = _timed(lit, "seconds", lambda: nt.nnmf(X, K, **kw))
     lit["launches"] = build.launch_counts()
+    lit["masked_steps"] = masked_step_counts(log)
     _result_ok("nnmf(X, 128)", res, (P, K), (K, N))
     _need_launches("nnmf(X, 128)", lit["launches"],
-                   ("chunk_matmul", "dense_matmul", "projectnn"))
+                   ("chunk_matmul", "dense_matmul", "coo_matmul", "projectnn"))
     lit.update(niters=res.niters, converged=res.converged, objvalue=res.objvalue,
                relerr=relerr_of(X, res.W, res.H, xsq)[1],
                maxiter=60 if capped else 100, capped_at_600_s=capped,
@@ -1183,7 +1292,7 @@ def solve_random_replicates(X):
     out["launches"] = build.launch_counts()
     _result_ok("replicates", res, (P, K), (K, N))
     _need_launches("replicates", out["launches"],
-                   ("chunk_matmul", "dense_matmul", "colsum", "scale_cols"))
+                   ("chunk_matmul", "dense_matmul", "coo_matmul", "colsum", "scale_cols"))
     out.update(niters=res.niters, objvalue=res.objvalue,
                relerr=relerr_of(X, res.W, res.H, float(X.stats[1]))[1])
     return out
@@ -1466,7 +1575,10 @@ def main():
     # panels in piece order, on both stores
     say("kernels_split", tolerance=REL_TOL, card=smi,
         chunk_matmul=check_split(X, K, "full store", "chunk", 256, timed=True),
+        dense_matmul=check_split(X, K, "full store", "dense", 2, timed=True),
         quad_matmul=check_split(Xq, K, "quad store", "quad", 64, timed=True))
+    # no atomics: the products and five HALS iterations give the same bits
+    say("same_bits_products", card=smi, **same_bits_products(X, W0, H0))
 
     # 4. the first path: sparse Fast-HALS
     from nmf_tpu_torch.models import common
@@ -1483,7 +1595,7 @@ def main():
     solved["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
     solved["launches"] = hals_launches
     say("solve", target=TARGET_RELERR, card=smi, **solved)
-    _need_launches("solve", hals_launches, ("chunk_matmul", "dense_matmul"))
+    _need_launches("solve", hals_launches, ("chunk_matmul", "dense_matmul", "coo_matmul"))
     say("iteration_parts", card=smi, **time_iteration_parts(X, W0, H0))
 
     # 4b. GreedyCD, the default solver, on the same store: to the target or
@@ -1498,7 +1610,8 @@ def main():
     greedy["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
     greedy["launches"] = greedy_launches
     say("solve_greedycd", target=TARGET_RELERR, card=smi, **greedy)
-    _need_launches("solve_greedycd", greedy_launches, ("chunk_matmul", "dense_matmul"))
+    _need_launches("solve_greedycd", greedy_launches,
+                   ("chunk_matmul", "dense_matmul", "coo_matmul"))
     Xr, w0, h0, _ = common.renumbered_problem(
         X, torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda())
     say("iteration_parts_greedycd", card=smi,
@@ -1573,6 +1686,8 @@ def main():
         "chunk_matmul": (csrc + "chunk_matmul.cu", pallas + "sparse.py:329", full["chunk_matmul"]),
         "dense_matmul": (csrc + "dense_matmul.cu", pallas + "sparse.py:624", full["dense_matmul"]),
         "quad_matmul": (csrc + "quad_matmul.cu", pallas + "sparse.py:537", quad["quad_matmul"]),
+        # the band is no pallas_call in the reference: XLA's segment_sum
+        "coo_matmul": (csrc + "coo_matmul.cu", pallas + "sparse.py:412", full["coo_matmul"]),
         "chunk_sddmm": (csrc + "chunk_sddmm.cu", pallas + "sparse.py:738", {"fwd": sddmm}),
         "quad_sddmm": (csrc + "quad_sddmm.cu", pallas + "sparse.py:825", {"fwd": quad_sddmm}),
         "dense_objective": (csrc + "objectives.cu", pallas + "objectives.py:75", dense["dense_objective"]),
@@ -1605,6 +1720,9 @@ def main():
             "same_bits": all(r["same_bits"] for r in parts.values()),
             "launches_by_path": by_path,
             **{f"{part}_ms": r["ms"] for part, r in parts.items() if part},
+            # kernel 2's bound on the CUDA cores beside its tensor-core one
+            **({"bound_ms_cuda_core": tot("bound_ms_cuda_core")}
+               if all("bound_ms_cuda_core" in r for r in parts.values()) else {}),
         })
     if sorted(k["name"] for k in kernels) != sorted(build.KERNELS):
         fail("the report does not list every kernel the build holds")

@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-__all__ = ["DEFAULT_DEVICE", "resolve_device", "check_on_device",
+__all__ = ["DEFAULT_DEVICE", "resolve_device", "same_device", "check_on_device",
            "greedycd_cascade", "set_greedycd_cascade"]
 
 # exact fp32: stated and set (PyTorch's own default for matmul is already
@@ -39,10 +39,22 @@ def resolve_device(device=DEFAULT_DEVICE) -> torch.device:
     return dev
 
 
+def same_device(a: torch.device, b: torch.device) -> bool:
+    """Whether ``a`` and ``b`` are one device: ``cuda`` without an index is
+    the current CUDA device."""
+    if a.type != b.type:
+        return False
+    if a.type != "cuda" or a.index == b.index:
+        return True
+    ia, ib = (torch.cuda.current_device() if d.index is None else d.index
+              for d in (a, b))
+    return ia == ib
+
+
 def check_on_device(dev: torch.device, **tensors) -> None:
-    """Raise when a named tensor does not live on ``dev``'s device type."""
+    """Raise when a named tensor does not live on ``dev``."""
     for name, t in tensors.items():
-        if t is not None and t.device.type != dev.type:
+        if t is not None and not same_device(t.device, dev):
             raise ValueError(
                 f"{name} lives on {t.device} but device={str(dev)!r} was "
                 "requested; move it or pass the matching device="

@@ -17,8 +17,9 @@
 //   more blocks than the card keeps resident.
 // * A fixed order.  A panel of one piece is written straight to the output;
 //   the pieces of a split panel each write a partial panel to a scratch
-//   tensor, and combine_kernel adds them in piece order.  Nothing is atomic,
-//   so the same inputs give the same bits on every run.
+//   tensor, and combine_kernel (piece_combine.cuh) adds them in piece
+//   order.  Nothing is atomic, so the same inputs give the same bits on
+//   every run.
 // * Warps on their own.  A block is two warps; each thread owns V = 2
 //   adjacent columns of the panel (V = 1 for an odd k), a warp 32 V columns
 //   of every 64 V, and no other warp touches them: the block needs no
@@ -42,7 +43,8 @@
 
 #include <cuda_runtime.h>
 
-#define TILE 128
+#include "piece_combine.cuh"
+
 #define FULL_MASK 0xffffffffu
 #define WARPS 2  // a block
 
@@ -235,29 +237,6 @@ piece_kernel(Store st, const int* __restrict__ piece_ptr,
   }
 }
 
-// out panel (=, or += with accumulate) = partials of one split panel added in
-// piece order; blockIdx.x is the split panel.
-static __global__ void __launch_bounds__(256)
-combine_kernel(const int* __restrict__ split_ptr,
-               const int* __restrict__ split_panel,
-               const float* __restrict__ parts, float* __restrict__ out,
-               int rows, int k, int accumulate) {
-  const int s = blockIdx.x;
-  const int p0 = split_ptr[s];
-  const int np = split_ptr[s + 1] - p0;
-  const int panel = split_panel[s];
-  const size_t stride = (size_t)TILE * k;
-  const int valid = min(TILE, rows - panel * TILE) * k;
-  const float* src = parts + (size_t)p0 * stride;
-  float* dst = out + (size_t)panel * stride;
-  for (int e = blockIdx.y * blockDim.x + threadIdx.x; e < valid;
-       e += gridDim.y * blockDim.x) {
-    float sum = src[e];
-    for (int q = 1; q < np; ++q) sum += src[(size_t)q * stride + e];
-    dst[e] = accumulate ? dst[e] + sum : sum;
-  }
-}
-
 template <class Store, int V>
 static int launch_pieces(Store st, const int* piece_ptr, const int* piece_panel,
                          const int* piece_part, const int* items,
@@ -294,14 +273,8 @@ int launch(Store st, const int* piece_ptr, const int* piece_panel,
                                       accumulate, stream);
     if (e) return e;
   }
-  if (n_split > 0) {
-    // about four floats a thread at k = 128
-    const int per = (TILE * k + 1023) / 1024;
-    combine_kernel<<<dim3(n_split, per), 256, 0, stream>>>(
-        split_ptr, split_panel, parts, out, rows, k, accumulate);
-    return (int)cudaGetLastError();
-  }
-  return 0;
+  return launch_combine(split_ptr, split_panel, parts, out, n_split, rows, k,
+                        accumulate, stream);
 }
 
 }  // namespace piece_walk

@@ -100,6 +100,7 @@ def _masked_step(W, c: _Carry, active, P, denom, Pdiag) -> _Carry:
     rows share its buffer.  ``delta`` and ``G`` are updated in place."""
     q = c.qi[:, None]
     sv = torch.where(active, c.S.gather(1, q).squeeze(1), 0)[:, None]
+    # one index a row: no two adds meet in one element, so no atomic order
     c.delta.scatter_add_(1, q, sv)
     c.G.add_(sv * P.index_select(0, c.qi))
     S, D = _scores(W, c.G, denom, Pdiag)

@@ -27,12 +27,14 @@ _PKG = Path(__file__).resolve().parents[2]
 CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = (
-    "chunk_matmul.cu", "dense_matmul.cu", "quad_matmul.cu", "chunk_sddmm.cu",
-    "quad_sddmm.cu", "mu.cu", "objectives.cu", "elementwise.cu",
+    "chunk_matmul.cu", "dense_matmul.cu", "quad_matmul.cu", "coo_matmul.cu",
+    "chunk_sddmm.cu", "quad_sddmm.cu", "mu.cu", "objectives.cu",
+    "elementwise.cu",
 )
 # wh_tile.cuh: mu.cu and objectives.cu; sddmm_warp.cuh: the two sddmm sources;
-# piece_walk.cuh: the chunk and quad products
-HEADERS = ("wh_tile.cuh", "sddmm_warp.cuh", "piece_walk.cuh")
+# piece_walk.cuh: the chunk and quad products; piece_combine.cuh: those two
+# and the dense product
+HEADERS = ("wh_tile.cuh", "sddmm_warp.cuh", "piece_walk.cuh", "piece_combine.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -49,13 +51,16 @@ _ARGTYPES = {
     # panel_chunks, chunk_nreal, win_panel, coords, vals, D, out, parts,
     # n_pieces, n_split, group, span, rows, k, stream
     "nmf_chunk_matmul": [_P] * 13 + [_I] * 6 + [_P],
-    # dpanel_ptr, dpanel_blocks, dblk_panel, dvals, D, out,
-    # n_rowpanels, dgroup, rows, cols, k, stream
-    "nmf_dense_matmul": [_P] * 6 + [_I] * 5 + [_P],
+    # dpiece_ptr, dpiece_panel, dpiece_part, dsplit_ptr, dsplit_panel,
+    # dpanel_blocks, dblk_panel, dvals, D, out, parts,
+    # n_pieces, n_split, dgroup, rows, cols, k, stream
+    "nmf_dense_matmul": [_P] * 11 + [_I] * 6 + [_P],
     # qpiece_ptr, qpiece_panel, qpiece_part, qsplit_ptr, qsplit_panel,
     # qpanel_segs, qseg_nreal, qwin_panel, qlrows, qlcols, qvals, D, out,
     # parts, n_pieces, n_split, qgroup, seg, rows, k, stream
     "nmf_quad_matmul": [_P] * 14 + [_I] * 6 + [_P],
+    # coo_ptr, coo_cols, coo_vals, D, out, rows, k, stream
+    "nmf_coo_matmul": [_P] * 5 + [_I] * 2 + [_P],
     # coords, inv, chunk_rp, win_panel, win_stripe, W, Ht, out,
     # n_chunks, group, panels_per_stripe, span, rows, cols, k, nnz, stream
     "nmf_chunk_sddmm": [_P] * 8 + [_I] * 8 + [_P],
@@ -149,11 +154,15 @@ def load_kernels():
 
 
 def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` on PyTorch's current stream and count the
-    launch; raises when the launch is refused.  The only place a count
-    moves."""
+    """Launch kernel ``name`` and count the launch; raises when the launch
+    is refused.  The only place a count moves.  A tensor argument is passed
+    as its data pointer; the kernel runs on the device of the first one, on
+    that device's current stream, under a device guard."""
     fn = getattr(load_kernels(), f"nmf_{name}")
-    err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    dev = next(a.device for a in args if isinstance(a, torch.Tensor))
+    ptrs = [a.data_ptr() if isinstance(a, torch.Tensor) else a for a in args]
+    with torch.cuda.device(dev):
+        err = fn(*ptrs, torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
     _launches[name] += 1

@@ -55,7 +55,7 @@ def projectnn(A):
         A = A.contiguous()
     out = torch.empty_like(A)  # keeps a transposed layout
     if A.numel():
-        launch("projectnn", A.data_ptr(), out.data_ptr(), A.numel(), _vec(A, out))
+        launch("projectnn", A, out, A.numel(), _vec(A, out))
     return out
 
 
@@ -83,7 +83,7 @@ def colsum(A):
     if n:
         partial = torch.empty((-(-m // COLSUM_ROWS), n), dtype=torch.float64,
                               device=A.device)
-        launch("colsum", A.data_ptr(), partial.data_ptr(), out.data_ptr(), m, n)
+        launch("colsum", A, partial, out, m, n)
     return out
 
 
@@ -105,6 +105,6 @@ def scale_cols(A, sums):
     sums = sums.contiguous()
     out = torch.empty_like(A)
     if A.numel():
-        launch("scale_cols", A.data_ptr(), sums.data_ptr(), out.data_ptr(),
-               A.numel(), n, int(n % 4 == 0 and _vec(A, out)))
+        launch("scale_cols", A, sums, out, A.numel(), n,
+               int(n % 4 == 0 and _vec(A, out)))
     return out

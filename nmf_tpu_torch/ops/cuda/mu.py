@@ -86,8 +86,7 @@ def mu_factor_update(F, G, C, lam, delta):
         )
     G = G.contiguous()
     launch(
-        "mu_factor_update", F.data_ptr(), G.data_ptr(), C.data_ptr(),
-        out.data_ptr(), k, m, float(lam), float(delta), trans,
+        "mu_factor_update", F, G, C, out, k, m, float(lam), float(delta), trans,
     )
     return out
 
@@ -158,8 +157,7 @@ def _quotient_product(name, X, W, H, delta):
     partial = out if splits == 1 else torch.empty(
         (splits, *shape), dtype=torch.float32, device=X.device)
     launch(
-        name, X.data_ptr(), W.data_ptr(), H.data_ptr(), partial.data_ptr(),
-        out.data_ptr(), p, n, k, float(delta), xvec, splits,
+        name, X, W, H, partial, out, p, n, k, float(delta), xvec, splits,
     )
     return out
 

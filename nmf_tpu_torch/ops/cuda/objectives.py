@@ -67,8 +67,8 @@ def _objective(X, W, H, kind):
     partial = torch.empty(-(-p // 64), dtype=torch.float64, device=X.device)
     out = torch.empty(1, dtype=torch.float32, device=X.device)
     launch(
-        "dense_objective", X.data_ptr(), W.data_ptr(), H.data_ptr(),
-        partial.data_ptr(), out.data_ptr(), p, n, k, KINDS.index(kind), xvec,
+        "dense_objective", X, W, H, partial, out, p, n, k, KINDS.index(kind),
+        xvec,
     )
     return out[0]
 

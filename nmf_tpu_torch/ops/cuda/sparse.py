@@ -7,9 +7,9 @@ One sparse-dense product is the sum of four parts, one per store class
 * ``chunk_matmul`` — the narrow-chunk kernel (``csrc/chunk_matmul.cu``);
 * ``dense_matmul`` — the dense-tile kernel (``csrc/dense_matmul.cu``);
 * ``quad_matmul``  — the quad-tail kernel (``csrc/quad_matmul.cu``);
-* ``coo_matmul``  — the COO band, plain PyTorch: gather, scale and
-  ``index_add_`` over pieces of the band, so the ``(n_coo, k)`` product never
-  exists whole.
+* ``coo_matmul``  — the COO band kernel (``csrc/coo_matmul.cu``): each
+  row's band entries summed in band order, then added to the output once,
+  as the reference's sorted ``segment_sum``.
 
 The sampled product ``tiled_sddmm`` has the same four parts:
 ``chunk_sddmm`` (``csrc/chunk_sddmm.cu``), ``dense_sample`` (a batched
@@ -24,15 +24,13 @@ kernel or raises.  ``build.launch_counts()`` counts kernel launches, and
 nothing else.
 
 Everything is float32 with D row-major ``(n, k)``: one gathered row of D is
-``4k`` contiguous bytes.  The dense kernel gives one thread block sole
-ownership of a 128-row output panel.  The chunk and quad kernels give one
-block a *piece* of a panel (the store's pieces, ``sparse_format``): a panel
-of one piece is written straight to the output, the pieces of a split panel
-write partial panels to a scratch tensor that the wrapper allocates and a
-second pass adds them in piece order.  All three sum in an order fixed by the
-store, so their results are the same from run to run.  The COO band's
-``index_add_`` uses atomics on the card: its float sums can differ in the
-last bits between runs.
+``4k`` contiguous bytes.  The chunk, dense and quad kernels give one thread
+block a *piece* of a 128-row output panel (the store's pieces,
+``sparse_format``): a panel of one piece is written straight to the output,
+the pieces of a split panel write partial panels to a scratch tensor that
+the wrapper allocates and a second pass adds them in piece order.  The band
+kernel gives one warp a row.  All four sum in an order fixed by the store and
+use no atomics, so their results are the same from run to run.
 """
 
 from __future__ import annotations
@@ -45,6 +43,7 @@ from .build import SMEM_PER_BLOCK, launch
 __all__ = [
     "chunk_matmul", "chunk_matmul_plain", "dense_matmul", "dense_matmul_plain",
     "quad_rows_cols", "quad_matmul", "quad_matmul_plain", "coo_matmul",
+    "coo_matmul_plain",
     "tiled_matmul_t", "tiled_mm", "tiled_mtm", "chunk_sddmm", "chunk_sddmm_plain",
     "dense_sample", "quad_sddmm", "quad_sddmm_plain", "coo_sample",
     "tiled_sddmm",
@@ -96,10 +95,6 @@ def _check_aligned(k, *tensors) -> None:
             )
 
 
-def _n_rowpanels(side: TiledSideC) -> int:
-    return -(-side.rows // TILE)
-
-
 def _parts(n_parts, k, device):
     """Scratch for the partial panels of the split panels."""
     return torch.empty((n_parts, TILE, k), dtype=torch.float32, device=device)
@@ -143,12 +138,9 @@ def chunk_matmul(side: TiledSideC, D):
     parts = _parts(side.n_parts, k, D.device)
     launch(
         "chunk_matmul",
-        side.piece_ptr.data_ptr(), side.piece_panel.data_ptr(),
-        side.piece_part.data_ptr(), side.split_ptr.data_ptr(),
-        side.split_panel.data_ptr(), side.panel_chunks.data_ptr(),
-        side.chunk_nreal.data_ptr(), side.win_panel.data_ptr(),
-        side.coords.data_ptr(), side.vals.data_ptr(), D.data_ptr(),
-        out.data_ptr(), parts.data_ptr(), side.piece_panel.numel(),
+        side.piece_ptr, side.piece_panel, side.piece_part, side.split_ptr,
+        side.split_panel, side.panel_chunks, side.chunk_nreal, side.win_panel,
+        side.coords, side.vals, D, out, parts, side.piece_panel.numel(),
         side.split_panel.numel(), side.group, side.span, side.rows, k,
     )
     return out
@@ -158,24 +150,35 @@ def chunk_matmul(side: TiledSideC, D):
 # dense store
 
 
-def dense_matmul_plain(side: TiledSideC, D, out=None):
-    """Plain version of ``dense_matmul``: per piece of the dense store, one
-    batched ``block' @ D_panel`` product, ``index_add_`` into the output
-    panels.  Zero-padding blocks add zero."""
+def _dense_products(side: TiledSideC, D, blocks):
+    """``block' @ D_panel`` for the dense blocks ``blocks`` (int64 ids),
+    ``(len(blocks), 128, k)``."""
     k = D.shape[1]
-    pps = side.panels_per_stripe
-    n_panels = side.n_stripes * pps
-    acc = D.new_zeros((n_panels, TILE, k))
     Dp = _pad_rows(D, side.n_colpanels * side.span * TILE).reshape(-1, TILE, k)
-    step = max(_PIECE // TILE, 1)
-    for b0 in range(0, side.n_dblocks, step):
-        ids = torch.arange(b0, min(b0 + step, side.n_dblocks), device=D.device)
-        win = ids // DENSE_GROUP
-        panel = side.dblk_stripe[win].long() * pps + side.dblk_rp[ids].long()
-        contrib = torch.bmm(
-            side.dvals[ids].transpose(1, 2), Dp[side.dblk_panel[win].long()]
-        )
-        acc.index_add_(0, panel, contrib)
+    return torch.bmm(side.dvals[blocks].to(D.dtype).transpose(1, 2),
+                     Dp[side.dblk_panel[blocks // DENSE_GROUP].long()])
+
+
+def dense_matmul_plain(side: TiledSideC, D, out=None):
+    """Plain version of ``dense_matmul``, the kernel's sum: per piece of the
+    dense store, the pieces' blocks' ``block' @ D_panel`` products in block
+    order; a split panel's pieces then in piece order; the panel added onto
+    ``out`` once.  The products are made ``_PIECE / 128`` blocks at a
+    time."""
+    k = D.shape[1]
+    n_panels = side.n_stripes * side.panels_per_stripe
+    acc = D.new_zeros((n_panels, TILE, k))
+    if side.n_dblocks:
+        blocks = side.dpanel_blocks.long()
+        n_pieces = side.dpiece_panel.numel()
+        piece_of = torch.repeat_interleave(
+            torch.arange(n_pieces, device=D.device), side.dpiece_ptr.diff().long())
+        sums = D.new_zeros((n_pieces, TILE, k))
+        step = max(_PIECE // TILE, 1)
+        for b0 in range(0, blocks.numel(), step):
+            sl = slice(b0, b0 + step)
+            sums.index_add_(0, piece_of[sl], _dense_products(side, D, blocks[sl]))
+        acc.index_add_(0, side.dpiece_panel.long(), sums)
     res = acc.reshape(-1, k)[: side.rows]
     if out is None:
         return res
@@ -189,13 +192,19 @@ def dense_matmul(side: TiledSideC, D, out=None):
     _check_out(side, D, out, k)
     if not D.is_cuda:
         return dense_matmul_plain(side, D, out)
+    if not side.dvals.is_contiguous() or side.dvals.data_ptr() % 16:
+        raise ValueError("the dense kernel takes contiguous blocks on a 16-byte boundary")
     if out is None:
         out = torch.zeros((side.rows, k), dtype=torch.float32, device=D.device)
+    if not side.n_dblocks:
+        return out
+    parts = _parts(side.n_dparts, k, D.device)
     launch(
         "dense_matmul",
-        side.dpanel_ptr.data_ptr(), side.dpanel_blocks.data_ptr(),
-        side.dblk_panel.data_ptr(), side.dvals.data_ptr(), D.data_ptr(),
-        out.data_ptr(), _n_rowpanels(side), DENSE_GROUP, side.rows, side.cols, k,
+        side.dpiece_ptr, side.dpiece_panel, side.dpiece_part, side.dsplit_ptr,
+        side.dsplit_panel, side.dpanel_blocks, side.dblk_panel, side.dvals, D,
+        out, parts, side.dpiece_panel.numel(), side.dsplit_panel.numel(),
+        DENSE_GROUP, side.rows, side.cols, k,
     )
     return out
 
@@ -252,12 +261,9 @@ def quad_matmul(side: TiledSideC, D, out=None):
     parts = _parts(side.n_qparts, k, D.device)
     launch(
         "quad_matmul",
-        side.qpiece_ptr.data_ptr(), side.qpiece_panel.data_ptr(),
-        side.qpiece_part.data_ptr(), side.qsplit_ptr.data_ptr(),
-        side.qsplit_panel.data_ptr(), side.qpanel_segs.data_ptr(),
-        side.qseg_nreal.data_ptr(), side.qwin_panel.data_ptr(),
-        side.qlrows.data_ptr(), side.qlcols.data_ptr(), side.qvals.data_ptr(),
-        D.data_ptr(), out.data_ptr(), parts.data_ptr(),
+        side.qpiece_ptr, side.qpiece_panel, side.qpiece_part, side.qsplit_ptr,
+        side.qsplit_panel, side.qpanel_segs, side.qseg_nreal, side.qwin_panel,
+        side.qlrows, side.qlcols, side.qvals, D, out, parts,
         side.qpiece_panel.numel(), side.qsplit_panel.numel(), QUAD_GROUP,
         side.quad_seg, side.rows, k,
     )
@@ -268,13 +274,31 @@ def quad_matmul(side: TiledSideC, D, out=None):
 # COO band and the whole product
 
 
-def coo_matmul(side: TiledSideC, D, out):
-    """``out += X_band @ D``: gather, scale, ``index_add_``, one piece of the
-    band at a time."""
+def coo_matmul_plain(side: TiledSideC, D, out):
+    """Plain version of ``coo_matmul``, the reference's order: the band
+    summed into zeros row by row in band order (gather, scale,
+    ``index_add_``, one piece of the band at a time, so the ``(n_coo, k)``
+    products never exist whole), then added onto ``out`` once."""
+    band = torch.zeros_like(out)
     for e0 in range(0, side.n_coo, _PIECE):
         sl = slice(e0, min(e0 + _PIECE, side.n_coo))
         contrib = side.coo_vals[sl, None] * D[side.coo_cols[sl].long()]
-        out.index_add_(0, side.coo_rows[sl].long(), contrib)
+        band.index_add_(0, side.coo_rows[sl].long(), contrib)
+    return out.add_(band)
+
+
+def coo_matmul(side: TiledSideC, D, out):
+    """``out += X_band @ D``: each row's band entries summed in band order,
+    then added to the row of ``out`` once.  Returns ``out``."""
+    if out is None:
+        raise ValueError("the band product adds into out: pass it")
+    k = _check_operand(side, D)
+    _check_out(side, D, out, k)
+    if not D.is_cuda:
+        return coo_matmul_plain(side, D, out)
+    if side.n_coo:
+        launch("coo_matmul", side.coo_ptr, side.coo_cols, side.coo_vals, D, out,
+               side.rows, k)
     return out
 
 
@@ -420,11 +444,9 @@ def chunk_sddmm(side: TiledSideC, W, Ht, out=None):
         out = torch.empty(nslots, dtype=torch.float32, device=W.device)
     launch(
         "chunk_sddmm",
-        side.coords.data_ptr(), side.inv.data_ptr(), side.chunk_rp.data_ptr(),
-        side.win_panel.data_ptr(), side.win_stripe.data_ptr(), W.data_ptr(),
-        Ht.data_ptr(), out.data_ptr(), side.coords.shape[0], side.group,
-        side.panels_per_stripe, side.span, side.rows, side.cols, k,
-        side.perm.shape[0],
+        side.coords, side.inv, side.chunk_rp, side.win_panel, side.win_stripe,
+        W, Ht, out, side.coords.shape[0], side.group, side.panels_per_stripe,
+        side.span, side.rows, side.cols, k, side.perm.shape[0],
     )
     return out
 
@@ -486,10 +508,8 @@ def quad_sddmm(side: TiledSideC, W, Ht, out=None):
         out = torch.empty(nslots, dtype=torch.float32, device=W.device)
     launch(
         "quad_sddmm",
-        side.qlrows.data_ptr(), side.qlcols.data_ptr(), side.qinv.data_ptr(),
-        side.q_rp.data_ptr(), side.qwin_panel.data_ptr(),
-        side.qwin_stripe.data_ptr(), W.data_ptr(), Ht.data_ptr(),
-        out.data_ptr(), side.n_qchunks, QUAD_GROUP, side.quad_seg,
+        side.qlrows, side.qlcols, side.qinv, side.q_rp, side.qwin_panel,
+        side.qwin_stripe, W, Ht, out, side.n_qchunks, QUAD_GROUP, side.quad_seg,
         side.panels_per_stripe, side.rows, side.cols, k, side.perm.shape[0],
     )
     return out

@@ -27,8 +27,11 @@ byte packing), and each side carries a *row-panel index* — for every 128-row
 output panel the list of chunks, of dense blocks and of quad sub-segments
 that add into it — which is what lets one thread block own one output panel,
 and the *pieces* that cut the chunk and quad lists into runs of at most
-``PIECE_ENTRIES`` entries, so that the work of a heavy panel is shared by
-several thread blocks and added in a fixed order.
+``PIECE_ENTRIES`` entries (the dense block lists into runs of at most
+``DENSE_PIECE_BLOCKS`` blocks), so that the work of a heavy panel is shared
+by several thread blocks and added in a fixed order; and a row pointer over
+the band (``coo_ptr``), so that each row's band entries are summed in band
+order.
 
 The binning is numpy on the host; the built arrays are tensors on ``device``.
 """
@@ -72,10 +75,15 @@ _PIECES = ("piece_ptr", "piece_panel", "piece_part", "split_ptr", "split_panel",
            "n_parts")
 _QPIECES = ("qpiece_ptr", "qpiece_panel", "qpiece_part", "qsplit_ptr",
             "qsplit_panel", "n_qparts")
+# dense blocks one piece of a panel's block list holds at most (the sweep
+# behind the value: PERF.md, ``tools/time_sparse_kernels.py``)
+DENSE_PIECE_BLOCKS = 16
+_DPIECES = ("dpiece_ptr", "dpiece_panel", "dpiece_part", "dsplit_ptr",
+            "dsplit_panel", "n_dparts")
 # what ``row_panel_index`` derives from the stored arrays
 INDEX_FIELDS = ("panel_ptr", "panel_chunks", "dpanel_ptr", "dpanel_blocks",
                 "qpanel_ptr", "qpanel_segs", "chunk_nreal", "qseg_nreal",
-                *_PIECES, *_QPIECES)
+                "coo_ptr", *_PIECES, *_QPIECES, *_DPIECES)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -134,6 +142,9 @@ class TiledSideC:
     coo_vals: torch.Tensor | None = None  # (n_coo,) float32
     coo_nnz: torch.Tensor | None = None  # CSR-order nnz id per band entry
     n_coo: int = 0
+    # row pointer over the band: row r's entries are
+    # ``coo_ptr[r]:coo_ptr[r+1]`` (the band is sorted by row)
+    coo_ptr: torch.Tensor | None = None  # (rows + 1,) int32
     # row-panel index: chunks ``panel_chunks[panel_ptr[r]:panel_ptr[r+1]]``
     # add into global row panel r (= stripe * panels_per_stripe + chunk_rp);
     # all-padding chunks are left out.  ``dpanel_*`` is the same over the
@@ -169,6 +180,14 @@ class TiledSideC:
     qsplit_ptr: torch.Tensor | None = None
     qsplit_panel: torch.Tensor | None = None
     n_qparts: int = 0
+    # ``d*`` is the same over the dense blocks, each block counting one, at
+    # most ``DENSE_PIECE_BLOCKS`` a piece; a panel without blocks gets no piece
+    dpiece_ptr: torch.Tensor | None = None
+    dpiece_panel: torch.Tensor | None = None
+    dpiece_part: torch.Tensor | None = None
+    dsplit_ptr: torch.Tensor | None = None
+    dsplit_panel: torch.Tensor | None = None
+    n_dparts: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -360,8 +379,9 @@ def _cut_pieces(ptr, items, nreal, cap, keep_empty, names):
 
 def row_panel_index(f):
     """The row-panel index of one side from its stored arrays (numpy, in a
-    dict keyed like ``TiledSideC``), with each item's count of entries and
-    the pieces of at most ``PIECE_ENTRIES`` entries.  A chunk, block or quad
+    dict keyed like ``TiledSideC``), with each item's count of entries, the
+    pieces of at most ``PIECE_ENTRIES`` entries (``DENSE_PIECE_BLOCKS`` dense
+    blocks) and the band's row pointer.  A chunk, block or quad
     sub-segment takes part when it holds any entry of the pattern — read off
     the refresh maps where the side has them, else off the stored values,
     where an all-zero chunk, block or sub-segment adds nothing either way.
@@ -393,6 +413,13 @@ def row_panel_index(f):
         out.update(
             zip(("dpanel_ptr", "dpanel_blocks"), _by_panel(dpanel, dreal, n_panels))
         )
+        out.update(_cut_pieces(out["dpanel_ptr"], out["dpanel_blocks"],
+                               np.ones(f["n_dblocks"], np.int64),
+                               DENSE_PIECE_BLOCKS, 0, _DPIECES))
+    if f.get("n_coo"):
+        out["coo_ptr"] = np.zeros(f["rows"] + 1, np.int32)
+        np.cumsum(np.bincount(f["coo_rows"], minlength=f["rows"]),
+                  out=out["coo_ptr"][1:])
     if f.get("n_qchunks"):
         seg = f["quad_seg"]
         nper = TILE // seg
@@ -413,11 +440,11 @@ def row_panel_index(f):
     return out
 
 
-def recut_pieces(side: TiledSideC, cap=None, qcap=None) -> TiledSideC:
-    """``side`` with its chunk pieces cut again at ``cap`` entries and its
-    quad pieces at ``qcap`` (None keeps them).  A small cap splits most
-    panels: the tests and the card's checks use it to run the pass that adds
-    partial panels."""
+def recut_pieces(side: TiledSideC, cap=None, qcap=None, dcap=None) -> TiledSideC:
+    """``side`` with its chunk pieces cut again at ``cap`` entries, its quad
+    pieces at ``qcap`` entries and its dense pieces at ``dcap`` blocks (None
+    keeps them).  A small cap splits most panels: the tests and the card's
+    checks use it to run the pass that adds partial panels."""
     host = lambda t: t.cpu().numpy()
     kw = {}
     if cap is not None:
@@ -427,6 +454,9 @@ def recut_pieces(side: TiledSideC, cap=None, qcap=None) -> TiledSideC:
     if qcap is not None and side.qpanel_ptr is not None:
         kw.update(_cut_pieces(host(side.qpanel_ptr), host(side.qpanel_segs),
                               host(side.qseg_nreal), qcap, 0, _QPIECES))
+    if dcap is not None and side.dpanel_ptr is not None:
+        kw.update(_cut_pieces(host(side.dpanel_ptr), host(side.dpanel_blocks),
+                              np.ones(side.n_dblocks, np.int64), dcap, 0, _DPIECES))
     dev = side.coords.device
     return dataclasses.replace(side, **{
         name: to_tensor(v, dev) if isinstance(v, np.ndarray) else v

@@ -52,27 +52,67 @@ def test_kernels_match_plain_versions_on_the_card(card, order, k):
     for side in (Xt.fwd, Xt.bwd):
         D = torch.rand(side.cols, k, device=card)
         close(tsp.chunk_matmul(side, D), tsp.chunk_matmul_plain(side, D))
-        close(tsp.dense_matmul(side, D), tsp.dense_matmul_plain(side, D))
+        want = tsp.dense_matmul_plain(side, D.double())
+        close(tsp.dense_matmul(side, D), want)
+        # every panel of two or more blocks split: the partials added in order
+        cut = recut_pieces(side, dcap=1)
+        assert cut.dsplit_panel.numel() > 0
+        got = tsp.dense_matmul(cut, D)
+        close(got, want)
+        assert torch.equal(got, tsp.dense_matmul(cut, D))
         acc = torch.ones(side.rows, k, device=card)
         assert tsp.dense_matmul(side, D, acc) is acc
-        close(acc, tsp.dense_matmul_plain(side, D) + 1)
+        close(acc, want + 1)
+        acc = torch.ones(side.rows, k, device=card)
+        assert tsp.coo_matmul(side, D, acc) is acc
+        close(acc, tsp.coo_matmul_plain(side, D.double(), torch.ones_like(want)))
     counts = build.launch_counts()
-    assert (counts["chunk_matmul"], counts["dense_matmul"]) == (2, 4)
-    assert sum(counts.values()) == 6
+    assert (counts["chunk_matmul"], counts["dense_matmul"], counts["coo_matmul"]) == (2, 8, 2)
+    assert sum(counts.values()) == 12
     D = torch.rand(Xd.shape[1], k, device=card)
     close(tsp.tiled_mm(Xt, D), torch.from_numpy(Xd).to(card) @ D)
     D2 = torch.rand(Xd.shape[0], k, device=card)
     close(tsp.tiled_mtm(Xt, D2), torch.from_numpy(Xd).to(card).T @ D2)
+    counts = build.launch_counts()
+    assert (counts["chunk_matmul"], counts["dense_matmul"], counts["coo_matmul"]) == (4, 10, 4)
+
+
+@pytest.mark.parametrize("k", [1, 8, 9, 128, 200])
+def test_band_kernel_matches_its_plain_version(card, k):
+    """The band kernel against its plain version in float64, for every width
+    it moves (4, 2 or 1 floats, by k and by the operands' alignment), the
+    same bits twice, rows without band entries left as they were."""
+    Xd = three_class_matrix()
+    r, c, v = coo_of(Xd)
+    Xt = build_tiled(r, c, v, Xd.shape, device=card, **BUILD)
+    for side in (Xt.fwd, Xt.bwd):
+        assert side.n_coo > 0
+        flat = torch.rand(side.cols * k + 1, device=card)
+        for D in (flat[: side.cols * k].view(-1, k), flat[1:].view(-1, k)):
+            start = torch.rand(side.rows * k + 1, device=card)
+            for out in (start[: side.rows * k].view(-1, k), start[1:].view(-1, k)):
+                want = tsp.coo_matmul_plain(side, D.double(), out.double())
+                a = tsp.coo_matmul(side, D, out.clone())
+                close(a, want)
+                assert torch.equal(a, tsp.coo_matmul(side, D, out.clone()))
+                empty = side.coo_ptr.diff() == 0
+                assert torch.equal(a[empty], out[empty])
 
 
 def test_kernels_give_the_same_bits_from_run_to_run(card):
+    """The whole product over a store with dense blocks and a band, both
+    orientations, also with every dense panel split: no atomics anywhere."""
     Xd = three_class_matrix(1)
     r, c, v = coo_of(Xd)
-    side = build_tiled(r, c, v, Xd.shape, device=card, **BUILD).fwd
-    D = torch.rand(side.cols, 64, device=card)
-    a = tsp.dense_matmul(side, D, tsp.chunk_matmul(side, D))
-    b = tsp.dense_matmul(side, D, tsp.chunk_matmul(side, D))
-    assert torch.equal(a, b)
+    Xt = build_tiled(r, c, v, Xd.shape, device=card, **BUILD)
+    assert Xt.fwd.n_dblocks and Xt.fwd.n_coo and Xt.bwd.n_dblocks and Xt.bwd.n_coo
+    cut = dataclasses.replace(Xt, fwd=recut_pieces(Xt.fwd, dcap=1),
+                              bwd=recut_pieces(Xt.bwd, dcap=1))
+    for X in (Xt, cut):
+        D = torch.rand(Xd.shape[1], 64, device=card)
+        D2 = torch.rand(Xd.shape[0], 64, device=card)
+        assert torch.equal(tsp.tiled_mm(X, D), tsp.tiled_mm(X, D))
+        assert torch.equal(tsp.tiled_mtm(X, D2), tsp.tiled_mtm(X, D2))
 
 
 def test_wrappers_refuse_what_the_kernels_do_not_take(card):
@@ -175,7 +215,7 @@ def test_mu_kernels_match_their_plain_versions_on_the_card(card, p, n, k):
         assert float(got) == pytest.approx(float(want), rel=1e-5)
         assert float(got) == float(fn(X, W, H))
     assert build.launch_counts() == dict(
-        chunk_matmul=0, dense_matmul=0, quad_matmul=0, chunk_sddmm=0,
+        chunk_matmul=0, dense_matmul=0, quad_matmul=0, coo_matmul=0, chunk_sddmm=0,
         quad_sddmm=0, mu_factor_update=2, wtq=2, qht=2, dense_objective=4,
         projectnn=0, colsum=0, scale_cols=0)
 

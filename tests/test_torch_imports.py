@@ -106,9 +106,9 @@ def test_build_lists_every_source_and_entry_point():
     on_disk = {p.name for p in build.CSRC.iterdir()}
     assert set(build.SOURCES) | set(build.HEADERS) == on_disk
     assert set(build.KERNELS) == {
-        "chunk_matmul", "dense_matmul", "quad_matmul", "chunk_sddmm",
-        "quad_sddmm", "mu_factor_update", "wtq", "qht", "dense_objective",
-        "projectnn", "colsum", "scale_cols"}
+        "chunk_matmul", "dense_matmul", "quad_matmul", "coo_matmul",
+        "chunk_sddmm", "quad_sddmm", "mu_factor_update", "wtq", "qht",
+        "dense_objective", "projectnn", "colsum", "scale_cols"}
     for name in build.KERNELS:
         assert any(f'extern "C" int nmf_{name}(' in (build.CSRC / s).read_text()
                    for s in build.SOURCES), name
@@ -170,6 +170,19 @@ def test_resolve_device_and_check_on_device():
     config.check_on_device(torch.device("cpu"), a=t, b=None)
     with pytest.raises(ValueError, match="a lives on cpu"):
         config.check_on_device(torch.device("cuda"), a=t)
+
+
+def test_same_device_compares_the_whole_device(monkeypatch):
+    dev = torch.device
+    assert config.same_device(dev("cpu"), dev("cpu"))
+    assert not config.same_device(dev("cpu"), dev("cuda:0"))
+    assert config.same_device(dev("cuda:1"), dev("cuda:1"))
+    assert not config.same_device(dev("cuda:1"), dev("cuda:0"))
+    # ``cuda`` without an index is the current device
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 1)
+    assert config.same_device(dev("cuda"), dev("cuda:1"))
+    assert not config.same_device(dev("cuda:0"), dev("cuda"))
+    assert config.same_device(dev("cuda"), dev("cuda"))
 
 
 def test_chip_smoke_fails_without_a_card():

@@ -117,9 +117,9 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_no_launch():
                        tobj.dense_objective_plain(X, W, H, "kl"))
     assert build.launch_counts() == before
     assert set(before) == {"chunk_matmul", "dense_matmul", "quad_matmul",
-                           "chunk_sddmm", "quad_sddmm", "mu_factor_update", "wtq",
-                           "qht", "dense_objective", "projectnn", "colsum",
-                           "scale_cols"}
+                           "coo_matmul", "chunk_sddmm", "quad_sddmm",
+                           "mu_factor_update", "wtq", "qht", "dense_objective",
+                           "projectnn", "colsum", "scale_cols"}
     assert not any(before.values())
     # float64 keeps its type through the plain versions
     Xd, Wd, Hd = X.double(), W.double(), H.double()

@@ -112,6 +112,8 @@ PIECE_FIELDS = ("piece_ptr", "piece_panel", "piece_part", "split_ptr", "split_pa
                 "n_parts")
 QPIECE_FIELDS = ("qpiece_ptr", "qpiece_panel", "qpiece_part", "qsplit_ptr",
                  "qsplit_panel", "n_qparts")
+DPIECE_FIELDS = ("dpiece_ptr", "dpiece_panel", "dpiece_part", "dsplit_ptr",
+                 "dsplit_panel", "n_dparts")
 
 
 def _piece_store(name, order):
@@ -120,25 +122,32 @@ def _piece_store(name, order):
     return _both_four(name, order)
 
 
-def _check_pieces(side, quad, cap):
-    """The pieces of one class: each panel's list covered once and in order,
-    cut greedily at ``cap`` entries; split panels' partials listed in piece
-    order; the items' counts are their nonzero values, packed at the front."""
+def _check_pieces(side, cls, cap):
+    """The pieces of one class ("chunk", "quad" or "dense"): each panel's
+    list covered once and in order, cut greedily at ``cap`` entries (a dense
+    block counts one); split panels' partials listed in piece order; the
+    items' counts are their nonzero values, packed at the front."""
     h = lambda name: getattr(side, name).numpy() if isinstance(
         getattr(side, name), torch.Tensor) else getattr(side, name)
-    if quad:
+    if cls == "quad":
         ptr, items, nreal = h("qpanel_ptr"), h("qpanel_segs"), h("qseg_nreal")
         slots = side.qvals.numpy().reshape(-1, side.quad_seg)
         pp, pan, part, sptr, span, n_parts = map(h, QPIECE_FIELDS)
+        keep = 0
+    elif cls == "dense":
+        ptr, items = h("dpanel_ptr"), h("dpanel_blocks")
+        nreal = np.ones(side.n_dblocks, np.int64)
+        pp, pan, part, sptr, span, n_parts = map(h, DPIECE_FIELDS)
         keep = 0
     else:
         ptr, items, nreal = h("panel_ptr"), h("panel_chunks"), h("chunk_nreal")
         slots = side.vals.numpy()
         pp, pan, part, sptr, span, n_parts = map(h, PIECE_FIELDS)
         keep = -(-side.rows // 128)
-    live = slots != 0
-    np.testing.assert_array_equal(nreal, live.sum(1))
-    assert not (np.arange(slots.shape[1]) >= nreal[:, None])[live].any()
+    if cls != "dense":
+        live = slots != 0
+        np.testing.assert_array_equal(nreal, live.sum(1))
+        assert not (np.arange(slots.shape[1]) >= nreal[:, None])[live].any()
     assert pp[0] == 0 and pp[-1] == len(items) and (np.diff(pp) >= 0).all()
     assert (np.diff(pan) >= 0).all()
     entries = np.array([nreal[items[a:b]].sum() for a, b in zip(pp[:-1], pp[1:])])
@@ -176,16 +185,51 @@ def test_pieces_cover_each_panel_once_within_the_cap(name, order):
     _, _, Xt = _piece_store(name, order)
     for side in (Xt.fwd, Xt.bwd):
         quad = side.qpanel_ptr is not None
-        _check_pieces(side, False, tsf.PIECE_ENTRIES)
+        _check_pieces(side, "chunk", tsf.PIECE_ENTRIES)
         cut = tsf.recut_pieces(side, 128, side.quad_seg)
-        _check_pieces(cut, False, 128)
+        _check_pieces(cut, "chunk", 128)
         assert cut.n_parts > 0 or side.panel_chunks.numel() < 2
         if quad:
-            _check_pieces(side, True, tsf.PIECE_ENTRIES)
-            _check_pieces(cut, True, side.quad_seg)
+            _check_pieces(side, "quad", tsf.PIECE_ENTRIES)
+            _check_pieces(cut, "quad", side.quad_seg)
             assert cut.n_qparts > 0
         with pytest.raises(ValueError, match="largest item"):
             tsf.recut_pieces(side, int(side.chunk_nreal.max()) - 1)
+
+
+@pytest.mark.parametrize("order", ["degree", "natural"])
+@pytest.mark.parametrize("name", ["chunk", "quad32_dense_band", "span4_dense_band"])
+def test_dense_pieces_cover_each_panel_once_within_the_cap(name, order):
+    _, _, Xt = _piece_store(name, order)
+    for side in (Xt.fwd, Xt.bwd):
+        assert side.n_dblocks > 0 and side.dpanel_blocks.numel() > 0
+        _check_pieces(side, "dense", tsf.DENSE_PIECE_BLOCKS)
+        for cap in (1, 3):
+            cut = tsf.recut_pieces(side, dcap=cap)
+            _check_pieces(cut, "dense", cap)
+            for name_ in PIECE_FIELDS:  # the other classes' pieces are kept
+                assert getattr(cut, name_) is getattr(side, name_)
+        # a cap of one block splits every panel of two or more blocks
+        cut = tsf.recut_pieces(side, dcap=1)
+        per_panel = side.dpanel_ptr.diff().numpy()
+        np.testing.assert_array_equal(cut.dsplit_panel.numpy(),
+                                      np.flatnonzero(per_panel >= 2))
+        assert cut.n_dparts == per_panel[per_panel >= 2].sum()
+        with pytest.raises(ValueError, match="largest item"):
+            tsf.recut_pieces(side, dcap=0)
+
+
+@pytest.mark.parametrize("name", ["chunk", "quad32_dense_band", "span2_band"])
+def test_band_row_pointer_points_at_each_rows_entries(name):
+    _, _, Xt = _piece_store(name, "degree")
+    for side in (Xt.fwd, Xt.bwd):
+        assert side.n_coo > 0
+        ptr, rows = side.coo_ptr.numpy(), side.coo_rows.numpy()
+        assert side.coo_ptr.dtype == torch.int32 and len(ptr) == side.rows + 1
+        assert ptr[0] == 0 and ptr[-1] == side.n_coo and (np.diff(rows) >= 0).all()
+        for r in np.unique(np.r_[rows, 0, side.rows - 1]):
+            assert (rows[ptr[r]:ptr[r + 1]] == r).all()
+            assert ptr[r + 1] - ptr[r] == (rows == r).sum()
 
 
 def _pieces_product(side, D, quad):
@@ -294,7 +338,7 @@ def test_convert_gives_the_ports_own_store():
     assert Xs.values is None and Xs.fwd.perm is None
     for ss, st in ((Xs.fwd, Xt.fwd), (Xs.bwd, Xt.bwd)):
         for name in ("panel_ptr", "panel_chunks", "dpanel_ptr", "dpanel_blocks",
-                     "chunk_nreal", *PIECE_FIELDS):
+                     "chunk_nreal", "coo_ptr", *PIECE_FIELDS, *DPIECE_FIELDS):
             a, b = getattr(ss, name), getattr(st, name)
             assert a == b if isinstance(b, int) else torch.equal(a, b), name
 
@@ -347,7 +391,8 @@ def test_slim_drops_refresh_maps_only():
         for name in ("perm", "inv", "dense_nnz", "dense_slot", "coo_nnz"):
             assert getattr(a, name) is None
         for name in ("coords", "vals", "dvals", "coo_vals", "panel_chunks",
-                     "dpanel_blocks", "chunk_nreal", *PIECE_FIELDS):
+                     "dpanel_blocks", "chunk_nreal", "coo_ptr", *PIECE_FIELDS,
+                     *DPIECE_FIELDS):
             assert getattr(a, name) is getattr(b, name)
     assert S.row_perm is Xt.row_perm and S.stats is Xt.stats
     with pytest.raises(ValueError, match="slim"):

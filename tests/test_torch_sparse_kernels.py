@@ -11,12 +11,14 @@ import numpy as np
 import pytest
 import torch
 
+from jax.experimental.pallas import tpu as pltpu
 from nmf_tpu.ops.pallas import sparse as jsp
 from nmf_tpu.ops.sparse_format import build_tiled as jax_build_tiled
 from nmf_tpu_torch.ops import matops
 from nmf_tpu_torch.ops.cuda import build
 from nmf_tpu_torch.ops.cuda import sparse as tsp
-from nmf_tpu_torch.ops.sparse_format import DENSE_GROUP, QUAD_GROUP, TILE, build_tiled
+from nmf_tpu_torch.ops.sparse_format import (DENSE_GROUP, QUAD_GROUP, TILE, build_tiled,
+                                             recut_pieces)
 
 from torch_parity import (BUILD, DENSE_NNZ, QUAD_BUILD, QUAD_CASES, coo_of,
                           four_class_matrix, three_class_matrix)
@@ -218,6 +220,107 @@ def test_products_stream_in_pieces(monkeypatch):
     monkeypatch.setattr(tsp, "_PIECE", 4)  # one chunk / block, 4 band entries
     assert Xt.fwd.n_coo > 4 and Xt.fwd.coords.shape[0] > 2
     close(tsp.tiled_mm(Xt, D), whole)
+
+
+def _jax_dense_product(sj, D):
+    """The JAX package's dense-tile product alone (its Pallas kernel in
+    interpret mode, as its own tests run it on the CPU), ``(rows, k)``."""
+    k = D.shape[1]
+    K = -(-k // 8) * 8
+    stripe_width = sj.panels_per_stripe * TILE
+    Dt = jnp.pad(jnp.asarray(D, jnp.float32).T,
+                 ((0, K - k), (0, sj.n_colpanels * TILE * sj.span - D.shape[0])))
+    out = jsp._tiled_dense_impl(
+        sj.dblk_rp, sj.dblk_panel, sj.dblk_stripe, jnp.asarray(sj.dvals, jnp.float32),
+        Dt, (sj.n_dblocks, stripe_width, sj.n_stripes * stripe_width),
+        pltpu.InterpretParams())
+    return np.asarray(out[:k, : sj.rows].T)
+
+
+@pytest.mark.parametrize("name", ["all_classes_degree", "all_classes_natural", "band_and_dense"])
+def test_dense_and_band_plain_versions_match_jax_and_numpy(name):
+    """The dense product summed piece by piece, and the band summed row by
+    row in band order and then added once, against the JAX package's dense
+    kernel and its ``segment_sum`` band, class by class, and against loops
+    over the store arrays."""
+    Xd, (r, c, v), opts = _case(name)
+    Xt = build_tiled(r, c, v, Xd.shape, device="cpu", **opts)
+    Xj = jax_build_tiled(r, c, v, Xd.shape, **opts)
+    rng = np.random.default_rng(11)
+    for st, sj in ((Xt.fwd, Xj.fwd), (Xt.bwd, Xj.bwd)):
+        assert st.n_dblocks > 0 and st.n_coo > 0
+        D = rng.random((st.cols, 9)).astype(np.float32)
+        Dt = torch.from_numpy(D)
+        dense = tsp.dense_matmul_plain(st, Dt)
+        close(dense, _jax_dense_product(sj, D))
+        close(dense, _numpy_dense_loop(st, D))
+        start = rng.random((st.rows, 9)).astype(np.float32)
+        band = tsp.coo_matmul_plain(st, Dt, torch.from_numpy(start.copy()))
+        close(band - torch.from_numpy(start), np.asarray(jsp._coo_matmul(sj, jnp.asarray(D))))
+        want = start.astype(np.float64)
+        np.add.at(want, st.coo_rows.numpy(), st.coo_vals.numpy()[:, None] * D[st.coo_cols.numpy()])
+        close(band, want)
+
+
+@pytest.mark.parametrize("which", ["fwd", "bwd"])
+def test_plain_dense_product_at_a_forced_split_matches_the_unsplit_one(which):
+    Xd, (r, c, v), opts = _case("all_classes_natural")
+    side = getattr(build_tiled(r, c, v, Xd.shape, device="cpu", **opts), which)
+    cut = recut_pieces(side, dcap=1)
+    assert cut.n_dparts > side.n_dparts and cut.dsplit_panel.numel() > 0
+    D = torch.from_numpy(np.random.default_rng(12).random((side.cols, 9)).astype(np.float32))
+    close(tsp.dense_matmul_plain(cut, D), tsp.dense_matmul_plain(side, D))
+    acc = torch.ones(side.rows, 9)
+    assert tsp.dense_matmul(cut, D, acc) is acc
+    close(acc, tsp.dense_matmul_plain(side, D).numpy() + 1)
+
+
+def _tf32(a):
+    """``a`` rounded to TF32 as ``cvt.rna.tf32.f32`` rounds: to nearest on
+    10 mantissa bits, ties away from zero (the dense kernel's split)."""
+    return ((a.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_product(A, B, passes):
+    """``A @ B`` from TF32 operands, as the dense kernel computes it: three
+    passes ``lo.hi' + hi.lo' + hi.hi'`` (the small terms first), or the one
+    pass ``hi.hi'``.  Products of TF32 values are exact in float32."""
+    ah, bh = _tf32(A), _tf32(B)
+    if passes == 1:
+        return ah @ bh
+    al, bl = _tf32(A - ah), _tf32(B - bh)
+    return (al @ bh + ah @ bl) + ah @ bh
+
+
+@pytest.mark.parametrize("operands", ["store_blocks", "spread"])
+def test_three_tf32_passes_hold_float32_accuracy(operands):
+    """The 3xTF32 split, emulated in float32 on the CPU, within the card's
+    tolerance (2e-5 of ``max|want|`` against float64); one TF32 pass is not,
+    so the check is sharp.  On store-shaped operands (a panel's dense blocks,
+    summed block by block, times its D panels) and on values spread over
+    1e-3 .. 1e3."""
+    rng = np.random.default_rng(13)
+    if operands == "store_blocks":
+        Xd, (r, c, v), opts = _case("all_classes_natural")
+        side = build_tiled(r, c, v, Xd.shape, device="cpu", **opts).fwd
+        ptr = side.dpanel_ptr.numpy()
+        panel = int(np.argmax(np.diff(ptr)))
+        blocks = side.dpanel_blocks[ptr[panel]:ptr[panel + 1]].long()
+        assert len(blocks) >= 2
+        D = torch.from_numpy(rng.random((side.n_colpanels * TILE, 16)).astype(np.float32))
+        pairs = [(side.dvals[b].T.contiguous(),
+                  D[int(side.dblk_panel[b // DENSE_GROUP]) * TILE:][:TILE]) for b in blocks]
+    else:
+        spread = lambda shape: torch.from_numpy((10 ** rng.uniform(-3, 3, shape)).astype(np.float32))
+        pairs = [(spread((TILE, TILE)), spread((TILE, 16))) for _ in range(3)]
+    want = sum(A.double() @ B.double() for A, B in pairs)
+    scale = float(want.abs().max())
+    for passes, holds in ((3, True), (1, False)):
+        got = torch.zeros(TILE, 16)
+        for A, B in pairs:
+            got += _tf32_product(A, B, passes)
+        err = float((got.double() - want).abs().max()) / scale
+        assert (err <= 2e-5) == holds, (passes, err)
 
 
 @pytest.mark.parametrize("bad, exc", [
