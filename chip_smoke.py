@@ -24,6 +24,8 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
   error 0.010, 2000 x 1000 rank 32 to 0.020); ``nnmf`` with its defaults on
   the dense problem.
 
+Kernels 8 and 9 are also held at ragged shapes, unaligned rows and k on
+both sides of a slab (phase ``kernels_dense_edges``).
 Kernels 1, 2 and 3 are also run with most row panels cut into several
 pieces (phase ``kernels_split``), and the products over the first store and
 five HALS iterations on it give the same bits twice (phase
@@ -541,10 +543,12 @@ def check_dense_kernels(X, W, H, label, timed):
             # picks (the evidence for that rule's blocks-a-multiprocessor)
             rule = M.walk_splits
             r["runs"] = rule(shape[1] if name == "wtq" else shape[0],
-                             p if name == "wtq" else n, k, X.device)
+                             p if name == "wtq" else n, k,
+                             torch.cuda.get_device_properties(X.device).multi_processor_count,
+                             M.QT_EDGE)
             r["ms_by_runs"] = {}
             try:
-                for runs in (1, 2, 4, 7, 14, 28, 56):
+                for runs in (1, 2, 4, 8, 16, 33, 66):
                     M.walk_splits = lambda *a, runs=runs: runs
                     r["ms_by_runs"][runs] = time_ms(lambda: fn(X, W, H, delta), reps=3)
             finally:
@@ -594,6 +598,39 @@ def check_dense_kernels(X, W, H, label, timed):
             r["library_ms"] = r["plain_ms"]  # the plain expression
         rec["mu_factor_update"][side] = r
     return rec
+
+
+def check_quotient_edges():
+    """Kernels 8 and 9 at the edges of their tiles, against their plain
+    versions in float64 within ``REL_TOL``, the same bits twice: p and n no
+    multiple of the tile edges, at 1,001 x 777 (n % 4 != 0: 4-byte copies
+    of X and H), at 1,001 x 776 (16-byte copies) and with that X as a view
+    one float past a 16-byte boundary (xvec = 0); k from 1 to past two
+    slabs (1, 9, 63, 65, 129: 4-byte copies of wtq's W; 64, 128: 16-byte
+    ones)."""
+    from nmf_tpu_torch.ops.cuda import mu as M
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    delta = 3.45e-4
+    out = {}
+    for p, n, shift in ((1001, 777, 0), (1001, 776, 0), (1001, 776, 1)):
+        X = torch.rand(p * n + shift, generator=gen, device="cuda")[shift:].view(p, n)
+        for k in (1, 9, 63, 64, 65, 128, 129):
+            W = torch.rand((p, k), generator=gen, device="cuda")
+            H = torch.rand((k, n), generator=gen, device="cuda")
+            xvec = M.check_dense_problem(X, W, H, "wtq")[5]
+            if xvec != int(shift == 0 and n % 4 == 0):
+                fail(f"edges {p}x{n}+{shift}: xvec {xvec}")
+            Xd, Wd, Hd = X.double(), W.double(), H.double()
+            r = {"xvec": xvec}
+            for name, fn, plain, shape in (("wtq", M.wtq, M.wtq_plain, (k, n)),
+                                           ("qht", M.qht, M.qht_plain, (p, k))):
+                label = f"edges {name} {p}x{n}+{shift} k={k}"
+                r[name] = _held(label, fn(X, W, H, delta), plain(Xd, Wd, Hd, delta),
+                                REL_TOL, shape)["rel_err"]
+                _same_bits(label, lambda: fn(X, W, H, delta))
+            out[f"{p}x{n}+{shift}_k{k}"] = r
+    return out
 
 
 def _rel_each(got, want):
@@ -1509,6 +1546,9 @@ def main():
                      else {s: q["rel_err"] for s, q in r.items()})
                  for n, r in edge.items()})
     del Xe
+    # kernels 8 and 9 at ragged edges, unaligned rows and k across slabs
+    say("kernels_dense_edges", tolerance=REL_TOL, same_bits=True,
+        rel_err=check_quotient_edges())
 
     # kernels 10-12 at the shapes the paths give them (GreedyCD's W and H
     # half-steps and the normalised start at ttt4, the dense problem's W)

@@ -47,6 +47,7 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "cp_async.cuh"
 #include "piece_combine.cuh"
 
 #define BK 64                 // reduction depth of one staged slice
@@ -62,29 +63,7 @@ struct Stage {
   float b[BK][LDS];  // D slice, [reduction][column]
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return (uint32_t)__cvta_generic_to_shared(p);
-}
-
-// n bytes from src (0: zero fill; src is then not read)
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int n) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
-                   smem_addr(dst)),
-               "l"(src), "r"(n));
-}
-__device__ __forceinline__ void cp_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-// until at most N of this thread's groups are in flight
-template <int N>
-__device__ __forceinline__ void cp_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
+using namespace cp_async;
 
 // a rounded to TF32 as cvt.rna.tf32.f32 rounds (to nearest, ties away from
 // zero, the low 13 bits cleared), in two integer operations

@@ -1,7 +1,10 @@
 // One 64 x 64 tile of W @ H from operands staged in shared memory: the
-// device routine shared by the divergence products (mu.cu: wtq, qht) and the
-// dense objectives (objectives.cu).  Each forms the tile, uses it at once and
-// drops it; the p x n product never reaches device memory.
+// device routine of the dense objectives (objectives.cu), which forms the
+// tile, uses it at once and drops it; the p x n product never reaches device
+// memory.  The divergence products (mu.cu: wtq, qht) used it too and now
+// have their own routine (larger pieces, cp.async staging); the transposed
+// slabs below (stage_wt, stage_ht, the ``slab`` argument) served them and
+// are unused until the objective moves to that routine as well.
 //
 // 256 threads, thread (ty, tx) of a 16 x 16 grid owns a 4 x 4 piece.  Every
 // small product in these kernels has the shape

@@ -31,10 +31,11 @@ SOURCES = (
     "chunk_sddmm.cu", "quad_sddmm.cu", "mu.cu", "objectives.cu",
     "elementwise.cu",
 )
-# wh_tile.cuh: mu.cu and objectives.cu; sddmm_warp.cuh: the two sddmm sources;
+# wh_tile.cuh: objectives.cu; sddmm_warp.cuh: the two sddmm sources;
 # piece_walk.cuh: the chunk and quad products; piece_combine.cuh: those two
-# and the dense product
-HEADERS = ("wh_tile.cuh", "sddmm_warp.cuh", "piece_walk.cuh", "piece_combine.cuh")
+# and the dense product; cp_async.cuh: the dense product and mu.cu
+HEADERS = ("wh_tile.cuh", "sddmm_warp.cuh", "piece_walk.cuh", "piece_combine.cuh",
+           "cp_async.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",

@@ -8,13 +8,14 @@
   transposed copy.
 * ``wtq`` / ``qht`` — the divergence sweep's ``W' Q`` and ``Q H'`` with
   ``Q = X / (W H + delta)`` formed tile by tile inside the kernel; the
-  ``p x n`` quotient never exists in device memory.  A thread block owns 64
-  columns (``wtq``) or 64 rows (``qht``) of the output and walks the other
-  axis; where that gives the card too few blocks the walk is cut into runs
-  whose partial outputs a second small kernel adds in a fixed order.
+  ``p x n`` quotient never exists in device memory.  A thread block owns
+  ``QT_EDGE`` columns (``wtq``) or rows (``qht``) of the output by
+  ``QT_SLAB`` components and walks the other axis in steps of ``QT_STEP``;
+  where that gives the card too few blocks the walk is cut into runs whose
+  partial outputs a second small kernel adds in a fixed order.
 
 Every kernel sums over ``k`` one slab at a time (``MU_SLAB`` rows of G and F
-for ``mu_factor_update``, ``WH_SLAB`` components of the ``W @ H`` tile for
+for ``mu_factor_update``, ``QT_SLAB`` components of the ``W @ H`` tile for
 ``wtq`` and ``qht``), keeping its sums in registers across slabs: any ``k``
 fits the card's shared memory, and a ``k`` that fits one slab sums in the
 order it would unslabbed.
@@ -33,14 +34,25 @@ from .build import launch
 
 __all__ = [
     "mu_factor_update", "mu_factor_update_plain", "wtq", "wtq_plain", "qht",
-    "qht_plain", "walk_splits", "MU_SLAB", "WH_SLAB",
+    "qht_plain", "walk_splits", "MU_SLAB", "QT_SLAB", "WH_SLAB", "QT_EDGE",
+    "QT_STEP",
 ]
 
 # depth of one k-slab in shared memory: ``MU_KS`` of csrc/mu.cu (also the
-# rows of the result a thread block of mu_factor_update takes) and ``WH_KS``
-# of csrc/wh_tile.cuh (the W @ H tile of wtq, qht and the objective kernel)
+# rows of the result a thread block of mu_factor_update takes), ``QT_KS`` of
+# csrc/mu.cu (the W @ H tile of wtq and qht; also the components a thread
+# block of either takes) and ``WH_KS`` of csrc/wh_tile.cuh (the W @ H tile of
+# the objective kernel)
 MU_SLAB = 64
+QT_SLAB = 64
 WH_SLAB = 128
+# wtq / qht: the output columns / rows a thread block owns (``QT_L`` of
+# csrc/mu.cu) and the rows / columns of X a step of its walk takes (``QT_S``)
+QT_EDGE = 256
+QT_STEP = 64
+# thread blocks a multiprocessor that ``walk_splits`` aims for where it cuts
+# a walk (one is resident at a time)
+RUN_BLOCKS_PER_SM = 10
 
 
 # ---------------------------------------------------------------------------
@@ -132,18 +144,25 @@ def check_dense_problem(X, W, H, what):
     return p, n, k, W.contiguous(), H.contiguous(), xvec
 
 
-def walk_splits(owned, walked, k, device) -> int:
+def walk_splits(owned, walked, k, sms, edge) -> int:
     """Into how many runs to cut a walk over ``walked`` rows or columns when
-    the output has ``owned`` rows or columns: enough for sixteen thread blocks
-    a multiprocessor (finer pieces even out the last wave; on an H100 the gain
-    flattens there), at most one run a tile.  The same shapes on the same card
-    always give the same cut, hence the same summation order; a card with
-    another multiprocessor count sums in another order and may differ in the
-    last bits.  The sixteen is a constant and not a setting: ``chip_smoke.py``
+    the output has ``owned`` rows or columns, each thread block owning
+    ``edge`` of them by ``QT_SLAB`` components, on a card with ``sms``
+    multiprocessors (one block resident on each).  No cut where the output's
+    own blocks make at least three waves, the last at least 95 % full (each
+    run adds a partial output to write and add up, and a block's start);
+    else enough runs for ``RUN_BLOCKS_PER_SM`` blocks a multiprocessor
+    (finer pieces even out the last wave), at most one a step.  The same
+    shapes on the same card always give the same cut, hence the same
+    summation order; a card with another multiprocessor count may cut, and
+    round, otherwise.  The constants are not settings: ``chip_smoke.py``
     times both kernels at other cuts (``ms_by_runs``)."""
-    blocks = -(-owned // 64) * -(-k // 64)
-    want = 16 * torch.cuda.get_device_properties(device).multi_processor_count
-    return max(1, min(-(-want // blocks), -(-walked // 64)))
+    blocks = -(-owned // edge) * -(-k // QT_SLAB)
+    waves = -(-blocks // sms)
+    if waves >= 3 and 20 * blocks >= 19 * waves * sms:
+        return 1
+    want = RUN_BLOCKS_PER_SM * sms
+    return max(1, min(-(-want // blocks), -(-walked // QT_STEP)))
 
 
 def _quotient_product(name, X, W, H, delta):
@@ -152,7 +171,8 @@ def _quotient_product(name, X, W, H, delta):
         return plain(X, W, H, delta)
     p, n, k, W, H, xvec = check_dense_problem(X, W, H, name)
     shape = (k, n) if name == "wtq" else (p, k)
-    splits = walk_splits(X.shape[owned_axis], X.shape[1 - owned_axis], k, X.device)
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    splits = walk_splits(X.shape[owned_axis], X.shape[1 - owned_axis], k, sms, QT_EDGE)
     out = torch.empty(shape, dtype=torch.float32, device=X.device)
     partial = out if splits == 1 else torch.empty(
         (splits, *shape), dtype=torch.float32, device=X.device)

@@ -168,6 +168,8 @@ def test_dense_problem_check_settles_layout_and_vector_width():
 @pytest.mark.parametrize("source, limit", [
     ("mu.cu", (("MU_KS", "MU_SLAB"),)),
     ("wh_tile.cuh", (("WH_KS", "WH_SLAB"),)),
+    # wtq / qht: the slab depth, the output edge a block owns, the walk's step
+    ("mu.cu", (("QT_KS", "QT_SLAB"), ("QT_L", "QT_EDGE"), ("QT_S", "QT_STEP"))),
 ])
 def test_largest_k_stated_in_the_sources_is_the_wrappers(source, limit):
     """No kernel states a largest k any more (any k fits: the reduction runs
@@ -181,3 +183,30 @@ def test_largest_k_stated_in_the_sources_is_the_wrappers(source, limit):
         text = (CSRC / src).read_text().replace("//", "")
         assert not re.search(r"largest\s+k\s+is", text), src
         assert re.search(r"any\s+k\s+fits", text), src
+
+
+# (owned, walked, k, multiprocessors, runs): the walks of the main path's
+# dense problem (100,000 x 10,000, k 64), of ttt2 (2000 x 1000, k 32) and of
+# chip_smoke.check_k_ceilings (300 x 260, k 183) on an H100's 132
+# multiprocessors; the main path's wtq on a card with 114; an output of
+# three waves with a thin last one
+@pytest.mark.parametrize("owned, walked, k, sms, runs", [
+    (10_000, 100_000, 64, 132, 33),   # wtq: 40 blocks, 1,563 steps
+    (100_000, 10_000, 64, 132, 1),    # qht: 391 blocks, 2.96 waves: no cut
+    (1000, 2000, 32, 132, 32),        # ttt2 wtq: one run a step
+    (2000, 1000, 32, 132, 16),        # ttt2 qht: one run a step
+    (260, 300, 183, 132, 5),          # k_ceilings wtq: 2 x 3 blocks, 5 steps
+    (300, 260, 183, 132, 5),          # k_ceilings qht
+    (10_000, 100_000, 64, 114, 29),
+    (270 * 256, 10_000, 64, 132, 5),  # 270 blocks: a last wave 6 blocks full
+])
+def test_walk_splits_rule(owned, walked, k, sms, runs):
+    got = tmu.walk_splits(owned, walked, k, sms, tmu.QT_EDGE)
+    assert got == runs
+    blocks = -(-owned // tmu.QT_EDGE) * -(-k // tmu.QT_SLAB)
+    steps = -(-walked // tmu.QT_STEP)
+    # no cut, or enough blocks for the card, or one run a step; never an
+    # empty run beyond what rounding the run to whole steps leaves
+    assert got == 1 or blocks * got >= tmu.RUN_BLOCKS_PER_SM * sms or got == steps
+    run = -(-steps // got)
+    assert (got - 1) * run < steps

@@ -9,7 +9,11 @@ compared on one card in one run.
 ``nmf_tpu_torch`` package and its ``chip_smoke.check_dense_kernels`` are
 imported, its kernels built, and each kernel timed on the dense
 100,000 x 10,000 rank-64 problem of ``chip_smoke.py`` (seed 0), L2 flushed,
-median of 5.  Prints one JSON line with the card's name and power limit.
+median of 5, and ``wtq`` and ``qht`` with their walks cut into other
+numbers of runs (``walk``: the wrapper's cut and ``ms_by_runs``); then
+seconds per iteration of the bare multiplicative-update loop, both
+objectives, on the same problem.  Prints one JSON line with the card's name
+and power limit.
 Run two trees in turns (A, B, B, A) in one call to compare them."""
 
 import json
@@ -41,8 +45,14 @@ def main():
     ms.update({f"objective_{kind}": r["ms"] for kind, r in rec["dense_objective"].items()})
     ms.update({f"mu_factor_update_{side}": r["ms"]
                for side, r in rec["mu_factor_update"].items()})
+    runs = {name: {"runs": rec[name].get("runs"), "ms_by_runs": rec[name].get("ms_by_runs")}
+            for name in ("wtq", "qht")}
+    from nmf_tpu_torch.models.multupd import MultUpdate
+    iteration = {obj: cs._seconds_per_iteration(X, MultUpdate(obj=obj), W, H, 5)
+                 for obj in ("div", "mse")}
     print(json.dumps({"tree": str(tree), "card": smi, "shape": [cs.DP, cs.DN],
-                      "k": cs.DK, "ms": ms}), flush=True)
+                      "k": cs.DK, "ms": ms, "walk": runs,
+                      "seconds_per_iteration": iteration}), flush=True)
 
 
 if __name__ == "__main__":
