@@ -24,8 +24,14 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
   error 0.010, 2000 x 1000 rank 32 to 0.020); ``nnmf`` with its defaults on
   the dense problem.
 
-Kernels 8 and 9 are also held at ragged shapes, unaligned rows and k on
-both sides of a slab (phase ``kernels_dense_edges``).
+Kernels 8, 9 and 6 are also held at ragged shapes, unaligned rows and k on
+both sides of a slab (phase ``kernels_dense_edges``), kernel 4 at k on both
+sides of its lanes' and its staged panel's widths, on wide tail tiles and on
+a store of nearly all padding (phase ``kernels_sddmm_edges``).  The dense
+kernels are also timed at the small problems' shapes, where most of their
+launches are (phases ``kernels_dense_ttt1`` and ``kernels_dense_ttt2``); the
+``kernels`` line gives such a kernel's times and launches shape by shape
+(``by_shape``).
 Kernels 1, 2 and 3 are also run with most row panels cut into several
 pieces (phase ``kernels_split``), and the products over the first store and
 five HALS iterations on it give the same bits twice (phase
@@ -60,8 +66,9 @@ TF32_FLOPS = 495e12
 # n; wtq's walk over p is cut into runs), whose rounding error grows like
 # sqrt(terms) * 6e-8 = 6e-6 against the float64 reference
 REL_TOL = 2e-5
-# the objective adds float32 terms into doubles: what is left is the float32
-# rounding of each W @ H entry, which averages out over 1e9 terms
+# the objective sums each thread's 64 float32 terms of a step in float32 and
+# adds that sum into a double: what is left is the float32 rounding of each
+# W @ H entry and of those short sums, which averages out over 1e9 terms
 OBJECTIVE_TOL = 2e-6
 MONOTONE_TOL = 1e-4  # an objective may rise by this much, relative, per step
 # column sums added in double and rounded once; the scaling divides once
@@ -503,9 +510,11 @@ def check_sddmm(X, W, H, label, timed, cls="chunk"):
             tiled_sddmm_ms=time_ms(lambda: S.tiled_sddmm(X, W, H), reps=3),
             bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=flops, nnz=nnz,
             slots=n_slots,
-            # read by this kernel on top of the floor: the refresh map, which
-            # marks the padding slots
-            extra_bytes=4 * n_slots,
+            # read by this kernel on top of the floor: kernel 4 the refresh
+            # map at the real slots and a W panel a piece; kernel 5 the
+            # refresh map, which marks the padding slots
+            extra_bytes=(4 * nnz + 4 * k * TILE * side.piece_panel.numel()
+                         if cls == "chunk" else 4 * n_slots),
         )
         r["mnnz_per_s"] = nnz / r["ms"] / 1e3
     return r
@@ -514,18 +523,23 @@ def check_sddmm(X, W, H, label, timed, cls="chunk"):
 def check_dense_kernels(X, W, H, label, timed):
     """Kernels 6 (both kinds), 7 (both orientations), 8 and 9 against their
     plain versions run in float64 on the card."""
+    return {**check_quotients(X, W, H, label, timed, sweep=timed),
+            "dense_objective": check_objective(X, W, H, label, timed, sweep=timed),
+            "mu_factor_update": check_factor_update(X, W, H, label, timed)}
+
+
+def check_quotients(X, W, H, label, timed, sweep=False):
+    """Kernels 8 and 9 against their plain versions run in float64 on the
+    card; with ``sweep``, also timed with their walks cut into other numbers
+    of runs than the wrapper's rule picks (the evidence for that rule)."""
     from nmf_tpu_torch.ops.cuda import mu as M
-    from nmf_tpu_torch.ops.cuda import objectives as O
     from nmf_tpu_torch.utils.dtypes import sqrt_eps
 
     p, n = X.shape
     k = W.shape[1]
     delta = sqrt_eps(torch.float32)
-    lam = 0.01
     Xd, Wd, Hd = X.double(), W.double(), H.double()
     rec = {}
-
-    # 8, 9: the quotient products
     for name, fn, plain, shape in (("wtq", M.wtq, M.wtq_plain, (k, n)),
                                    ("qht", M.qht, M.qht_plain, (p, k))):
         got = fn(X, W, H, delta)
@@ -539,8 +553,7 @@ def check_dense_kernels(X, W, H, label, timed):
                      plain_ms=time_ms(lambda: plain(X, W, H, delta), reps=3),
                      bound_ms=bound_ms, bound_by=by)
             r["library_ms"] = r["plain_ms"]  # the one expression is the plain version
-            # the walk cut into other numbers of runs than the wrapper's rule
-            # picks (the evidence for that rule's blocks-a-multiprocessor)
+        if sweep:
             rule = M.walk_splits
             r["runs"] = rule(shape[1] if name == "wtq" else shape[0],
                              p if name == "wtq" else n, k,
@@ -555,10 +568,22 @@ def check_dense_kernels(X, W, H, label, timed):
                 M.walk_splits = rule
         rec[name] = r
         del got
+    return rec
 
-    # 6: the objectives
-    rec["dense_objective"] = {}
-    for kind, fn in (("mse", O.mse_objective_kernel), ("kl", O.kl_objective_kernel)):
+
+def check_objective(X, W, H, label, timed, kinds=("mse", "kl"), sweep=False):
+    """Kernel 6 (each of ``kinds``) against its plain version run in float64
+    on the card, within ``OBJECTIVE_TOL``; with ``sweep``, also timed with
+    its walk cut into other numbers of runs than the wrapper's."""
+    from nmf_tpu_torch.ops.cuda import objectives as O
+
+    p, n = X.shape
+    k = W.shape[1]
+    Xd, Wd, Hd = X.double(), W.double(), H.double()
+    fns = {"mse": O.mse_objective_kernel, "kl": O.kl_objective_kernel}
+    rec = {}
+    for kind in kinds:
+        fn = fns[kind]
         got = fn(X, W, H)
         torch.cuda.synchronize()
         want = O.dense_objective_plain(Xd, Wd, Hd, kind)
@@ -573,11 +598,31 @@ def check_dense_kernels(X, W, H, label, timed):
                      plain_ms=time_ms(lambda: O.dense_objective_plain(X, W, H, kind), reps=3),
                      bound_ms=bound_ms, bound_by=by)
             r["library_ms"] = r["plain_ms"]  # column blocks of W @ H, one reduction each
-        rec["dense_objective"][kind] = r
-    del Xd
+        if sweep:
+            rule = O.objective_splits
+            r["runs"] = rule(p, n, torch.cuda.get_device_properties(X.device)
+                             .multi_processor_count)
+            r["ms_by_runs"] = {}
+            try:
+                for runs in (1, 8, 16, 33, 66, 132):
+                    O.objective_splits = lambda *a, runs=runs: runs
+                    r["ms_by_runs"][runs] = time_ms(lambda: fn(X, W, H), reps=3)
+            finally:
+                O.objective_splits = rule
+        rec[kind] = r
+    return rec
 
-    # 7: the factor update, as the H step and as the W step call it
-    rec["mu_factor_update"] = {}
+
+def check_factor_update(X, W, H, label, timed):
+    """Kernel 7 as the H step and as the W step of the MSE sweep call it,
+    against its plain version run in float64 on the card."""
+    from nmf_tpu_torch.ops.cuda import mu as M
+    from nmf_tpu_torch.utils.dtypes import sqrt_eps
+
+    k = W.shape[1]
+    delta = sqrt_eps(torch.float32)
+    lam = 0.01
+    rec = {}
     G_h, C_h = W.T @ W, W.T @ X
     G_w, C_w = H @ H.T, X @ H.T
     for side, F, G, C in (("H", H, G_h, C_h), ("W", W.T, G_w, C_w.T)):
@@ -596,25 +641,28 @@ def check_dense_kernels(X, W, H, label, timed):
                      plain_ms=time_ms(lambda: M.mu_factor_update_plain(F, G, C, lam, delta)),
                      bound_ms=bound_ms, bound_by=by)
             r["library_ms"] = r["plain_ms"]  # the plain expression
-        rec["mu_factor_update"][side] = r
+        rec[side] = r
     return rec
 
 
 def check_quotient_edges():
-    """Kernels 8 and 9 at the edges of their tiles, against their plain
-    versions in float64 within ``REL_TOL``, the same bits twice: p and n no
-    multiple of the tile edges, at 1,001 x 777 (n % 4 != 0: 4-byte copies
-    of X and H), at 1,001 x 776 (16-byte copies) and with that X as a view
-    one float past a 16-byte boundary (xvec = 0); k from 1 to past two
-    slabs (1, 9, 63, 65, 129: 4-byte copies of wtq's W; 64, 128: 16-byte
-    ones)."""
+    """Kernels 8, 9 and 6 (both kinds), which share one tile routine, at the
+    edges of their tiles, against their plain versions in float64 within
+    ``REL_TOL``, the same bits twice: p and n no multiple of the tile edges,
+    at 1,001 x 777 (n % 4 != 0: 4-byte copies of X and H), at 1,001 x 776
+    (16-byte copies) and with that X as a view one float past a 16-byte
+    boundary (xvec = 0); k from 1 to past two slabs (1, 9, 63, 65, 129:
+    4-byte copies of W; 64, 128: 16-byte ones).  X has exact zeros (the KL
+    term's x = 0 branch)."""
     from nmf_tpu_torch.ops.cuda import mu as M
+    from nmf_tpu_torch.ops.cuda import objectives as O
 
     gen = torch.Generator(device="cuda").manual_seed(8)
     delta = 3.45e-4
     out = {}
     for p, n, shift in ((1001, 777, 0), (1001, 776, 0), (1001, 776, 1)):
         X = torch.rand(p * n + shift, generator=gen, device="cuda")[shift:].view(p, n)
+        X[X < 0.1] = 0.0
         for k in (1, 9, 63, 64, 65, 128, 129):
             W = torch.rand((p, k), generator=gen, device="cuda")
             H = torch.rand((k, n), generator=gen, device="cuda")
@@ -629,7 +677,57 @@ def check_quotient_edges():
                 r[name] = _held(label, fn(X, W, H, delta), plain(Xd, Wd, Hd, delta),
                                 REL_TOL, shape)["rel_err"]
                 _same_bits(label, lambda: fn(X, W, H, delta))
+            for kind, fn in (("mse", O.mse_objective_kernel), ("kl", O.kl_objective_kernel)):
+                label = f"edges objective {kind} {p}x{n}+{shift} k={k}"
+                r[f"objective_{kind}"] = _held(
+                    label, fn(X, W, H).reshape(1),
+                    O.dense_objective_plain(Xd, Wd, Hd, kind).reshape(1), REL_TOL)["rel_err"]
+                _same_bits(label, lambda: fn(X, W, H))
             out[f"{p}x{n}+{shift}_k{k}"] = r
+    return out
+
+
+def check_sddmm_edges(rs, cs, vs, shape):
+    """Kernel 4 at its edges, against its plain version in float64 within
+    ``REL_TOL`` at every slot, exactly 0 at padding slots, the same bits
+    twice and with the pieces cut at 128 entries: k below and above a lane's
+    16 floats (1, 3, 127, 128, 129), above the W panel it stages (193) and
+    above a sparse product's slab (451); on the small chunk store, on wide
+    tail tiles (span 4) and on a store that is nearly all padding (about
+    five entries a tile, some 390 chunks a row panel)."""
+    from nmf_tpu_torch.ops.cuda import sparse as S
+    from nmf_tpu_torch.ops.sparse_format import build_tiled, recut_pieces
+
+    rng = np.random.default_rng(9)
+    p, n = 200, 50_000
+    key = np.unique(rng.integers(0, p, 3000) * n + rng.integers(0, n, 3000))
+    stores = {
+        "small": build_tiled(rs, cs, vs, shape, dense_tile_nnz=192, coo_tail_nnz=3),
+        "span4": build_tiled(rs, cs, vs, shape, dense_tile_nnz=192, tail_span=4,
+                             coo_tail_nnz=3),
+        "wide_padding": build_tiled((key // n).astype(np.int32), (key % n).astype(np.int32),
+                                    (rng.random(len(key)) + 0.5).astype(np.float32),
+                                    (p, n), order="natural"),
+    }
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    out = {}
+    for tag, X in stores.items():
+        side = X.fwd
+        pad = side.inv >= side.perm.shape[0]
+        r = {"padding_share": float(pad.float().mean())}
+        for k in (1, 3, 127, 128, 129, 193, 451):
+            W = torch.rand((side.rows, k), generator=gen, device="cuda")
+            Ht = torch.rand((side.cols, k), generator=gen, device="cuda")
+            label = f"sddmm edges {tag} k={k}"
+            got = S.chunk_sddmm(side, W, Ht)
+            r[k] = _held(label, got, S.chunk_sddmm_plain(side, W.double(), Ht.double()),
+                         REL_TOL)["rel_err"]
+            if got[pad].any():
+                fail(f"{label}: a padding slot is not 0")
+            _same_bits(label, lambda: S.chunk_sddmm(side, W, Ht))
+            if not torch.equal(got, S.chunk_sddmm(recut_pieces(side, 128), W, Ht)):
+                fail(f"{label}: other pieces gave other bits")
+        out[tag] = r
     return out
 
 
@@ -732,9 +830,11 @@ def check_k_ceilings(rs, cs, vs, shape):
             r[f"mu_factor_update_{side}"] = _held(
                 f"k_ceilings mu_factor_update {side} k={k}", got, want, REL_TOL)["rel_err"]
         for kind, fn in (("mse", O.mse_objective_kernel), ("kl", O.kl_objective_kernel)):
+            lab = f"k_ceilings objective {kind} k={k}"
             r[f"objective_{kind}"] = _held(
-                f"k_ceilings objective {kind} k={k}", fn(X, W, H).reshape(1),
+                lab, fn(X, W, H).reshape(1),
                 O.dense_objective_plain(Xd, Wd, Hd, kind).reshape(1), REL_TOL)["rel_err"]
+            _same_bits(lab, lambda: fn(X, W, H))
         out["dense"][k] = r
     Xdense = torch.zeros(shape, dtype=torch.float64, device="cuda")
     Xdense[torch.from_numpy(rs).long().cuda(), torch.from_numpy(cs).long().cuda()] = \
@@ -1527,6 +1627,8 @@ def main():
             rec[f"{cls}_sddmm"] = {"fwd": sd, "tiled_sddmm": {"rel_err": sd["tiled_sddmm_rel_err"]}}
             small[f"{tag}_k{k}"] = rec
         del Xv
+    say("kernels_sddmm_edges", tolerance=REL_TOL, same_bits=True,
+        rel_err=check_sddmm_edges(rs, cs, vs, (3000, 2500)))
     say("kernels_small", shape=[3000, 2500], nnz=len(vs), tolerance=REL_TOL,
         rel_err={kk: {n: {s: r["rel_err"] for s, r in d.items()}
                       for n, d in v.items()} for kk, v in small.items()})
@@ -1546,7 +1648,7 @@ def main():
                      else {s: q["rel_err"] for s, q in r.items()})
                  for n, r in edge.items()})
     del Xe
-    # kernels 8 and 9 at ragged edges, unaligned rows and k across slabs
+    # kernels 8, 9 and 6 at ragged edges, unaligned rows and k across slabs
     say("kernels_dense_edges", tolerance=REL_TOL, same_bits=True,
         rel_err=check_quotient_edges())
 
@@ -1555,7 +1657,7 @@ def main():
     # and at a ragged edge
     gen = torch.Generator(device="cuda").manual_seed(7)
     ew = {f"{m}x{n}": check_elementwise((m, n), timed=True, gen=gen)
-          for m, n in ((P, K), (N, K), (DP, DK), (1000, 777))}
+          for m, n in ((P, K), (N, K), (DP, DK), (DN, DK), (1000, 777))}
     say("kernels_elementwise", card=smi, tolerance=EW_REL_TOL, **ew)
     # every k a kernel refused before it summed over k in slabs
     say("k_ceilings", tolerance=REL_TOL, shape=[3000, 2500],
@@ -1693,6 +1795,24 @@ def main():
                                 torch.from_numpy(Hd0).cuda(), "full dense", timed=True)
     say("kernels_dense", card=smi, shape=[DP, DN], k=DK, **dense)
     torch.cuda.empty_cache()
+    # the dense kernels also at the small problems' shapes, where most of
+    # their launches are: ttt1 runs kernel 7, ttt2 kernels 8 and 9, both read
+    # the relative error through kernel 6 (mse)
+    small_paths = {}
+    for name, (p, n, k) in (("ttt1", (500, 500, 8)), ("ttt2", (2000, 1000, 32))):
+        rng = np.random.default_rng(0)
+        Xt = torch.from_numpy(_lowrank_noisy(rng, p, n, k)).cuda()
+        Wt = torch.from_numpy(rng.random((p, k), dtype=np.float32)).cuda()
+        Ht = torch.from_numpy(rng.random((k, n), dtype=np.float32)).cuda()
+        label = f"{name} {p}x{n} k={k}"
+        rec = {"dense_objective": check_objective(Xt, Wt, Ht, label, True, kinds=("mse",))}
+        if name == "ttt1":
+            rec["mu_factor_update"] = check_factor_update(Xt, Wt, Ht, label, True)
+        else:
+            rec.update(check_quotients(Xt, Wt, Ht, label, True))
+        small_paths[name] = rec
+        say(f"kernels_dense_{name}", card=smi, shape=[p, n], k=k, **rec)
+        del Xt, Wt, Ht
     mu_dense = solve_mu_dense(Xd, Wd0, Hd0)
     say("solve_mu_dense", shape=[DP, DN], k=DK, card=smi, **mu_dense)
     dense_defaults = solve_defaults_dense(Xd)
@@ -1741,6 +1861,33 @@ def main():
         "scale_cols": (csrc + "elementwise.cu", pallas + "elementwise.py:74",
                        {"": ew[f"{P}x{K}"]["scale_cols"]}),
     }
+    # where a kernel's launches come from shapes other than the one timed
+    # above: each shape's times and its paths' launches beside the sums
+    dense_shape = f"dense_{DP}x{DN}_k{DK}"
+    not_in = lambda *names: [q for q in paths if q not in names]  # noqa: E731
+    by_shape = {
+        "dense_objective": {
+            dense_shape: (dense["dense_objective"], not_in("ttt1", "ttt2")),
+            "ttt1_500x500_k8": (small_paths["ttt1"]["dense_objective"], ["ttt1"]),
+            "ttt2_2000x1000_k32": (small_paths["ttt2"]["dense_objective"], ["ttt2"]),
+        },
+        "mu_factor_update": {
+            dense_shape: (dense["mu_factor_update"], not_in("ttt1")),
+            "ttt1_500x500_k8": (small_paths["ttt1"]["mu_factor_update"], ["ttt1"]),
+        },
+        **{name: {
+            dense_shape: ({"": dense[name]}, not_in("ttt2")),
+            "ttt2_2000x1000_k32": ({"": small_paths["ttt2"][name]}, ["ttt2"]),
+        } for name in ("wtq", "qht")},
+        "projectnn": {
+            f"ttt4_{P}x{K}_{N}x{K}": ({"W": ew[f"{P}x{K}"]["projectnn"],
+                                      "H": ew[f"{N}x{K}"]["projectnn"]},
+                                     not_in("nnmf_defaults_dense")),
+            f"dense_{DP}x{DK}_{DN}x{DK}": ({"W": ew[f"{DP}x{DK}"]["projectnn"],
+                                           "H": ew[f"{DN}x{DK}"]["projectnn"]},
+                                          ["nnmf_defaults_dense"]),
+        },
+    }
     kernels = []
     for name, (source, replaces, parts) in meta.items():
         tot = lambda key: sum(r[key] for r in parts.values())
@@ -1763,6 +1910,15 @@ def main():
             # kernel 2's bound on the CUDA cores beside its tensor-core one
             **({"bound_ms_cuda_core": tot("bound_ms_cuda_core")}
                if all("bound_ms_cuda_core" in r for r in parts.values()) else {}),
+            **({"by_shape": {
+                shape: {"launches": sum(by_path.get(q, 0) for q in qs),
+                        "ms": sum(r["ms"] for r in recs.values()),
+                        "bound_ms": sum(r["bound_ms"] for r in recs.values()),
+                        "plain_ms": sum(r["plain_ms"] for r in recs.values()),
+                        "library_ms": sum(r["library_ms"] for r in recs.values()),
+                        **{f"{part}_ms": r["ms"] for part, r in recs.items()}}
+                for shape, (recs, qs) in by_shape[name].items()}}
+               if name in by_shape else {}),
         })
     if sorted(k["name"] for k in kernels) != sorted(build.KERNELS):
         fail("the report does not list every kernel the build holds")

@@ -1,6 +1,6 @@
-// One warp samples (W @ Ht') at up to 32 slots: shared by the sampled
-// products over the chunk store (chunk_sddmm.cu) and the quad store
-// (quad_sddmm.cu).
+// One warp samples (W @ Ht') at up to 32 slots: the routine of the sampled
+// product over the quad store (quad_sddmm.cu).  The chunk store's
+// (chunk_sddmm.cu) walks its pieces with a group of lanes a slot instead.
 //
 // W is row-major (p, k) and Ht row-major (n, k), so both gathers are 4k
 // contiguous bytes.  The warp visits its real slots one after the other: the

@@ -31,11 +31,12 @@ SOURCES = (
     "chunk_sddmm.cu", "quad_sddmm.cu", "mu.cu", "objectives.cu",
     "elementwise.cu",
 )
-# wh_tile.cuh: objectives.cu; sddmm_warp.cuh: the two sddmm sources;
+# quotient_tile.cuh: mu.cu and objectives.cu; sddmm_warp.cuh: quad_sddmm.cu;
 # piece_walk.cuh: the chunk and quad products; piece_combine.cuh: those two
-# and the dense product; cp_async.cuh: the dense product and mu.cu
-HEADERS = ("wh_tile.cuh", "sddmm_warp.cuh", "piece_walk.cuh", "piece_combine.cuh",
-           "cp_async.cuh")
+# and the dense product; cp_async.cuh: the dense product, chunk_sddmm.cu and
+# quotient_tile.cuh
+HEADERS = ("quotient_tile.cuh", "sddmm_warp.cuh", "piece_walk.cuh",
+           "piece_combine.cuh", "cp_async.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-Xcompiler", "-fPIC",
@@ -62,9 +63,10 @@ _ARGTYPES = {
     "nmf_quad_matmul": [_P] * 14 + [_I] * 6 + [_P],
     # coo_ptr, coo_cols, coo_vals, D, out, rows, k, stream
     "nmf_coo_matmul": [_P] * 5 + [_I] * 2 + [_P],
-    # coords, inv, chunk_rp, win_panel, win_stripe, W, Ht, out,
-    # n_chunks, group, panels_per_stripe, span, rows, cols, k, nnz, stream
-    "nmf_chunk_sddmm": [_P] * 8 + [_I] * 8 + [_P],
+    # piece_ptr, piece_panel, panel_chunks, chunk_nreal, win_panel, coords,
+    # inv, W, Ht, out, n_pieces, n_chunks, group, span, rows, cols, k, nnz,
+    # lanes, stream
+    "nmf_chunk_sddmm": [_P] * 10 + [_I] * 9 + [_P],
     # qlrows, qlcols, qinv, q_rp, qwin_panel, qwin_stripe, W, Ht, out,
     # n_qchunks, qgroup, seg, panels_per_stripe, rows, cols, k, nnz, stream
     "nmf_quad_sddmm": [_P] * 9 + [_I] * 8 + [_P],
@@ -73,8 +75,8 @@ _ARGTYPES = {
     # X, W, H, partial, out, p, n, k, delta, xvec, splits, stream
     "nmf_wtq": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P],
     "nmf_qht": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P],
-    # X, W, H, partial, out, p, n, k, kind, xvec, stream
-    "nmf_dense_objective": [_P] * 5 + [_I] * 5 + [_P],
+    # X, W, H, partial, out, p, n, k, kind, xvec, splits, stream
+    "nmf_dense_objective": [_P] * 5 + [_I] * 6 + [_P],
     # A, out, count, vec, stream
     "nmf_projectnn": [_P, _P, _S, _I, _P],
     # A, partial, out, m, n, stream

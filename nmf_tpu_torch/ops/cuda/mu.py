@@ -34,20 +34,18 @@ from .build import launch
 
 __all__ = [
     "mu_factor_update", "mu_factor_update_plain", "wtq", "wtq_plain", "qht",
-    "qht_plain", "walk_splits", "MU_SLAB", "QT_SLAB", "WH_SLAB", "QT_EDGE",
-    "QT_STEP",
+    "qht_plain", "walk_splits", "MU_SLAB", "QT_SLAB", "QT_EDGE", "QT_STEP",
 ]
 
 # depth of one k-slab in shared memory: ``MU_KS`` of csrc/mu.cu (also the
-# rows of the result a thread block of mu_factor_update takes), ``QT_KS`` of
-# csrc/mu.cu (the W @ H tile of wtq and qht; also the components a thread
-# block of either takes) and ``WH_KS`` of csrc/wh_tile.cuh (the W @ H tile of
-# the objective kernel)
+# rows of the result a thread block of mu_factor_update takes) and ``QT_KS``
+# of csrc/quotient_tile.cuh (the W @ H tile of wtq, qht and the objective;
+# also the components a thread block of wtq or qht takes)
 MU_SLAB = 64
 QT_SLAB = 64
-WH_SLAB = 128
-# wtq / qht: the output columns / rows a thread block owns (``QT_L`` of
-# csrc/mu.cu) and the rows / columns of X a step of its walk takes (``QT_S``)
+# wtq / qht / the objective: the output columns / rows a thread block owns
+# (``QT_L`` of csrc/quotient_tile.cuh) and the rows / columns of X a step of
+# its walk takes (``QT_S``)
 QT_EDGE = 256
 QT_STEP = 64
 # thread blocks a multiprocessor that ``walk_splits`` aims for where it cuts

@@ -1,6 +1,9 @@
 """The dense objectives as one kernel (``csrc/objectives.cu``):
 ``0.5 * ||X - W H||^2`` and ``gkldiv(X, W H)`` summed tile by tile, the
-``p x n`` product never in device memory.
+``p x n`` product never in device memory.  The kernel forms its tiles of
+``W @ H`` with the routine of ``wtq`` (``csrc/quotient_tile.cuh``): a thread
+block owns ``QT_EDGE`` columns and walks the rows, cut into runs as ``wtq``'s
+walk is (``objective_splits``), each run adding its own partial.
 
 A wrapper launches the kernel for float32 tensors on the card or raises; it
 takes the plain version (column blocks of ``W @ H``, one reduction a block)
@@ -13,11 +16,11 @@ from __future__ import annotations
 import torch
 
 from .build import launch
-from .mu import check_dense_problem
+from .mu import QT_EDGE, check_dense_problem, walk_splits
 
 __all__ = [
     "mse_objective_kernel", "kl_objective_kernel", "dense_objective_plain",
-    "sqL2dist", "gkldiv",
+    "sqL2dist", "gkldiv", "objective_splits",
 ]
 
 KINDS = ("mse", "kl")
@@ -60,15 +63,25 @@ def dense_objective_plain(X, W, H, kind):
     return _blockwise_sum(X, W, H, gkldiv)
 
 
+def objective_splits(p, n, sms) -> int:
+    """Into how many runs the kernel cuts its walk over the ``p`` rows: a
+    thread block owns ``QT_EDGE`` columns and all of k, so the output has
+    one component a column for ``walk_splits``."""
+    return walk_splits(n, p, 1, sms, QT_EDGE)
+
+
 def _objective(X, W, H, kind):
     if not X.is_cuda or X.dtype == torch.float64:
         return dense_objective_plain(X, W, H, kind)
     p, n, k, W, H, xvec = check_dense_problem(X, W, H, "objective")
-    partial = torch.empty(-(-p // 64), dtype=torch.float64, device=X.device)
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    splits = objective_splits(p, n, sms)
+    partial = torch.empty(-(-n // QT_EDGE) * splits, dtype=torch.float64,
+                          device=X.device)
     out = torch.empty(1, dtype=torch.float32, device=X.device)
     launch(
         "dense_objective", X, W, H, partial, out, p, n, k, KINDS.index(kind),
-        xvec,
+        xvec, splits,
     )
     return out[0]
 

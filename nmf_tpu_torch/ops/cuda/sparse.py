@@ -46,11 +46,15 @@ __all__ = [
     "coo_matmul_plain",
     "tiled_matmul_t", "tiled_mm", "tiled_mtm", "chunk_sddmm", "chunk_sddmm_plain",
     "dense_sample", "quad_sddmm", "quad_sddmm_plain", "coo_sample",
-    "tiled_sddmm",
+    "tiled_sddmm", "sddmm_lanes",
 ]
 
 # the chunk and quad kernels keep a (128, k) float panel in shared memory
 MAX_K = SMEM_PER_BLOCK // (TILE * 4)
+# floats of a slot's dot product one lane of the chunk sddmm kernel takes at
+# most (``sddmm_lanes``): four 16-byte gathers of H a lane; 8 lanes a slot at
+# k = 128 ran faster than 2, 4 or 16 (``tools/time_sddmm_variants.py``)
+SDDMM_LANE_FLOATS = 16
 # slots / blocks / band entries handled at once by the plain versions and the
 # COO band: bounds the (piece, k) temporaries to 128 MB at k = 128
 _PIECE = 1 << 18
@@ -428,11 +432,25 @@ def chunk_sddmm_plain(side: TiledSideC, W, Ht, out=None):
     return out
 
 
+def sddmm_lanes(k) -> int:
+    """Lanes of a warp that sample one slot in the chunk sddmm kernel: the
+    least power of two that leaves a lane at most ``SDDMM_LANE_FLOATS`` of
+    the ``k`` products, at most a warp (8 at k = 128)."""
+    g = 1
+    while g < 32 and SDDMM_LANE_FLOATS * g < k:
+        g *= 2
+    return g
+
+
 def chunk_sddmm(side: TiledSideC, W, Ht, out=None):
     """``(W @ Ht')`` at every slot of one orientation's chunk store, flat
     ``(n_chunks * 128,)`` in slot order; 0 at padding slots.  ``W`` is
     ``(rows, k)`` and ``Ht`` is ``(cols, k)``, both row-major, in the
-    tiling's coordinates.  ``out``, when given, receives the result."""
+    tiling's coordinates.  ``out``, when given, receives the result.  The
+    kernel walks the store's pieces (a thread block a piece, the piece's
+    row panel of W in shared memory) and each chunk's real slots only
+    (``chunk_nreal``); the blocks past the pieces zero the chunks without
+    entries."""
     k = _check_factors(side, W, Ht)
     nslots = side.coords.shape[0] * TILE
     _check_flat_out(out, nslots, W)
@@ -444,9 +462,10 @@ def chunk_sddmm(side: TiledSideC, W, Ht, out=None):
         out = torch.empty(nslots, dtype=torch.float32, device=W.device)
     launch(
         "chunk_sddmm",
-        side.coords, side.inv, side.chunk_rp, side.win_panel, side.win_stripe,
-        W, Ht, out, side.coords.shape[0], side.group, side.panels_per_stripe,
-        side.span, side.rows, side.cols, k, side.perm.shape[0],
+        side.piece_ptr, side.piece_panel, side.panel_chunks, side.chunk_nreal,
+        side.win_panel, side.coords, side.inv, W, Ht, out,
+        side.piece_panel.numel(), side.coords.shape[0], side.group, side.span,
+        side.rows, side.cols, k, side.perm.shape[0], sddmm_lanes(k),
     )
     return out
 

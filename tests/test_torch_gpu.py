@@ -180,6 +180,58 @@ def test_chunk_sddmm_matches_its_plain_version_on_the_card(card, order, k):
     assert build.launch_counts()["chunk_sddmm"] == 6
 
 
+def _sparse_wide(seed=3, p=200, n=50_000, density=0.0003):
+    """Most slots padding: about five entries a 128 x 128 tile, so nearly
+    every chunk holds a few entries at its front, and each of the two row
+    panels lists some 390 chunks (more than a thread block scans at once)."""
+    rng = np.random.default_rng(seed)
+    nnz = int(p * n * density)
+    key = np.unique(rng.integers(0, p, nnz) * n + rng.integers(0, n, nnz))
+    return ((key // n).astype(np.int32), (key % n).astype(np.int32),
+            (rng.random(len(key)) + 0.5).astype(np.float32), (p, n))
+
+
+def _sddmm_store(card, store):
+    if store == "wide_padding":
+        r, c, v, shape = _sparse_wide()
+        return build_tiled(r, c, v, shape, device=card, stripe_tiles=2, group=8,
+                           order="natural")
+    Xd = four_class_matrix() if store == "span4" else three_class_matrix()
+    r, c, v = coo_of(Xd)
+    opts = QUAD_CASES_SPAN4 if store == "span4" else dict(BUILD, order="degree")
+    return build_tiled(r, c, v, Xd.shape, device=card, **opts)
+
+
+QUAD_CASES_SPAN4 = dict(stripe_tiles=2, group=8, tail_span=4, dense_tile_nnz=1000,
+                        coo_tail_nnz=2, order="natural")
+
+
+@pytest.mark.parametrize("k", [1, 3, 127, 128, 129, 193, 451])
+@pytest.mark.parametrize("store", ["degree", "span4", "wide_padding"])
+def test_chunk_sddmm_kernel_at_its_edges(card, store, k):
+    """Kernel 4 at k below and above a lane's 16 floats, k % 4 != 0, above
+    the W panel it stages (192) and a sparse product's slab (450); on wide
+    tail tiles and on a store that is mostly padding: within 2e-5 of float64
+    at every slot, exactly 0 at padding slots, the same bits twice and the
+    same bits with the pieces cut at 128 entries."""
+    Xt = _sddmm_store(card, store)
+    side = Xt.fwd
+    g = torch.Generator(device=card).manual_seed(k)
+    W = torch.rand(side.rows, k, device=card, generator=g)
+    Ht = torch.rand(side.cols, k, device=card, generator=g)
+    build.reset_launch_counts()
+    got = tsp.chunk_sddmm(side, W, Ht)
+    want = tsp.chunk_sddmm_plain(side, W.double(), Ht.double())
+    assert (got.double() - want).abs().max() <= 2e-5 * want.abs().max()
+    pad = side.inv >= side.perm.shape[0]
+    if store == "wide_padding":
+        assert pad.float().mean() > 0.9
+    assert pad.any() and not got[pad].any()
+    assert torch.equal(got, tsp.chunk_sddmm(side, W, Ht))
+    assert torch.equal(got, tsp.chunk_sddmm(recut_pieces(side, 128), W, Ht))
+    assert build.launch_counts()["chunk_sddmm"] == 3
+
+
 DENSE_SHAPES = [(300, 280, 8), (257, 1030, 5), (515, 130, 70), (200, 333, 128)]
 
 
@@ -218,6 +270,41 @@ def test_mu_kernels_match_their_plain_versions_on_the_card(card, p, n, k):
         chunk_matmul=0, dense_matmul=0, quad_matmul=0, coo_matmul=0, chunk_sddmm=0,
         quad_sddmm=0, mu_factor_update=2, wtq=2, qht=2, dense_objective=4,
         projectnn=0, colsum=0, scale_cols=0)
+
+
+@pytest.mark.parametrize("k", [1, 9, 63, 64, 65, 128, 129, 183, 373, 437, 512])
+@pytest.mark.parametrize("n, shift", [(777, 0), (776, 0), (776, 1)])
+def test_objective_kernel_at_the_tile_edges(card, n, shift, k):
+    """Kernel 6, both kinds, at 1,001 rows (no multiple of a step) by 777
+    (4-byte copies) or 776 columns, X aligned or one float off a 16-byte
+    boundary, k on both sides of each slab and every k of the old ceilings:
+    within 2e-5 of float64, the same bits twice."""
+    p = 1001
+    g = torch.Generator(device=card).manual_seed(n + shift + k)
+    X = torch.rand(p * n + shift, device=card, generator=g)[shift:].view(p, n)
+    X[X < 0.1] = 0.0  # exact zeros: the KL term's x = 0 branch
+    W = torch.rand(p, k, device=card, generator=g)
+    H = torch.rand(k, n, device=card, generator=g)
+    assert tmu.check_dense_problem(X, W, H, "objective")[5] == int(n % 4 == 0 and not shift)
+    build.reset_launch_counts()
+    for kind, fn in (("mse", tobj.mse_objective_kernel), ("kl", tobj.kl_objective_kernel)):
+        got = fn(X, W, H)
+        want = float(tobj.dense_objective_plain(X.double(), W.double(), H.double(), kind))
+        assert abs(float(got) - want) <= 2e-5 * abs(want)
+        assert torch.equal(got, fn(X, W, H))
+    assert build.launch_counts()["dense_objective"] == 4
+
+
+def test_objective_kernel_at_extreme_entries(card):
+    """Kernel 6 with three entries of X far from the rest (1e-30, 3e-20,
+    1e19): within 2e-5 of float64, the same bits twice."""
+    X, W, H = _dense_problem(300, 280, 8, card)
+    X[5, 7], X[100, 200], X[299, 279] = 1e-30, 1e19, 3e-20
+    for kind, fn in (("mse", tobj.mse_objective_kernel), ("kl", tobj.kl_objective_kernel)):
+        got = fn(X, W, H)
+        want = float(tobj.dense_objective_plain(X.double(), W.double(), H.double(), kind))
+        assert abs(float(got) - want) <= 2e-5 * abs(want)
+        assert torch.equal(got, fn(X, W, H))
 
 
 def test_dense_wrappers_refuse_what_the_kernels_do_not_take(card):

@@ -85,7 +85,7 @@ def test_every_source_of_the_port_is_checked():
     names = {p.name for p in PORT_SOURCES}
     assert {"chip_smoke.py", "chunk_matmul.cu", "dense_matmul.cu", "sparse.py",
             "interface.py", "chunk_sddmm.cu", "mu.cu", "objectives.cu",
-            "wh_tile.cuh", "mu.py", "objectives.py", "multupd.py",
+            "quotient_tile.cuh", "mu.py", "objectives.py", "multupd.py",
             "greedycd.py", "quad_matmul.cu", "quad_sddmm.cu",
             "sddmm_warp.cuh", "elementwise.cu", "elementwise.py", "rsvd.py",
             "tsqr.py", "linalg.py", "initialization.py"} <= names

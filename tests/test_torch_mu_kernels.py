@@ -159,7 +159,7 @@ def test_dense_problem_check_settles_layout_and_vector_width():
     # no ceiling on k: the kernels sum over k one slab at a time
     assert tmu.check_dense_problem(torch.zeros(4, 400), torch.zeros(4, 373),
                                    torch.zeros(373, 400), "wtq")[2] == 373
-    assert (tmu.MU_SLAB, tmu.WH_SLAB) == (64, 128)
+    assert (tmu.MU_SLAB, tmu.QT_SLAB) == (64, 64)
     with pytest.raises(ValueError, match="k must be at least 1"):
         tmu.check_dense_problem(torch.zeros(4, 400), torch.zeros(4, 0),
                                 torch.zeros(0, 400), "wtq")
@@ -167,9 +167,12 @@ def test_dense_problem_check_settles_layout_and_vector_width():
 
 @pytest.mark.parametrize("source, limit", [
     ("mu.cu", (("MU_KS", "MU_SLAB"),)),
-    ("wh_tile.cuh", (("WH_KS", "WH_SLAB"),)),
-    # wtq / qht: the slab depth, the output edge a block owns, the walk's step
-    ("mu.cu", (("QT_KS", "QT_SLAB"), ("QT_L", "QT_EDGE"), ("QT_S", "QT_STEP"))),
+    # the W @ H tile of wtq, qht and the objective: its slab depth
+    ("quotient_tile.cuh", (("QT_KS", "QT_SLAB"),)),
+    # wtq / qht / the objective: the slab depth, the output edge a block
+    # owns, the walk's step
+    ("quotient_tile.cuh", (("QT_KS", "QT_SLAB"), ("QT_L", "QT_EDGE"),
+                           ("QT_S", "QT_STEP"))),
 ])
 def test_largest_k_stated_in_the_sources_is_the_wrappers(source, limit):
     """No kernel states a largest k any more (any k fits: the reduction runs
@@ -179,7 +182,7 @@ def test_largest_k_stated_in_the_sources_is_the_wrappers(source, limit):
     for define, name in limit:
         stated = re.findall(rf"#define\s+{define}\s+(\d+)", text)
         assert [int(v) for v in stated] == [getattr(tmu, name)]
-    for src in ("mu.cu", "objectives.cu", "wh_tile.cuh"):
+    for src in ("mu.cu", "objectives.cu", "quotient_tile.cuh"):
         text = (CSRC / src).read_text().replace("//", "")
         assert not re.search(r"largest\s+k\s+is", text), src
         assert re.search(r"any\s+k\s+fits", text), src
@@ -210,3 +213,25 @@ def test_walk_splits_rule(owned, walked, k, sms, runs):
     assert got == 1 or blocks * got >= tmu.RUN_BLOCKS_PER_SM * sms or got == steps
     run = -(-steps // got)
     assert (got - 1) * run < steps
+
+
+# (p, n, multiprocessors, runs): the objective's walk over the rows of the
+# main path's dense problem, of ttt1 (500 x 500), of the edge and k-ceiling
+# checks, and of a width whose 396 column panels make three full waves
+@pytest.mark.parametrize("p, n, sms, runs", [
+    (100_000, 10_000, 132, 33),   # 40 column panels, 1,563 steps
+    (500, 500, 132, 8),           # ttt1: one run a step
+    (1001, 777, 132, 16),
+    (300, 260, 132, 5),
+    (5000, 3 * 132 * 256, 132, 1),
+])
+def test_objective_walk_cut(p, n, sms, runs):
+    """The objective kernel's grid: a block owns ``QT_EDGE`` columns and all
+    of k (no component slabs), so its cut is that of an output of one
+    component a column, whatever k; ``partial`` holds one double a block."""
+    got = tobj.objective_splits(p, n, sms)
+    assert got == runs
+    assert got == tmu.walk_splits(n, p, 1, sms, tmu.QT_EDGE)
+    steps = -(-p // tmu.QT_STEP)
+    run = -(-steps // got)
+    assert (got - 1) * run < steps  # no empty run beyond rounding

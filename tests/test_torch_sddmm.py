@@ -21,7 +21,8 @@ from nmf_tpu_torch.models import common as tcommon
 from nmf_tpu_torch.ops import matops
 from nmf_tpu_torch.ops.cuda import build
 from nmf_tpu_torch.ops.cuda import sparse as tsp
-from nmf_tpu_torch.ops.sparse_format import DENSE_GROUP, QUAD_GROUP, TILE, build_tiled
+from nmf_tpu_torch.ops.sparse_format import (DENSE_GROUP, QUAD_GROUP, TILE, build_tiled,
+                                             recut_pieces)
 
 from torch_parity import (BUILD, DENSE_NNZ, QUAD_BUILD, QUAD_CASES, coo_of,
                           four_class_matrix, jax_tiled_to_dict, three_class_matrix)
@@ -310,3 +311,71 @@ def test_quad_sddmm_checks_its_operands_and_the_store():
     half = dataclasses.replace(Xt, fwd=dataclasses.replace(side, qinv=None))
     with pytest.raises(ValueError, match="slim"):
         tsp.tiled_sddmm(half, W, H)
+
+
+def _kernel_walk(side, W, Ht):
+    """What the chunk sddmm kernel (``csrc/chunk_sddmm.cu``) writes, in
+    numpy: a block a piece samples the real slots at the front of each of
+    its chunks (``chunk_nreal``), the W row read through the piece's row
+    panel, and zeroes the chunk's tail; the blocks past the pieces zero the
+    chunks without entries.  Returns (times each slot is written, the
+    values in float64)."""
+    n_chunks = side.coords.shape[0]
+    nreal, coords = side.chunk_nreal.numpy(), side.coords.numpy().reshape(-1)
+    inv, nnz = side.inv.numpy(), side.perm.shape[0]
+    ptr, chunks = side.piece_ptr.numpy(), side.panel_chunks.numpy()
+    writes = np.zeros(n_chunks * TILE, np.int64)
+    out = np.zeros(n_chunks * TILE, np.float64)
+    for piece, panel in enumerate(side.piece_panel.numpy()):
+        for c in chunks[ptr[piece]:ptr[piece + 1]]:
+            writes[c * TILE:(c + 1) * TILE] += 1
+            for slot in range(c * TILE, c * TILE + nreal[c]):
+                co = int(coords[slot])
+                row = int(panel) * TILE + (co & 127)
+                col = int(side.win_panel[c // side.group]) * side.span * TILE + (co >> 7)
+                if inv[slot] < nnz and row < side.rows and col < side.cols:
+                    out[slot] = W[row].astype(np.float64) @ Ht[col]
+    for c in np.flatnonzero(nreal == 0):
+        writes[c * TILE:(c + 1) * TILE] += 1
+    return writes, out
+
+
+@pytest.mark.parametrize("name, build, cap", [
+    ("natural", dict(BUILD, order="natural"), None),
+    ("degree", dict(BUILD, order="degree"), None),
+    ("span4", QUAD_CASES["span4_dense_band"], None),
+    ("pieces_of_128", dict(BUILD, order="degree"), 128),
+])
+def test_chunk_sddmm_kernel_walk_covers_every_slot_once(name, build, cap):
+    """The host-side facts the chunk sddmm kernel stands on: the pieces list
+    every chunk with entries once and no other, a chunk's entries are its
+    first ``chunk_nreal`` slots, and the piece's row panel is the chunk's;
+    so its walk writes every slot once and gives the plain version's values
+    (padding slots 0), however the pieces are cut."""
+    Xd = four_class_matrix() if name == "span4" else three_class_matrix()
+    r, c, v = coo_of(Xd)
+    Xt = build_tiled(r, c, v, Xd.shape, device="cpu", **build)
+    side = Xt.fwd if cap is None else recut_pieces(Xt.fwd, cap)
+    assert side.span == (4 if name == "span4" else 1)
+    rng = np.random.default_rng(5)
+    W = rng.random((side.rows, 7)).astype(np.float32)
+    Ht = rng.random((side.cols, 7)).astype(np.float32)
+    writes, out = _kernel_walk(side, W, Ht)
+    assert (writes == 1).all()
+    want = tsp.chunk_sddmm_plain(side, torch.from_numpy(W).double(),
+                                 torch.from_numpy(Ht).double()).numpy()
+    np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
+    pad = side.inv.numpy() >= side.perm.shape[0]
+    assert pad.any() and not out[pad].any()
+
+
+@pytest.mark.parametrize("k, lanes", [
+    (1, 1), (16, 1), (17, 2), (64, 4), (127, 8), (128, 8), (129, 16),
+    (256, 16), (450, 32), (512, 32), (2000, 32),
+])
+def test_chunk_sddmm_lanes_a_slot(k, lanes):
+    """A slot takes the least power of two of lanes that leaves each at most
+    ``SDDMM_LANE_FLOATS`` products, at most a warp."""
+    got = tsp.sddmm_lanes(k)
+    assert got == lanes and got & (got - 1) == 0 and got <= 32
+    assert got * tsp.SDDMM_LANE_FLOATS >= k or got == 32

@@ -1,13 +1,17 @@
 #!/usr/bin/env python3
-"""Time variants of the divergence products (kernels 8 and 9, ``wtq`` and
-``qht`` in ``nmf_tpu_torch/csrc/mu.cu``) against the source as it stands, on
-the dense 100,000 x 10,000 rank-64 problem of ``chip_smoke.py``.
+"""Time variants of the kernels built on the W @ H tile routine
+(``nmf_tpu_torch/csrc/quotient_tile.cuh``): the divergence products (kernels
+8 and 9, ``wtq`` and ``qht`` in ``mu.cu``) and the dense objectives (kernel
+6, ``objectives.cu``, both kinds), against the sources as they stand, on the
+dense 100,000 x 10,000 rank-64 problem of ``chip_smoke.py``.
 
     python3 tools/time_quotient_variants.py [NAME ...]
 
-Each variant is ``mu.cu`` with a few lines replaced (``VARIANTS`` below; a
-replaced line must be in the source, or the tool fails), built into
-``_cache/`` (ignored by git), all variants' ``nvcc`` started together.
+Each variant is the sources with a few lines replaced (``VARIANTS`` below; a
+replaced line must be in ``mu.cu``, ``objectives.cu`` or the header, or the
+tool fails), copied into ``_cache/variants/NAME/`` (ignored by git) and
+built there, all variants' ``nvcc`` started together; a variant times the
+kernels its edits reach.
 ``no_range_check`` drops the check that sends an operand outside the
 branch-free division's range to '/' (it says what the check costs);
 ``slash_division`` divides with '/' itself, so its output must have the same
@@ -16,7 +20,7 @@ after an L2 flush, median of 3, the walk cut as the wrapper cuts it), the
 highest SM clock nvidia-smi reads meanwhile (every 20 ms), the error against the plain
 version run in float64, whether two runs give the same bits and whether they
 are the source's, and the registers, spills and barriers ``ptxas`` reports
-for the k <= 64 instance.  Prints one JSON line with the card's name and
+for the k <= 64 instances.  Prints one JSON line with the card's name and
 power limit."""
 
 import ctypes
@@ -35,6 +39,7 @@ sys.path.insert(0, str(ROOT))
 import chip_smoke as cs  # noqa: E402
 from nmf_tpu_torch.ops.cuda import build  # noqa: E402
 from nmf_tpu_torch.ops.cuda import mu as M  # noqa: E402
+from nmf_tpu_torch.ops.cuda import objectives as O  # noqa: E402
 from nmf_tpu_torch.utils.dtypes import sqrt_eps  # noqa: E402
 
 _DIV = ("      x.x = div_rn(x.x, wh[u][4 * h] + delta, ok);\n"
@@ -58,51 +63,106 @@ _OUTER_LOOP = "#pragma unroll 16\n  for (int t = 0; t < depth; ++t) {\n"
 _QHT_LOOP = "#pragma unroll 2\n    for (int q = 0; q < QT_S / 4; ++q) {  // acc += Q[..][j] H[c0..][j0 + j]'\n"
 _ROWS_LOOP = "#pragma unroll 2\n  for (int q = 0; q < depth / 4; ++q) {\n"
 
-# name: [(text in mu.cu, its replacement), ...]
+_STEP_F = "__device__ __forceinline__ float step_terms("
+_STEP_T = "  float t = 0.f, t1 = 0.f;\n#pragma unroll\n  for (int u = 0; u < 8; ++u)\n"
+_STEP_ADD = "    s += (double)step_terms<KIND>(Xb, wh, ty, tx);\n"
+_KL = ("  const float lx = logf(x > 0.f ? x : 1.f), lw = logf(w > 0.f ? w : 1.f);\n"
+       "  return x > 0.f ? x * (lx - lw) - x + w : w;\n")
+_KL_RATIO = ("  const float a = x > 0.f ? x : 1.f, y = w > 0.f ? w : 1.f;\n"
+             "  bool ok = true;\n"
+             "  return x > 0.f ? x * logf(QUOTIENT) - x + w : w;\n")
+_TERM_BODY = "  if (KIND == 0) {\n    const float d = x - w;\n"
+
+QUOTIENTS = ("wtq", "qht")
+OBJECTIVES = ("objective_mse", "objective_kl")
+# name: (the kernels it times, [(text in a source, its replacement), ...])
 VARIANTS = {
     # the division as '/' writes it: a branch after each; the same bits
-    "slash_division": [(_DIV, _SLASH)],
+    "slash_division": (QUOTIENTS, [(_DIV, _SLASH)]),
     # where the time goes: no division (a product), no second product, no
     # W @ H tile (each changes the result)
-    "no_division": [(_DIV, _SLASH.replace(" / (", " * ("))],
-    "no_second": [(_WTQ_SECOND, ""), (_QHT_SECOND, "          {}\n")],
-    "no_wh": [(_WTQ_WH, ""), (_QHT_WH, "")],
+    "no_division": (QUOTIENTS, [(_DIV, _SLASH.replace(" / (", " * ("))]),
+    "no_second": (QUOTIENTS, [(_WTQ_SECOND, ""), (_QHT_SECOND, "          {}\n")]),
+    "no_wh": (QUOTIENTS, [(_WTQ_WH, ""), (_QHT_WH, "")]),
     # the branch-free division without its range check (what the check costs)
-    "no_range_check": [(_CHECK, "")],
+    "no_range_check": (QUOTIENTS, [(_CHECK, "")]),
     # outer products (wtq's second product, qht's W @ H tile) unrolled by 4
-    # or 8 (the source: 16); wtq's W @ H tile by 1 or 4 (the source: 2);
-    # qht's second product by 1 (the source: 2)
-    "outer_unroll_4": [(_OUTER_LOOP, _OUTER_LOOP.replace("unroll 16", "unroll 4"))],
-    "outer_unroll_8": [(_OUTER_LOOP, _OUTER_LOOP.replace("unroll 16", "unroll 8"))],
-    "rows_unroll_1": [(_ROWS_LOOP, _ROWS_LOOP.replace("unroll 2", "unroll 1"))],
-    "rows_unroll_4": [(_ROWS_LOOP, _ROWS_LOOP.replace("unroll 2", "unroll 4"))],
-    "qht_second_unroll_1": [(_QHT_LOOP, _QHT_LOOP.replace("unroll 2", "unroll 1"))],
+    # or 8 (the source: 16); the W @ H tile of wtq and the objective by 1 or
+    # 4 (the source: 2); qht's second product by 1 (the source: 2)
+    "outer_unroll_4": (QUOTIENTS, [(_OUTER_LOOP, _OUTER_LOOP.replace("unroll 16", "unroll 4"))]),
+    "outer_unroll_8": (QUOTIENTS, [(_OUTER_LOOP, _OUTER_LOOP.replace("unroll 16", "unroll 8"))]),
+    "rows_unroll_1": (QUOTIENTS + OBJECTIVES,
+                      [(_ROWS_LOOP, _ROWS_LOOP.replace("unroll 2", "unroll 1"))]),
+    "rows_unroll_4": (QUOTIENTS + OBJECTIVES,
+                      [(_ROWS_LOOP, _ROWS_LOOP.replace("unroll 2", "unroll 4"))]),
+    "qht_second_unroll_1": (QUOTIENTS, [(_QHT_LOOP, _QHT_LOOP.replace("unroll 2", "unroll 1"))]),
+    # the objective: each term added to a double (the source: a step's 64
+    # terms summed in float32 first); the KL term as one logf of x / wh,
+    # divided with div_rn (its range check ignored) or with '/' (the source:
+    # log x - log wh, two logf); its last three operations as one FMA; the
+    # step's terms in one running sum (the source: two); the logarithms'
+    # arguments declared positive to the compiler;
+    # without its logf, which says what the two
+    # cost; no term at all (x + wh summed), which says what the terms cost
+    # over the W @ H tile and its staging
+    "objective_double_per_entry": (OBJECTIVES, [
+        (_STEP_F, _STEP_F.replace("float", "double")),
+        (_STEP_T, _STEP_T.replace("float t = 0.f, t1 = 0.f", "double t = 0.0, t1 = 0.0")),
+        (_STEP_ADD, _STEP_ADD.replace("(double)", ""))]),
+    "objective_ratio_div_rn": (OBJECTIVES, [
+        (_KL, _KL_RATIO.replace("QUOTIENT", "div_rn(a, y, ok)"))]),
+    "objective_ratio_slash": (OBJECTIVES, [(_KL, _KL_RATIO.replace("QUOTIENT", "a / y"))]),
+    "objective_kl_one_fma": (OBJECTIVES, [
+        (_KL, _KL.replace("x * (lx - lw) - x + w", "fmaf(x, (lx - lw) - 1.f, w)"))]),
+    "objective_one_sum": (OBJECTIVES, [
+        (_STEP_T, _STEP_T.replace("float t = 0.f, t1 = 0.f", "float t = 0.f")),
+        ("      t1 += term<KIND>(x.z", "      t += term<KIND>(x.z"),
+        ("      t1 += term<KIND>(x.w", "      t += term<KIND>(x.w"),
+        ("  return t + t1;\n", "  return t;\n")]),
+    "objective_assume_positive": (OBJECTIVES, [
+        (_KL, "  const float xs = x > 0.f ? x : 1.f, ws = w > 0.f ? w : 1.f;\n"
+              "  __builtin_assume(xs > 0.f);\n"
+              "  __builtin_assume(ws > 0.f);\n"
+              "  const float lx = logf(xs), lw = logf(ws);\n"
+              "  return x > 0.f ? x * (lx - lw) - x + w : w;\n")]),
+    "objective_no_log": (OBJECTIVES, [("logf(", "(")]),
+    "objective_no_term": (OBJECTIVES, [(_TERM_BODY, "  return x + w;\n" + _TERM_BODY)]),
 }
+SOURCES = ("mu.cu", "objectives.cu", "quotient_tile.cuh", "cp_async.cuh")
 
 
 def _build(name, edits):
-    """Starts nvcc on ``mu.cu`` with ``edits``; returns (process, .so path)."""
-    text = (build.CSRC / "mu.cu").read_text()
+    """Starts nvcc on the sources with ``edits``; returns (process, .so path)."""
+    texts = {f: (build.CSRC / f).read_text() for f in SOURCES}
     for old, new in edits:
-        if old not in text:
-            cs.fail(f"variant {name}: a replaced line is not in mu.cu:\n{old}")
-        text = text.replace(old, new)
-    src = ROOT / "_cache" / f"mu_{name}.cu"
-    src.parent.mkdir(exist_ok=True)
-    src.write_text(text)
-    so = src.with_suffix(".so")
+        hit = [f for f, t in texts.items() if old in t]
+        if not hit:
+            cs.fail(f"variant {name}: a replaced line is in no source:\n{old}")
+        for f in hit:
+            texts[f] = texts[f].replace(old, new)
+    d = ROOT / "_cache" / "variants" / name
+    d.mkdir(parents=True, exist_ok=True)
+    for f, t in texts.items():
+        (d / f).write_text(t)
+    so = d / "lib.so"
     proc = subprocess.Popen(
-        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I",
-         str(build.CSRC), str(src), "-o", str(so)],
+        [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
+         str(d / "mu.cu"), str(d / "objectives.cu"), "-o", str(so)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, so
+
+
+# kernel: the mangled name of its k <= 64 instance
+_INSTANCES = {"wtq": "wtq_kernelILb1E", "qht": "qht_kernelILb1E",
+              "objective_mse": "objective_kernelILb1ELi0E",
+              "objective_kl": "objective_kernelILb1ELi1E"}
 
 
 def _ptxas(log):
     """Registers, spill bytes and barriers of each k <= 64 instance."""
     out = {}
-    for kern in ("wtq", "qht"):
-        m = re.search(rf"Compiling entry function '\S*{kern}_kernelILb1E\S*'.*?\n"
+    for kern, inst in _INSTANCES.items():
+        m = re.search(rf"Compiling entry function '\S*{inst}\S*'.*?\n"
                       r".*?\n\s*(\d+) bytes stack frame, (\d+) bytes spill stores, "
                       r"(\d+) bytes spill loads\n.*?Used (\d+) registers, used (\d+) barriers",
                       log)
@@ -123,7 +183,7 @@ def main():
     if not torch.cuda.is_available():
         cs.fail("no CUDA device: this script only runs on the card")
     names = sys.argv[1:] or list(VARIANTS)
-    builds = {n: _build(n, VARIANTS[n]) for n in names}
+    builds = {n: _build(n, VARIANTS[n][1]) for n in names}
     rng = np.random.default_rng(0)
     X = cs._lowrank_noisy_on_card(rng, cs.DP, cs.DN, cs.DK)
     W = torch.from_numpy(rng.random((cs.DP, cs.DK), dtype=np.float32)).cuda()
@@ -143,23 +203,42 @@ def main():
     out = {"shape": [p, n], "k": k, "ms": {}, "rel_err": {}, "same_bits": {},
            "same_bits_as_own": {}, "sm_mhz": {}, "ptxas": ptxas}
     Xd, Wd, Hd = X.double(), W.double(), H.double()
-    for kern, plain, shape, owned, walked in (("wtq", M.wtq_plain, (k, n), n, p),
-                                              ("qht", M.qht_plain, (p, k), p, n)):
-        want = plain(Xd, Wd, Hd, delta)
-        splits = M.walk_splits(owned, walked, k, sms, M.QT_EDGE)
-        res = torch.empty(shape, device="cuda")
-        part = torch.empty((splits, *shape), device="cuda")
-        xvec = M.check_dense_problem(X, W, H, kern)[5]
+    xvec = M.check_dense_problem(X, W, H, "wtq")[5]
+    stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
+    for kern in QUOTIENTS + OBJECTIVES:
+        if kern in QUOTIENTS:
+            plain, shape, owned, walked = {"wtq": (M.wtq_plain, (k, n), n, p),
+                                           "qht": (M.qht_plain, (p, k), p, n)}[kern]
+            want = plain(Xd, Wd, Hd, delta)
+            splits = M.walk_splits(owned, walked, k, sms, M.QT_EDGE)
+            res = torch.empty(shape, device="cuda")
+            part = torch.empty((splits, *shape), device="cuda")
+            own_run = lambda kern=kern: getattr(M, kern)(X, W, H, delta)  # noqa: E731
+            args = lambda: (X.data_ptr(), W.data_ptr(), H.data_ptr(), part.data_ptr(),  # noqa: E731
+                            res.data_ptr(), p, n, k, delta, xvec, splits, stream())
+            entry = kern
+        else:
+            kind = kern.split("_")[1]
+            want = O.dense_objective_plain(Xd, Wd, Hd, kind).reshape(1)
+            splits = O.objective_splits(p, n, sms)
+            res = torch.empty(1, device="cuda")
+            part = torch.empty(-(-n // M.QT_EDGE) * splits, dtype=torch.float64, device="cuda")
+            fn_own = O.mse_objective_kernel if kind == "mse" else O.kl_objective_kernel
+            own_run = lambda fn_own=fn_own: fn_own(X, W, H).reshape(1)  # noqa: E731
+            args = lambda kind=kind: (X.data_ptr(), W.data_ptr(), H.data_ptr(),  # noqa: E731
+                                      part.data_ptr(), res.data_ptr(), p, n, k,
+                                      O.KINDS.index(kind), xvec, splits, stream())
+            entry = "dense_objective"
         for name, so in libs.items():
             if so is None:
-                run = lambda kern=kern: getattr(M, kern)(X, W, H, delta)  # noqa: E731
+                run = own_run
+            elif kern not in VARIANTS[name][0]:
+                continue
             else:
-                fn = _entry(so, kern)
+                fn = _entry(so, entry)
 
-                def run(fn=fn):
-                    err = fn(X.data_ptr(), W.data_ptr(), H.data_ptr(), part.data_ptr(),
-                             res.data_ptr(), p, n, k, delta, xvec, splits,
-                             torch.cuda.current_stream().cuda_stream)
+                def run(fn=fn, args=args):
+                    err = fn(*args())
                     if err:
                         raise RuntimeError(f"launch failed: CUDA error {err}")
                     return res
