@@ -8,7 +8,10 @@
 //
 // What bounds it on an H100: operations, 2 * p * n * k flops over X read
 // once (k = 64: 32 flops a byte, above the card's 20), plus the term of
-// each entry (two logf for kind 1; logf, not an approximation).
+// each entry (for kind 1 a logf, not an approximation, and a division: one
+// block an SM issues the term's instructions on the slots the W @ H FMAs
+// use, so the KL term is taken as x * log(x / wh), one logf fewer than log
+// x - log wh; the timings are in PERF.md).
 //
 // Design: the W @ H tile of the divergence products (quotient_tile.cuh,
 // mu.cu's wtq without its second product).  A thread block owns QT_L = 256
@@ -33,6 +36,8 @@
 // partial; the cut follows the rule of wtq's walk (ops/cuda/mu.py:
 // walk_splits).
 
+#include <cfloat>
+
 #include "quotient_tile.cuh"
 
 // the H slab, two W slabs, two X tiles
@@ -42,14 +47,27 @@ namespace {
 
 using namespace quotient_tile;
 
-// The term of one entry: x the entry of X, w that of W @ H.
-template <int KIND>
+// The term of one entry: x the entry of X, w that of W @ H.  KL: where x >
+// 0, x * (log x - log w) - x + w with w <= 0 read as 1; x = 0 (or NaN) adds
+// w.  RATIO takes that as x * log(x / w) - x + w: one logf of the quotient
+// (divided without a branch, div_rn) in place of two, the same function
+// with fewer instructions.  Where div_rn cannot form the quotient (an
+// operand near the ends of the float range) the term is not finite, and the
+// caller takes the other form.  Both forms take the logarithm outside the
+// select, so that no entry branches and the 64 terms of a step interleave.
+template <int KIND, bool RATIO>
 __device__ __forceinline__ float term(float x, float w) {
   if (KIND == 0) {
     const float d = x - w;
     return d * d;
   }
-  const float lx = logf(x > 0.f ? x : 1.f), lw = logf(w > 0.f ? w : 1.f);
+  const float a = x > 0.f ? x : 1.f, y = w > 0.f ? w : 1.f;
+  if (RATIO) {
+    bool unused = true;  // a quotient out of its range shows in the term
+    const float l = logf(div_rn(a, y, unused));
+    return x > 0.f ? x * l - x + w : w;
+  }
+  const float lx = logf(a), lw = logf(y);
   return x > 0.f ? x * (lx - lw) - x + w : w;
 }
 
@@ -57,7 +75,7 @@ __device__ __forceinline__ float term(float x, float w) {
 // from the step's tile, W @ H's from the thread's piece; two running sums
 // (the first two and the last two entries of each float4), so that twice
 // as many additions are independent.
-template <int KIND>
+template <int KIND, bool RATIO>
 __device__ __forceinline__ float step_terms(const float* Xb, const float (&wh)[8][8],
                                             int ty, int tx) {
   float t = 0.f, t1 = 0.f;
@@ -66,36 +84,28 @@ __device__ __forceinline__ float step_terms(const float* Xb, const float (&wh)[8
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const float4 x = ld4(Xb + Wide::at(ty + 8 * u, h ? 32 + tx : tx));
-      t += term<KIND>(x.x, wh[u][4 * h]);
-      t += term<KIND>(x.y, wh[u][4 * h + 1]);
-      t1 += term<KIND>(x.z, wh[u][4 * h + 2]);
-      t1 += term<KIND>(x.w, wh[u][4 * h + 3]);
+      t += term<KIND, RATIO>(x.x, wh[u][4 * h]);
+      t += term<KIND, RATIO>(x.y, wh[u][4 * h + 1]);
+      t1 += term<KIND, RATIO>(x.z, wh[u][4 * h + 2]);
+      t1 += term<KIND, RATIO>(x.w, wh[u][4 * h + 3]);
     }
   return t + t1;
 }
 
-// One partial a block: the walk over rows begin .. begin + run of the block's
-// 256 columns j0 = QT_L blockIdx.x.. .  Thread (ty, tx) as wtq's: W @ H rows
-// ty + 8 u (u < 8), columns 4 tx + v and 128 + 4 tx + v (v < 4).  ONE: k <=
-// QT_KS.  vec: quotient_tile.cuh's vec_bits.
-template <bool ONE, int KIND>
-__global__ void __launch_bounds__(QT_NT, 1)
-objective_kernel(const float* __restrict__ X, const float* __restrict__ W,
-                 const float* __restrict__ H, double* __restrict__ partial,
-                 int p, int n, int k, int vec, int run) {
-  extern __shared__ __align__(16) float sm[];
-  __shared__ double warp_sum[QT_NT / 32];
+// The thread's double sum of its terms over the walk of the rows begin ..
+// begin + QT_S steps of the block's 256 columns j0.., staging included;
+// ``finite`` is cleared where a step's sum is not finite.  Thread (ty, tx)
+// as wtq's: W @ H rows ty + 8 u (u < 8), columns 4 tx + v and 128 + 4 tx +
+// v (v < 4).  ONE: k <= QT_KS.
+template <bool ONE, int KIND, bool RATIO>
+__device__ __forceinline__ double walk(const float* X, const float* W,
+                                       const float* H, int p, int n, int k,
+                                       int vec, int begin, int steps, int j0,
+                                       float* sm, int ty, int tx, bool& finite) {
   float* Hs = sm;                      // QT_KS x QT_L: a k-slab of H's columns
   float* Ws = Hs + QT_KS * QT_L;       // 2 x QT_S x QT_LDS: W rows, a k-slab
   float* Xs = Ws + 2 * QT_S * QT_LDS;  // 2 x QT_S x QT_L: X tiles
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int ty = 4 * (warp & 1) + (lane >> 3);
-  const int tx = 8 * (warp >> 1) + (lane & 7);
-  const int j0 = blockIdx.x * QT_L;
   const bool xv = vec & 1, wv = vec & 2, hv = vec & 4;
-  const int begin = blockIdx.z * run, end = min(p, begin + run);
-  const int steps = end > begin ? (end - begin + QT_S - 1) / QT_S : 0;
-
   if (ONE) {  // H for the whole walk, the first step's W rows
     stage<QT_KS, QT_L, Wide>(Hs, H, n, 0, k, j0, n, hv);
     stage<QT_S, QT_KS, Slab>(Ws, W, k, begin, p, 0, k, wv);
@@ -123,9 +133,38 @@ objective_kernel(const float* __restrict__ X, const float* __restrict__ W,
                              32 + tx, QT_KS);
     else  // no slab is the block's own components: the first buffer only
       wh_rows_slabs(wh, Ws, Hs, W, H, i0, j0, p, n, k, -1, ty, tx, wv, hv);
-    s += (double)step_terms<KIND>(Xb, wh, ty, tx);
+    const float t = step_terms<KIND, RATIO>(Xb, wh, ty, tx);
+    finite &= fabsf(t) <= FLT_MAX;
+    s += (double)t;
   }
   cp_wait<0>();
+  return s;
+}
+
+// One partial a block: the walk over rows begin .. begin + run of the block's
+// 256 columns j0 = QT_L blockIdx.x.. .  KL walks with the quotient form; a
+// block with a step sum that is not finite (a quotient div_rn could not
+// form, or an inf or NaN in X or W @ H) walks its run again with two logf,
+// as the plain version forms the term.  vec: quotient_tile.cuh's vec_bits.
+template <bool ONE, int KIND>
+__global__ void __launch_bounds__(QT_NT, 1)
+objective_kernel(const float* __restrict__ X, const float* __restrict__ W,
+                 const float* __restrict__ H, double* __restrict__ partial,
+                 int p, int n, int k, int vec, int run) {
+  extern __shared__ __align__(16) float sm[];
+  __shared__ double warp_sum[QT_NT / 32];
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int ty = 4 * (warp & 1) + (lane >> 3);
+  const int tx = 8 * (warp >> 1) + (lane & 7);
+  const int j0 = blockIdx.x * QT_L;
+  const int begin = blockIdx.z * run, end = min(p, begin + run);
+  const int steps = end > begin ? (end - begin + QT_S - 1) / QT_S : 0;
+  bool finite = true;
+  double s = walk<ONE, KIND, KIND == 1>(X, W, H, p, n, k, vec, begin, steps,
+                                        j0, sm, ty, tx, finite);
+  if (KIND == 1 && __syncthreads_or(!finite))
+    s = walk<ONE, KIND, false>(X, W, H, p, n, k, vec, begin, steps, j0, sm, ty,
+                               tx, finite);
 
 #pragma unroll
   for (int off = 16; off; off >>= 1) s += __shfl_down_sync(0xffffffffu, s, off);

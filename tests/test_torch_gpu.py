@@ -307,6 +307,21 @@ def test_objective_kernel_at_extreme_entries(card):
         assert torch.equal(got, fn(X, W, H))
 
 
+def test_objective_kernel_where_the_quotient_leaves_the_float_range(card):
+    """Kernel 6 takes the KL term as x * log(x / wh) with a branch-free
+    division; where W @ H is subnormal that division cannot be formed, and
+    the block walks its run again with two logf: still within 2e-5 of
+    float64, the same bits twice."""
+    X, W, H = _dense_problem(300, 280, 8, card)
+    W[5] = 0.0
+    W[5, 0] = 1e-39  # row 5 of W @ H subnormal, X's row 5 positive there
+    X[5] = X[5].abs() + 0.5
+    got = tobj.kl_objective_kernel(X, W, H)
+    want = float(tobj.dense_objective_plain(X.double(), W.double(), H.double(), "kl"))
+    assert abs(float(got) - want) <= 2e-5 * abs(want)
+    assert torch.equal(got, tobj.kl_objective_kernel(X, W, H))
+
+
 def test_dense_wrappers_refuse_what_the_kernels_do_not_take(card):
     X, W, H = _dense_problem(64, 80, 4, card)
     with pytest.raises(ValueError, match="X must be contiguous"):

@@ -65,12 +65,9 @@ _ROWS_LOOP = "#pragma unroll 2\n  for (int q = 0; q < depth / 4; ++q) {\n"
 
 _STEP_F = "__device__ __forceinline__ float step_terms("
 _STEP_T = "  float t = 0.f, t1 = 0.f;\n#pragma unroll\n  for (int u = 0; u < 8; ++u)\n"
-_STEP_ADD = "    s += (double)step_terms<KIND>(Xb, wh, ty, tx);\n"
-_KL = ("  const float lx = logf(x > 0.f ? x : 1.f), lw = logf(w > 0.f ? w : 1.f);\n"
-       "  return x > 0.f ? x * (lx - lw) - x + w : w;\n")
-_KL_RATIO = ("  const float a = x > 0.f ? x : 1.f, y = w > 0.f ? w : 1.f;\n"
-             "  bool ok = true;\n"
-             "  return x > 0.f ? x * logf(QUOTIENT) - x + w : w;\n")
+_STEP_SUM = "    const float t = step_terms<KIND, RATIO>(Xb, wh, ty, tx);\n"
+_FAST_WALK = "  double s = walk<ONE, KIND, KIND == 1>("
+_RATIO_LOG = "    const float l = logf(div_rn(a, y, unused));\n"
 _TERM_BODY = "  if (KIND == 0) {\n    const float d = x - w;\n"
 
 QUOTIENTS = ("wtq", "qht")
@@ -97,34 +94,23 @@ VARIANTS = {
                       [(_ROWS_LOOP, _ROWS_LOOP.replace("unroll 2", "unroll 4"))]),
     "qht_second_unroll_1": (QUOTIENTS, [(_QHT_LOOP, _QHT_LOOP.replace("unroll 2", "unroll 1"))]),
     # the objective: each term added to a double (the source: a step's 64
-    # terms summed in float32 first); the KL term as one logf of x / wh,
-    # divided with div_rn (its range check ignored) or with '/' (the source:
-    # log x - log wh, two logf); its last three operations as one FMA; the
-    # step's terms in one running sum (the source: two); the logarithms'
-    # arguments declared positive to the compiler;
-    # without its logf, which says what the two
-    # cost; no term at all (x + wh summed), which says what the terms cost
-    # over the W @ H tile and its staging
+    # terms summed in float32 first); the KL term as log x - log wh (two
+    # logf; the source: one logf of x / wh, the division by div_rn), or with
+    # the division by '/'; the step's terms in one running sum (the source:
+    # two); without logf, which says what the logarithms cost; no term at
+    # all (x + wh summed), which says what the terms cost over the W @ H
+    # tile and its staging
     "objective_double_per_entry": (OBJECTIVES, [
         (_STEP_F, _STEP_F.replace("float", "double")),
         (_STEP_T, _STEP_T.replace("float t = 0.f, t1 = 0.f", "double t = 0.0, t1 = 0.0")),
-        (_STEP_ADD, _STEP_ADD.replace("(double)", ""))]),
-    "objective_ratio_div_rn": (OBJECTIVES, [
-        (_KL, _KL_RATIO.replace("QUOTIENT", "div_rn(a, y, ok)"))]),
-    "objective_ratio_slash": (OBJECTIVES, [(_KL, _KL_RATIO.replace("QUOTIENT", "a / y"))]),
-    "objective_kl_one_fma": (OBJECTIVES, [
-        (_KL, _KL.replace("x * (lx - lw) - x + w", "fmaf(x, (lx - lw) - 1.f, w)"))]),
+        (_STEP_SUM, _STEP_SUM.replace("const float t", "const double t"))]),
+    "objective_two_logs": (OBJECTIVES, [(_FAST_WALK, "  double s = walk<ONE, KIND, false>(")]),
+    "objective_ratio_slash": (OBJECTIVES, [(_RATIO_LOG, "    const float l = logf(a / y);\n")]),
     "objective_one_sum": (OBJECTIVES, [
         (_STEP_T, _STEP_T.replace("float t = 0.f, t1 = 0.f", "float t = 0.f")),
-        ("      t1 += term<KIND>(x.z", "      t += term<KIND>(x.z"),
-        ("      t1 += term<KIND>(x.w", "      t += term<KIND>(x.w"),
+        ("      t1 += term<KIND, RATIO>(x.z", "      t += term<KIND, RATIO>(x.z"),
+        ("      t1 += term<KIND, RATIO>(x.w", "      t += term<KIND, RATIO>(x.w"),
         ("  return t + t1;\n", "  return t;\n")]),
-    "objective_assume_positive": (OBJECTIVES, [
-        (_KL, "  const float xs = x > 0.f ? x : 1.f, ws = w > 0.f ? w : 1.f;\n"
-              "  __builtin_assume(xs > 0.f);\n"
-              "  __builtin_assume(ws > 0.f);\n"
-              "  const float lx = logf(xs), lw = logf(ws);\n"
-              "  return x > 0.f ? x * (lx - lw) - x + w : w;\n")]),
     "objective_no_log": (OBJECTIVES, [("logf(", "(")]),
     "objective_no_term": (OBJECTIVES, [(_TERM_BODY, "  return x + w;\n" + _TERM_BODY)]),
 }
