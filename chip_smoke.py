@@ -453,15 +453,21 @@ def check_sddmm(X, W, H, label, timed, cls="chunk"):
     if cls == "quad":
         name, kern, plain = "quad_sddmm", S.quad_sddmm, S.quad_sddmm_plain
         n_slots = side.n_qchunks * TILE
-        # the function's own traffic: two coordinates in and one float out a
-        # slot, the windows' and sub-segments' metadata, both factors
-        meta_words = side.q_rp.numel() + side.qwin_panel.numel() + side.qwin_stripe.numel()
-        slot_bytes = 3 * 4 * n_slots
+        # a sub-segment's entries sit at its front: one count and one row
+        # panel a sub-segment, the two coordinates of its entries only, one
+        # float out at every slot
+        meta_words = (side.qseg_nreal.numel() + side.q_rp.numel()
+                      + side.qwin_panel.numel() + side.qwin_stripe.numel())
+        n_real = int(side.qseg_nreal.sum())
+        slot_bytes = 4 * n_slots + 2 * 4 * n_real
     else:
         name, kern, plain = "chunk_sddmm", S.chunk_sddmm, S.chunk_sddmm_plain
         n_slots = side.coords.numel()
-        meta_words = side.chunk_rp.numel() + side.win_panel.numel() + side.win_stripe.numel()
-        slot_bytes = 2 * 4 * n_slots
+        # a chunk's entries sit at its front: one count a chunk, the
+        # coordinates of its entries only, one float out at every slot
+        meta_words = side.chunk_nreal.numel() + side.win_panel.numel() + side.win_stripe.numel()
+        n_real = int(side.chunk_nreal.sum())
+        slot_bytes = 4 * n_slots + 4 * n_real
     if not n_slots:
         fail(f"{label}: the store has no {cls} slot to sample")
     got = kern(side, w32, ht)
@@ -498,7 +504,7 @@ def check_sddmm(X, W, H, label, timed, cls="chunk"):
         if not lerr <= 1e-4 * lscale:
             fail(f"{label} {name}: yardstick disagrees ({lerr})")
         del rows, ref, lib
-        # the function's own traffic: coordinates in, one float a slot out,
+        # the function's own traffic: the slots' coordinates and outputs,
         # the metadata and both factors
         nbytes = slot_bytes + 4 * meta_words + 4 * k * (side.rows + side.cols)
         flops = 2 * nnz * k
@@ -513,9 +519,10 @@ def check_sddmm(X, W, H, label, timed, cls="chunk"):
             slots=n_slots,
             # read by this kernel on top of the floor: kernel 4 the refresh
             # map at the real slots and a W panel a piece; kernel 5 the
-            # refresh map, which marks the padding slots
-            extra_bytes=(4 * nnz + 4 * k * TILE * side.piece_panel.numel()
-                         if cls == "chunk" else 4 * n_slots),
+            # refresh map, which marks the padding slots, and the
+            # coordinates of those
+            extra_bytes=(4 * n_real + 4 * k * TILE * side.piece_panel.numel()
+                         if cls == "chunk" else 4 * n_slots + 8 * (n_slots - n_real)),
         )
         r["mnnz_per_s"] = nnz / r["ms"] / 1e3
     return r

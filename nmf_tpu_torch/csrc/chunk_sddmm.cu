@@ -24,10 +24,10 @@
 // SD_SLOTS real slots at a time.  Then the block walks the tabled slots
 // only: a group of G lanes (a power of two, 16 floats a lane at most: G = 8
 // at k = 128; the wrapper's ops/cuda/sparse.py:sddmm_lanes) samples a slot,
-// SD_U slots at once, so that nothing but the H gathers stands between the
-// tables and the sums; each lane sums its floats in increasing order and the
-// group adds the lanes' sums with a butterfly of shuffles in a fixed order,
-// so two runs give the same bits and nothing is atomic.  Padding slots are
+// so that nothing but the H gathers stands between the tables and the sums;
+// each lane sums its floats in increasing order and the group adds the
+// lanes' sums with a butterfly of shuffles in a fixed order, so two runs
+// give the same bits and nothing is atomic.  Padding slots are
 // written 0: a chunk's tail by its piece's block, and the chunks without
 // entries (listed in no piece) by the blocks past the pieces,
 // SD_ZERO_CHUNKS chunks each.  Every slot is written once.  A chunk tile may
@@ -52,7 +52,6 @@
 #define SD_NT 512           // threads a block
 #define SD_STAGE_K 192      // largest k whose W panel is staged in shared memory
 #define SD_ZERO_CHUNKS 256  // chunks a zeroing block covers
-#define SD_U 1              // slots a group of lanes samples at once
 #define SD_SLOTS 2048       // real slots whose coordinates a block tables at once
 #define SD_PASS 8           // slots a thread reads at once when it fills the tables
 
@@ -96,54 +95,45 @@ __device__ __forceinline__ void block_scan(int v, int* scan, int* warp_tot) {
 // order) of one slot; ``ok``: the slot is real (else 0, nothing read).
 // VEC: k % 4 == 0 and both rows 16-byte aligned, float4 a step.
 template <bool VEC>
-__device__ __forceinline__ void lane_dots(float (&acc)[SD_U],
-                                          const float* (&w)[SD_U],
-                                          const float* (&h)[SD_U],
-                                          const bool (&ok)[SD_U], int l, int G,
-                                          int k) {
+__device__ __forceinline__ float lane_dot(const float* w, const float* h,
+                                          bool ok, int l, int G, int k) {
   const int len = VEC ? k >> 2 : k;
+  float acc = 0.f;
   for (int j0 = l; j0 < len; j0 += 4 * G) {
     if (VEC) {
-      float4 hb[SD_U][4];  // the gathers first, all in flight together
+      float4 hb[4];  // the gathers first, all in flight together
 #pragma unroll
-      for (int u = 0; u < SD_U; ++u)
+      for (int t = 0; t < 4; ++t) {
+        const int j = j0 + t * G;
+        hb[t] = ok && j < len ? reinterpret_cast<const float4*>(h)[j]
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int j = j0 + t * G;
-          hb[u][t] = ok[u] && j < len ? reinterpret_cast<const float4*>(h[u])[j]
-                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+      for (int t = 0; t < 4; ++t) {
+        const int j = j0 + t * G;
+        if (ok && j < len) {
+          const float4 a = reinterpret_cast<const float4*>(w)[j];
+          acc = fmaf(a.x, hb[t].x, acc);
+          acc = fmaf(a.y, hb[t].y, acc);
+          acc = fmaf(a.z, hb[t].z, acc);
+          acc = fmaf(a.w, hb[t].w, acc);
         }
-#pragma unroll
-      for (int u = 0; u < SD_U; ++u)
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int j = j0 + t * G;
-          if (ok[u] && j < len) {
-            const float4 a = reinterpret_cast<const float4*>(w[u])[j];
-            acc[u] = fmaf(a.x, hb[u][t].x, acc[u]);
-            acc[u] = fmaf(a.y, hb[u][t].y, acc[u]);
-            acc[u] = fmaf(a.z, hb[u][t].z, acc[u]);
-            acc[u] = fmaf(a.w, hb[u][t].w, acc[u]);
-          }
-        }
+      }
     } else {
-      float hb[SD_U][4];
+      float hb[4];
 #pragma unroll
-      for (int u = 0; u < SD_U; ++u)
+      for (int t = 0; t < 4; ++t) {
+        const int j = j0 + t * G;
+        hb[t] = ok && j < len ? h[j] : 0.f;
+      }
 #pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int j = j0 + t * G;
-          hb[u][t] = ok[u] && j < len ? h[u][j] : 0.f;
-        }
-#pragma unroll
-      for (int u = 0; u < SD_U; ++u)
-#pragma unroll
-        for (int t = 0; t < 4; ++t) {
-          const int j = j0 + t * G;
-          if (ok[u] && j < len) acc[u] = fmaf(w[u][j], hb[u][t], acc[u]);
-        }
+      for (int t = 0; t < 4; ++t) {
+        const int j = j0 + t * G;
+        if (ok && j < len) acc = fmaf(w[j], hb[t], acc);
+      }
     }
   }
+  return acc;
 }
 
 // Blocks 0 .. n_pieces - 1: one piece each; the rest zero the chunks without
@@ -198,8 +188,7 @@ chunk_sddmm_kernel(const int* __restrict__ piece_ptr,
   }
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int l = lane & (g - 1), gw = lane / g;  // lane in its group, group in the warp
-  const int groups = 32 / g;                    // groups a warp
-  const int per_warp = groups * SD_U;           // slots a warp takes a round
+  const int groups = 32 / g;                    // groups a warp: slots a round
 
   for (int b0 = pbeg; b0 < pend; b0 += SD_NT) {
     const int nb = min(SD_NT, pend - b0);
@@ -249,34 +238,20 @@ chunk_sddmm_kernel(const int* __restrict__ piece_ptr,
       if (STAGED && b0 == pbeg && w0 == 0) cp_wait<0>();
       __syncthreads();
       const int ne = min(SD_SLOTS, total - w0);
-      // SD_U slots a group at once; every lane of a warp takes the same
-      // number of rounds (the shuffles want the whole warp)
-      for (int base = warp * per_warp; base < ne; base += (SD_NT / 32) * per_warp) {
-        int slot[SD_U];
-        bool ok[SD_U], mine[SD_U];
-        const float* w[SD_U];
-        const float* h[SD_U];
-#pragma unroll
-        for (int u = 0; u < SD_U; ++u) {
-          const int e = base + u * groups + gw;
-          mine[u] = e < ne;
-          const int hw = mine[u] ? tab_hw[e] : -1;
-          slot[u] = mine[u] ? tab_slot[e] : 0;
-          ok[u] = hw >= 0;
-          const int lrow = hw & (TILE - 1), col = hw >> 7;
-          w[u] = STAGED ? Ws + lrow * kp : W + (size_t)(r0 + lrow) * k;
-          h[u] = Ht + (size_t)col * k;
-        }
-        float acc[SD_U];
-#pragma unroll
-        for (int u = 0; u < SD_U; ++u) acc[u] = 0.f;
-        lane_dots<VEC>(acc, w, h, ok, l, g, k);
-#pragma unroll
-        for (int u = 0; u < SD_U; ++u) {
-          for (int off = g >> 1; off; off >>= 1)
-            acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
-          if (mine[u] && l == 0) out[slot[u]] = acc[u];
-        }
+      // a slot a group; every lane of a warp takes the same number of
+      // rounds (the shuffles want the whole warp)
+      for (int base = warp * groups; base < ne; base += (SD_NT / 32) * groups) {
+        const int e = base + gw;
+        const bool mine = e < ne;
+        const int hw = mine ? tab_hw[e] : -1;
+        const int slot = mine ? tab_slot[e] : 0;
+        const int lrow = hw & (TILE - 1), col = hw >> 7;
+        const float* w = STAGED ? Ws + lrow * kp : W + (size_t)(r0 + lrow) * k;
+        const float* h = Ht + (size_t)col * k;
+        float acc = lane_dot<VEC>(w, h, hw >= 0, l, g, k);
+        for (int off = g >> 1; off; off >>= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (mine && l == 0) out[slot] = acc;
       }
       __syncthreads();  // the tables are read
     }

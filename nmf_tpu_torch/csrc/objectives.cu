@@ -51,10 +51,16 @@ using namespace quotient_tile;
 // 0, x * (log x - log w) - x + w with w <= 0 read as 1; x = 0 (or NaN) adds
 // w.  RATIO takes that as x * log(x / w) - x + w: one logf of the quotient
 // (divided without a branch, div_rn) in place of two, the same function
-// with fewer instructions.  Where div_rn cannot form the quotient (an
-// operand near the ends of the float range) the term is not finite, and the
-// caller takes the other form.  Both forms take the logarithm outside the
-// select, so that no entry branches and the 64 terms of a step interleave.
+// with fewer instructions.  div_rn's range flag (both operands within
+// 2^-64 .. 2^64, where the quotient itself is used) is not read: the term
+// uses only the quotient's logarithm, times x.  Where the division fails (w
+// subnormal or above 2^126, x / w overflowing or rounding to 0) the
+// quotient is 0, inf or NaN, the term is not finite, and the caller takes
+// the other form.  A subnormal quotient keeps fewer bits: an error in the
+// term of about w * 2^-149 at most, far below its w.  The card tests hold
+// the objective at operands outside 2^-64 .. 2^64 (tests/test_torch_gpu.py).
+// Both forms take the logarithm outside the select, so that no entry
+// branches and the 64 terms of a step interleave.
 template <int KIND, bool RATIO>
 __device__ __forceinline__ float term(float x, float w) {
   if (KIND == 0) {
@@ -63,7 +69,7 @@ __device__ __forceinline__ float term(float x, float w) {
   }
   const float a = x > 0.f ? x : 1.f, y = w > 0.f ? w : 1.f;
   if (RATIO) {
-    bool unused = true;  // a quotient out of its range shows in the term
+    bool unused = true;  // the range flag: see above
     const float l = logf(div_rn(a, y, unused));
     return x > 0.f ? x * l - x + w : w;
   }

@@ -9,6 +9,7 @@ only PyTorch is installed::
 """
 
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -319,6 +320,34 @@ def test_objective_kernel_where_the_quotient_leaves_the_float_range(card):
     got = tobj.kl_objective_kernel(X, W, H)
     want = float(tobj.dense_objective_plain(X.double(), W.double(), H.double(), "kl"))
     assert abs(float(got) - want) <= 2e-5 * abs(want)
+    assert torch.equal(got, tobj.kl_objective_kernel(X, W, H))
+
+
+@pytest.mark.parametrize("case", ["wh_above_2^64", "x_below_2^-64", "wh_above_2^126"])
+def test_objective_kernel_where_the_operands_leave_the_divisions_range(card, case):
+    """Kernel 6's KL term where an operand of x / wh lies outside 2^-64 ..
+    2^64, the range in which the divergence products use the quotient: wh
+    near 1e25 (with x of 1, 1e-20, so that the quotient is subnormal, and
+    0); x from 1e-20 down to subnormal 1e-45 against wh near 1; one wh of
+    2e38, whose reciprocal the division flushes to 0, so that the block
+    walks its run again with two logf.  Within 2e-5 of float64, the same
+    bits twice."""
+    X, W, H = _dense_problem(300, 280, 8, card)
+    if case == "wh_above_2^64":
+        W[5] *= 1e25
+        X[5, :100] = 1.0
+        X[5, 100:200] = 1e-20
+        X[5, 200:] = 0.0
+    elif case == "x_below_2^-64":
+        X[7] = torch.tensor([1e-20, 1e-30, 1e-38, 1e-40, 1e-45, 0.0, 5e-20],
+                            device=card).repeat(40)
+    else:
+        W[5] = 0.0
+        W[5, 0], H[0, 7] = 1e19, 2e19
+        X[5, 7] = 0.5
+    got = tobj.kl_objective_kernel(X, W, H)
+    want = float(tobj.dense_objective_plain(X.double(), W.double(), H.double(), "kl"))
+    assert math.isfinite(float(got)) and abs(float(got) - want) <= 2e-5 * abs(want)
     assert torch.equal(got, tobj.kl_objective_kernel(X, W, H))
 
 

@@ -165,23 +165,52 @@ def test_dense_problem_check_settles_layout_and_vector_width():
                                 torch.zeros(0, 400), "wtq")
 
 
-@pytest.mark.parametrize("source, limit", [
-    ("mu.cu", (("MU_KS", "MU_SLAB"),)),
-    # the W @ H tile of wtq, qht and the objective: its slab depth
-    ("quotient_tile.cuh", (("QT_KS", "QT_SLAB"),)),
+def _with_headers(source, seen=None):
+    """The text of a source and of the port's headers it includes, each
+    once."""
+    seen = set() if seen is None else seen
+    seen.add(source)
+    text = (CSRC / source).read_text()
+    for header in re.findall(r'#include\s+"([^"]+)"', text):
+        if header not in seen:
+            text += _with_headers(header, seen)
+    return text
+
+
+def _shared_bytes(text, define):
+    """The value of the shared-memory size ``define`` of a source, its
+    operands taken from the numeric defines of the text."""
+    numbers = dict(re.findall(r"#define\s+(\w+)\s+(\d+)\b", text))
+    expr = re.search(rf"#define\s+{define}\s+(\(.*\))\s*$", text, re.M).group(1)
+    expr = re.sub(r"[A-Za-z_]\w*", lambda m: numbers[m.group(0)], expr)
+    assert re.fullmatch(r"[\d\s()+*]+", expr)
+    return eval(expr)
+
+
+@pytest.mark.parametrize("source, limit, smem", [
+    ("mu.cu", (("MU_KS", "MU_SLAB"),), "QT_SMEM"),
     # wtq / qht / the objective: the slab depth, the output edge a block
     # owns, the walk's step
     ("quotient_tile.cuh", (("QT_KS", "QT_SLAB"), ("QT_L", "QT_EDGE"),
-                           ("QT_S", "QT_STEP"))),
+                           ("QT_S", "QT_STEP")), None),
+    # the objective: its grid of QT_L columns a block, by which the wrapper
+    # sizes the partials; its shared memory (the H slab, two W slabs, two X
+    # tiles) within a block's
+    ("objectives.cu", (("QT_L", "QT_EDGE"),), "OBJ_SMEM"),
 ])
-def test_largest_k_stated_in_the_sources_is_the_wrappers(source, limit):
+def test_largest_k_stated_in_the_sources_is_the_wrappers(source, limit, smem):
     """No kernel states a largest k any more (any k fits: the reduction runs
-    in slabs); the slab width each source defines is the wrapper's, and the
-    notes of the three dense sources say that any k fits."""
-    text = (CSRC / source).read_text()
+    in slabs); the slab width and edges each source uses (itself or through
+    the headers it includes) are the wrapper's, its shared memory fits a
+    block's, and the notes of the three dense sources say that any k fits."""
+    text = _with_headers(source)
     for define, name in limit:
         stated = re.findall(rf"#define\s+{define}\s+(\d+)", text)
         assert [int(v) for v in stated] == [getattr(tmu, name)]
+    if smem is not None:
+        assert 0 < _shared_bytes(text, smem) <= build.SMEM_PER_BLOCK
+    if source == "objectives.cu":
+        assert re.search(r"grid\(\(n \+ QT_L - 1\) / QT_L,", text)
     for src in ("mu.cu", "objectives.cu", "quotient_tile.cuh"):
         text = (CSRC / src).read_text().replace("//", "")
         assert not re.search(r"largest\s+k\s+is", text), src

@@ -14,11 +14,12 @@ kernel), built into ``_cache/sddmm/`` (ignored by git), all ``nvcc``
 started together, and launched through the tree's own wrapper, its entry
 point swapped for the variant's.  The variants take parts of the work away
 (the gathers of W or of H, or both; they change the result) or change the
-tree's design (SD_U, the lanes a slot, the staged panel), and so say where
-the time goes.  For each: ms (L2 flushed, median of 9, taken in three
-passes over all the variants in turns; the median pass and each), the error
-against the plain version run in float64, whether two runs give the same
-bits, and the registers ``ptxas`` reports for the kernel's instances.
+tree's design (the slots a group samples at once, the lanes a slot, the
+staged panel), and so say where the time goes.  For each: ms (L2 flushed,
+median of 9, taken in three passes over all the variants in turns; the
+median pass and each), the error against the plain version run in float64,
+whether two runs give the same bits, and the registers ``ptxas`` reports
+for the kernel's instances.
 Prints one JSON line with the card's name and power limit."""
 
 import ctypes
@@ -40,14 +41,172 @@ _WARP_LOADS = ("        const float4 a = w4[j];\n"
 _WARP_H = "    const float* h = Ht + (size_t)__shfl_sync(0xffffffffu, col, s) * k;\n"
 _WARP_W = "    const float* w = W + (size_t)__shfl_sync(0xffffffffu, row, s) * k;\n"
 # the kernel that walks pieces (chunk_sddmm.cu)
-_PIECE_H = "          h[u] = Ht + (size_t)col * k;\n"
-_PIECE_HLOAD = ("          hb[u][t] = ok[u] && j < len ? reinterpret_cast<const float4*>(h[u])[j]\n"
-                "                                      : make_float4(0.f, 0.f, 0.f, 0.f);\n")
+_PIECE_H = "        const float* h = Ht + (size_t)col * k;\n"
+_PIECE_HLOAD = ("        hb[t] = ok && j < len ? reinterpret_cast<const float4*>(h)[j]\n"
+                "                              : make_float4(0.f, 0.f, 0.f, 0.f);\n")
 _STAGE_K = "#define SD_STAGE_K 192 "
-_U = "#define SD_U 1 "
 _NT = "#define SD_NT 512 "
 _SLOTS = "#define SD_SLOTS 2048 "
 _PASS = "#define SD_PASS 8 "
+
+# the walk of one slot a group (the source) and of SD_U slots a group at
+# once, the gathers of all SD_U in flight together (the form before the
+# source took one)
+_ONE_DOT = r'''// sum_j w[j] h[j] over this lane's share (j = l, l + G, ..., in increasing
+// order) of one slot; ``ok``: the slot is real (else 0, nothing read).
+// VEC: k % 4 == 0 and both rows 16-byte aligned, float4 a step.
+template <bool VEC>
+__device__ __forceinline__ float lane_dot(const float* w, const float* h,
+                                          bool ok, int l, int G, int k) {
+  const int len = VEC ? k >> 2 : k;
+  float acc = 0.f;
+  for (int j0 = l; j0 < len; j0 += 4 * G) {
+    if (VEC) {
+      float4 hb[4];  // the gathers first, all in flight together
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int j = j0 + t * G;
+        hb[t] = ok && j < len ? reinterpret_cast<const float4*>(h)[j]
+                              : make_float4(0.f, 0.f, 0.f, 0.f);
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int j = j0 + t * G;
+        if (ok && j < len) {
+          const float4 a = reinterpret_cast<const float4*>(w)[j];
+          acc = fmaf(a.x, hb[t].x, acc);
+          acc = fmaf(a.y, hb[t].y, acc);
+          acc = fmaf(a.z, hb[t].z, acc);
+          acc = fmaf(a.w, hb[t].w, acc);
+        }
+      }
+    } else {
+      float hb[4];
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int j = j0 + t * G;
+        hb[t] = ok && j < len ? h[j] : 0.f;
+      }
+#pragma unroll
+      for (int t = 0; t < 4; ++t) {
+        const int j = j0 + t * G;
+        if (ok && j < len) acc = fmaf(w[j], hb[t], acc);
+      }
+    }
+  }
+  return acc;
+}
+
+'''
+_MULTI_DOT = r'''// sum_j w[j] h[j] over this lane's share (j = l, l + G, ..., in increasing
+// order) of one slot; ``ok``: the slot is real (else 0, nothing read).
+// VEC: k % 4 == 0 and both rows 16-byte aligned, float4 a step.
+template <bool VEC>
+__device__ __forceinline__ void lane_dots(float (&acc)[SD_U],
+                                          const float* (&w)[SD_U],
+                                          const float* (&h)[SD_U],
+                                          const bool (&ok)[SD_U], int l, int G,
+                                          int k) {
+  const int len = VEC ? k >> 2 : k;
+  for (int j0 = l; j0 < len; j0 += 4 * G) {
+    if (VEC) {
+      float4 hb[SD_U][4];  // the gathers first, all in flight together
+#pragma unroll
+      for (int u = 0; u < SD_U; ++u)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int j = j0 + t * G;
+          hb[u][t] = ok[u] && j < len ? reinterpret_cast<const float4*>(h[u])[j]
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        }
+#pragma unroll
+      for (int u = 0; u < SD_U; ++u)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int j = j0 + t * G;
+          if (ok[u] && j < len) {
+            const float4 a = reinterpret_cast<const float4*>(w[u])[j];
+            acc[u] = fmaf(a.x, hb[u][t].x, acc[u]);
+            acc[u] = fmaf(a.y, hb[u][t].y, acc[u]);
+            acc[u] = fmaf(a.z, hb[u][t].z, acc[u]);
+            acc[u] = fmaf(a.w, hb[u][t].w, acc[u]);
+          }
+        }
+    } else {
+      float hb[SD_U][4];
+#pragma unroll
+      for (int u = 0; u < SD_U; ++u)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int j = j0 + t * G;
+          hb[u][t] = ok[u] && j < len ? h[u][j] : 0.f;
+        }
+#pragma unroll
+      for (int u = 0; u < SD_U; ++u)
+#pragma unroll
+        for (int t = 0; t < 4; ++t) {
+          const int j = j0 + t * G;
+          if (ok[u] && j < len) acc[u] = fmaf(w[u][j], hb[u][t], acc[u]);
+        }
+    }
+  }
+}
+
+'''
+_ONE_WALK = r'''      // a slot a group; every lane of a warp takes the same number of
+      // rounds (the shuffles want the whole warp)
+      for (int base = warp * groups; base < ne; base += (SD_NT / 32) * groups) {
+        const int e = base + gw;
+        const bool mine = e < ne;
+        const int hw = mine ? tab_hw[e] : -1;
+        const int slot = mine ? tab_slot[e] : 0;
+        const int lrow = hw & (TILE - 1), col = hw >> 7;
+        const float* w = STAGED ? Ws + lrow * kp : W + (size_t)(r0 + lrow) * k;
+        const float* h = Ht + (size_t)col * k;
+        float acc = lane_dot<VEC>(w, h, hw >= 0, l, g, k);
+        for (int off = g >> 1; off; off >>= 1)
+          acc += __shfl_xor_sync(0xffffffffu, acc, off);
+        if (mine && l == 0) out[slot] = acc;
+      }
+'''
+_MULTI_WALK = r'''      const int per_warp = groups * SD_U;  // slots a warp takes a round
+      // SD_U slots a group at once; every lane of a warp takes the same
+      // number of rounds (the shuffles want the whole warp)
+      for (int base = warp * per_warp; base < ne; base += (SD_NT / 32) * per_warp) {
+        int slot[SD_U];
+        bool ok[SD_U], mine[SD_U];
+        const float* w[SD_U];
+        const float* h[SD_U];
+#pragma unroll
+        for (int u = 0; u < SD_U; ++u) {
+          const int e = base + u * groups + gw;
+          mine[u] = e < ne;
+          const int hw = mine[u] ? tab_hw[e] : -1;
+          slot[u] = mine[u] ? tab_slot[e] : 0;
+          ok[u] = hw >= 0;
+          const int lrow = hw & (TILE - 1), col = hw >> 7;
+          w[u] = STAGED ? Ws + lrow * kp : W + (size_t)(r0 + lrow) * k;
+          h[u] = Ht + (size_t)col * k;
+        }
+        float acc[SD_U];
+#pragma unroll
+        for (int u = 0; u < SD_U; ++u) acc[u] = 0.f;
+        lane_dots<VEC>(acc, w, h, ok, l, g, k);
+#pragma unroll
+        for (int u = 0; u < SD_U; ++u) {
+          for (int off = g >> 1; off; off >>= 1)
+            acc[u] += __shfl_xor_sync(0xffffffffu, acc[u], off);
+          if (mine[u] && l == 0) out[slot[u]] = acc[u];
+        }
+      }
+'''
+
+
+def _slots_at_once(u):
+    """The edits that make a group sample ``u`` slots at once."""
+    return [(_ONE_DOT, f"#define SD_U {u}\n\n" + _MULTI_DOT),
+            (_ONE_WALK, _MULTI_WALK)]
+
 
 # name: [(text in a source, its replacement), ...]
 VARIANTS = {
@@ -63,11 +222,11 @@ VARIANTS = {
     # (the source: one); blocks of 256 or 1024 threads; tables of 1024
     # slots; four slots' loads in flight a thread in the table pass; other
     # lanes a slot (set through the wrapper below)
-    "piece_h_row0": [(_PIECE_H, "          h[u] = Ht;\n")],
-    "piece_no_h_loads": [(_PIECE_HLOAD, "          hb[u][t] = make_float4(1.f, 1.f, 1.f, 1.f);\n")],
+    "piece_h_row0": [(_PIECE_H, "        const float* h = Ht;\n")],
+    "piece_no_h_loads": [(_PIECE_HLOAD, "        hb[t] = make_float4(1.f, 1.f, 1.f, 1.f);\n")],
     "piece_w_gathered": [(_STAGE_K, "#define SD_STAGE_K 0 ")],
-    "piece_u2": [(_U, "#define SD_U 2 ")],
-    "piece_u4": [(_U, "#define SD_U 4 ")],
+    "piece_u2": _slots_at_once(2),
+    "piece_u4": _slots_at_once(4),
     "piece_nt_256": [(_NT, "#define SD_NT 256 ")],
     "piece_nt_1024": [(_NT, "#define SD_NT 1024 ")],
     "piece_slots_1024": [(_SLOTS, "#define SD_SLOTS 1024 ")],
