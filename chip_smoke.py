@@ -25,14 +25,18 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
   the dense problem.
 
 Kernels 8, 9 and 6 are also held at ragged shapes, unaligned rows and k on
-both sides of a slab (phase ``kernels_dense_edges``), kernel 4 at k on both
-sides of its lanes' and its staged panel's widths, on wide tail tiles and on
-a store of nearly all padding (phase ``kernels_sddmm_edges``).  The dense
-kernels are also timed at the small problems' shapes, where most of their
-launches are (phases ``kernels_dense_ttt1`` and ``kernels_dense_ttt2``: kernel
-7, kernels 8 and 9), and kernel 10 at the dense problem's factors; the
-``kernels`` line gives such a kernel's times and launches shape by shape
-(``by_shape``).
+both sides of a slab (phase ``kernels_dense_edges``), kernels 4 and 5 at k
+on both sides of their lanes' and their staged panel's widths, on wide tail
+tiles, at seg 32 and 16 and on stores of nearly all padding (phase
+``kernels_sddmm_edges``).  Kernel 7 is timed at each of its tile widths
+(``ms_by_width``).  The dense kernels are also timed at the small problems'
+shapes, where most of their launches are (phases ``kernels_dense_ttt1`` and
+``kernels_dense_ttt2``: kernel 7, kernels 8 and 9), there also by their
+device time alone (``graph_ms``: 100 launches as one CUDA graph, replayed),
+and kernel 10 at the dense problem's factors; the ``kernels`` line gives
+such a kernel's times and launches shape by shape (``by_shape``), and the
+launch floor: the lightest launch ``time_ms`` can measure, and its device
+time (``launch_floor_ms``, ``launch_floor_graph_ms``).
 Kernels 1, 2 and 3 are also run with most row panels cut into several
 pieces (phase ``kernels_split``), and the products over the first store and
 five HALS iterations on it give the same bits twice (phase
@@ -167,6 +171,43 @@ def time_ms(fn, reps=5, warmup=1):
         torch.cuda.synchronize()
         out.append(a.elapsed_time(b))
     return statistics.median(out)
+
+
+def graph_ms(fn, launches=100, reps=5):
+    """Device milliseconds of one ``fn()`` with the host out of the way:
+    ``launches`` calls captured as one CUDA graph, replayed between two
+    events (median of ``reps`` replays after a warm-up one), divided by
+    ``launches``; L2 not flushed, as a small problem's operands stay in it
+    across a solve.  A measurement only: no solver path replays a graph."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, capture_error_mode="relaxed"):
+        for _ in range(launches):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    out = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b) / launches)
+    del graph
+    return statistics.median(out)
+
+
+def launch_floor():
+    """The lightest launch ``time_ms`` can measure (kernel 10 on one float,
+    through its wrapper), and its device time by ``graph_ms``: what a row of
+    the kernel table cannot go below."""
+    from nmf_tpu_torch.ops.cuda import elementwise as E
+
+    A = torch.ones((1, 1), device="cuda")
+    return {"ms": time_ms(lambda: E.projectnn(A)), "graph_ms": graph_ms(lambda: E.projectnn(A))}
 
 
 # ---------------------------------------------------------------------------
@@ -517,12 +558,10 @@ def check_sddmm(X, W, H, label, timed, cls="chunk"):
             tiled_sddmm_ms=time_ms(lambda: S.tiled_sddmm(X, W, H), reps=3),
             bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=flops, nnz=nnz,
             slots=n_slots,
-            # read by this kernel on top of the floor: kernel 4 the refresh
-            # map at the real slots and a W panel a piece; kernel 5 the
-            # refresh map, which marks the padding slots, and the
-            # coordinates of those
-            extra_bytes=(4 * n_real + 4 * k * TILE * side.piece_panel.numel()
-                         if cls == "chunk" else 4 * n_slots + 8 * (n_slots - n_real)),
+            # read by the kernel on top of the floor: the refresh map at
+            # the real slots and a W panel a piece
+            extra_bytes=4 * n_real + 4 * k * TILE * (
+                side.piece_panel if cls == "chunk" else side.qpiece_panel).numel(),
         )
         r["mnnz_per_s"] = nnz / r["ms"] / 1e3
     return r
@@ -533,13 +572,14 @@ def check_dense_kernels(X, W, H, label, timed):
     plain versions run in float64 on the card."""
     return {**check_quotients(X, W, H, label, timed, sweep=timed),
             "dense_objective": check_objective(X, W, H, label, timed, sweep=timed),
-            "mu_factor_update": check_factor_update(X, W, H, label, timed)}
+            "mu_factor_update": check_factor_update(X, W, H, label, timed, sweep=timed)}
 
 
-def check_quotients(X, W, H, label, timed, sweep=False):
+def check_quotients(X, W, H, label, timed, sweep=False, graph=False):
     """Kernels 8 and 9 against their plain versions run in float64 on the
     card; with ``sweep``, also timed with their walks cut into other numbers
-    of runs than the wrapper's rule picks (the evidence for that rule)."""
+    of runs than the wrapper's rule picks (the evidence for that rule); with
+    ``graph``, their device times by ``graph_ms``."""
     from nmf_tpu_torch.ops.cuda import mu as M
     from nmf_tpu_torch.utils.dtypes import sqrt_eps
 
@@ -561,6 +601,8 @@ def check_quotients(X, W, H, label, timed, sweep=False):
                      plain_ms=time_ms(lambda: plain(X, W, H, delta), reps=3),
                      bound_ms=bound_ms, bound_by=by)
             r["library_ms"] = r["plain_ms"]  # the one expression is the plain version
+        if graph:
+            r["graph_ms"] = graph_ms(lambda: fn(X, W, H, delta))
         if sweep:
             rule = M.walk_splits
             r["runs"] = rule(shape[1] if name == "wtq" else shape[0],
@@ -619,9 +661,11 @@ def check_objective(X, W, H, label, timed, sweep=False):
     return rec
 
 
-def check_factor_update(X, W, H, label, timed):
+def check_factor_update(X, W, H, label, timed, sweep=False, graph=False):
     """Kernel 7 as the H step and as the W step of the MSE sweep call it,
-    against its plain version run in float64 on the card."""
+    against its plain version run in float64 on the card; with ``sweep``,
+    also timed at every tile width it has (the evidence for the wrapper's
+    rule, ``mu_tiling``); with ``graph``, its device time by ``graph_ms``."""
     from nmf_tpu_torch.ops.cuda import mu as M
     from nmf_tpu_torch.utils.dtypes import sqrt_eps
 
@@ -631,22 +675,37 @@ def check_factor_update(X, W, H, label, timed):
     rec = {}
     G_h, C_h = W.T @ W, W.T @ X
     G_w, C_w = H @ H.T, X @ H.T
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
     for side, F, G, C in (("H", H, G_h, C_h), ("W", W.T, G_w, C_w.T)):
-        got = M.mu_factor_update(F, G, C, lam, delta)
+        run = lambda: M.mu_factor_update(F, G, C, lam, delta)  # noqa: E731
+        got = run()
         torch.cuda.synchronize()
         want = M.mu_factor_update_plain(F.double(), G.double(), C.double(), lam, delta)
         r = _held(f"{label} mu_factor_update {side}", got, want, REL_TOL, F.shape)
         if got.stride() != F.stride():
             fail(f"{label} mu_factor_update {side}: result layout differs from F's")
-        r["same_bits"] = _same_bits(f"{label} mu_factor_update {side}",
-                                    lambda: M.mu_factor_update(F, G, C, lam, delta))
+        r["same_bits"] = _same_bits(f"{label} mu_factor_update {side}", run)
+        r["tiling"] = M.mu_tiling(k, F.shape[1], sms)
         if timed:
             m = F.shape[1]
             bound_ms, by = bound_of(4 * (3 * k * m + k * k), 2 * k * k * m + 4 * k * m)
-            r.update(ms=time_ms(lambda: M.mu_factor_update(F, G, C, lam, delta)),
+            r.update(ms=time_ms(run),
                      plain_ms=time_ms(lambda: M.mu_factor_update_plain(F, G, C, lam, delta)),
                      bound_ms=bound_ms, bound_by=by)
             r["library_ms"] = r["plain_ms"]  # the plain expression
+        if graph:
+            r["graph_ms"] = graph_ms(run)
+        if sweep and k <= M.MU_SLAB:
+            rule = M.mu_tiling
+            r["ms_by_width"] = {}
+            try:
+                for w in M.MU_WIDTHS:
+                    M.mu_tiling = lambda k_, m_, n_, w=w: rule(k_, m_, n_, w)
+                    if not torch.equal(run(), got):
+                        fail(f"{label} mu_factor_update {side}: tiles of {w} gave other bits")
+                    r["ms_by_width"][w] = time_ms(run, reps=3)
+            finally:
+                M.mu_tiling = rule
         rec[side] = r
     return rec
 
@@ -694,12 +753,14 @@ def check_quotient_edges():
 
 
 def check_sddmm_edges(rs, cs, vs, shape):
-    """Kernel 4 at its edges, against its plain version in float64 within
-    ``REL_TOL`` at every slot, exactly 0 at padding slots, the same bits
-    twice and with the pieces cut at 128 entries: k below and above a lane's
-    16 floats (1, 3, 127, 128, 129), above the W panel it stages (193) and
-    above a sparse product's slab (451); on the small chunk store, on wide
-    tail tiles (span 4) and on a store that is nearly all padding (about
+    """Kernels 4 and 5 at their edges, against their plain versions in
+    float64 within ``REL_TOL`` at every slot, exactly 0 at padding slots,
+    the same bits twice and with the pieces cut at 128 (kernel 4) or 64
+    (kernel 5) entries: k below and above a lane's 16 floats (1, 3, 16, 17,
+    127, 128, 129), both sides of the W panel they stage (191, 193) and
+    above a sparse product's slab (450, 451); kernel 4 on the small chunk
+    store and on wide tail tiles (span 4), kernel 5 on the small quad store
+    at seg 32 and 16; both on a store that is nearly all padding (about
     five entries a tile, some 390 chunks a row panel)."""
     from nmf_tpu_torch.ops.cuda import sparse as S
     from nmf_tpu_torch.ops.sparse_format import build_tiled, recut_pieces
@@ -707,31 +768,48 @@ def check_sddmm_edges(rs, cs, vs, shape):
     rng = np.random.default_rng(9)
     p, n = 200, 50_000
     key = np.unique(rng.integers(0, p, 3000) * n + rng.integers(0, n, 3000))
+    wide = ((key // n).astype(np.int32), (key % n).astype(np.int32),
+            (rng.random(len(key)) + 0.5).astype(np.float32), (p, n))
+    stage = S.SDDMM_STAGE_K
+    chunk_ks = (1, 3, 127, 128, 129, stage + 1, 451)
+    quad_ks = (1, 16, 17, 128, 129, stage - 1, stage + 1, 450)
+    # tag: (store, kernel 5?, the k it is held at)
     stores = {
-        "small": build_tiled(rs, cs, vs, shape, dense_tile_nnz=192, coo_tail_nnz=3),
-        "span4": build_tiled(rs, cs, vs, shape, dense_tile_nnz=192, tail_span=4,
-                             coo_tail_nnz=3),
-        "wide_padding": build_tiled((key // n).astype(np.int32), (key % n).astype(np.int32),
-                                    (rng.random(len(key)) + 0.5).astype(np.float32),
-                                    (p, n), order="natural"),
+        "small": (build_tiled(rs, cs, vs, shape, dense_tile_nnz=192, coo_tail_nnz=3),
+                  False, chunk_ks),
+        "span4": (build_tiled(rs, cs, vs, shape, dense_tile_nnz=192, tail_span=4,
+                              coo_tail_nnz=3), False, chunk_ks),
+        "wide_padding": (build_tiled(*wide, order="natural"), False, chunk_ks),
+        "quad32": (build_tiled(rs, cs, vs, shape, dense_tile_nnz=192, quad_tail_nnz=32),
+                   True, quad_ks),
+        "quad16": (build_tiled(rs, cs, vs, shape, dense_tile_nnz=192, quad_tail_nnz=16,
+                               quad_seg=16), True, quad_ks),
+        "quad_wide_padding": (build_tiled(*wide, quad_tail_nnz=32, order="natural"),
+                              True, quad_ks),
     }
     gen = torch.Generator(device="cuda").manual_seed(10)
     out = {}
-    for tag, X in stores.items():
+    for tag, (X, quad, ks) in stores.items():
         side = X.fwd
-        pad = side.inv >= side.perm.shape[0]
-        r = {"padding_share": float(pad.float().mean())}
-        for k in (1, 3, 127, 128, 129, 193, 451):
+        if quad:
+            kern, plain, name = S.quad_sddmm, S.quad_sddmm_plain, "quad_sddmm"
+            pad = side.qinv >= side.perm.shape[0]
+            cut = recut_pieces(side, qcap=64)
+        else:
+            kern, plain, name = S.chunk_sddmm, S.chunk_sddmm_plain, "chunk_sddmm"
+            pad = side.inv >= side.perm.shape[0]
+            cut = recut_pieces(side, 128)
+        r = {"kernel": name, "padding_share": float(pad.float().mean())}
+        for k in ks:
             W = torch.rand((side.rows, k), generator=gen, device="cuda")
             Ht = torch.rand((side.cols, k), generator=gen, device="cuda")
             label = f"sddmm edges {tag} k={k}"
-            got = S.chunk_sddmm(side, W, Ht)
-            r[k] = _held(label, got, S.chunk_sddmm_plain(side, W.double(), Ht.double()),
-                         REL_TOL)["rel_err"]
+            got = kern(side, W, Ht)
+            r[k] = _held(label, got, plain(side, W.double(), Ht.double()), REL_TOL)["rel_err"]
             if got[pad].any():
                 fail(f"{label}: a padding slot is not 0")
-            _same_bits(label, lambda: S.chunk_sddmm(side, W, Ht))
-            if not torch.equal(got, S.chunk_sddmm(recut_pieces(side, 128), W, Ht)):
+            _same_bits(label, lambda: kern(side, W, Ht))
+            if not torch.equal(got, kern(cut, W, Ht)):
                 fail(f"{label}: other pieces gave other bits")
         out[tag] = r
     return out
@@ -833,8 +911,9 @@ def check_k_ceilings(rs, cs, vs, shape):
         for side, F, G, C in (("H", H, W.T @ W, W.T @ X), ("W", W.T, H @ H.T, (X @ H.T).T)):
             got = M.mu_factor_update(F, G, C, 0.01, delta)
             want = M.mu_factor_update_plain(F.double(), G.double(), C.double(), 0.01, delta)
-            r[f"mu_factor_update_{side}"] = _held(
-                f"k_ceilings mu_factor_update {side} k={k}", got, want, REL_TOL)["rel_err"]
+            lab = f"k_ceilings mu_factor_update {side} k={k}"
+            r[f"mu_factor_update_{side}"] = _held(lab, got, want, REL_TOL)["rel_err"]
+            _same_bits(lab, lambda: M.mu_factor_update(F, G, C, 0.01, delta))
         for kind, fn in (("mse", O.mse_objective_kernel), ("kl", O.kl_objective_kernel)):
             lab = f"k_ceilings objective {kind} k={k}"
             r[f"objective_{kind}"] = _held(
@@ -1811,10 +1890,13 @@ def main():
         Wt = torch.from_numpy(rng.random((p, k), dtype=np.float32)).cuda()
         Ht = torch.from_numpy(rng.random((k, n), dtype=np.float32)).cuda()
         label = f"{name} {p}x{n} k={k}"
+        # beside time_ms, each kernel's device time by graph_ms: what of a
+        # row's time the kernel takes and what the host does around it
         if name == "ttt1":
-            rec = {"mu_factor_update": check_factor_update(Xt, Wt, Ht, label, True)}
+            rec = {"mu_factor_update": check_factor_update(Xt, Wt, Ht, label, True,
+                                                           graph=True)}
         else:
-            rec = check_quotients(Xt, Wt, Ht, label, True)
+            rec = check_quotients(Xt, Wt, Ht, label, True, graph=True)
         small_paths[name] = rec
         say(f"kernels_dense_{name}", card=smi, shape=[p, n], k=k, **rec)
         del Xt, Wt, Ht
@@ -1916,15 +1998,19 @@ def main():
                         "bound_ms": sum(r["bound_ms"] for r in recs.values()),
                         "plain_ms": sum(r["plain_ms"] for r in recs.values()),
                         "library_ms": sum(r["library_ms"] for r in recs.values()),
-                        **{f"{part}_ms": r["ms"] for part, r in recs.items()}}
+                        **{f"{part}_ms": r["ms"] for part, r in recs.items()},
+                        **({"graph_ms": sum(r["graph_ms"] for r in recs.values())}
+                           if all("graph_ms" in r for r in recs.values()) else {})}
                 for shape, (recs, qs) in by_shape[name].items()}}
                if name in by_shape else {}),
         })
     if sorted(k["name"] for k in kernels) != sorted(build.KERNELS):
         fail("the report does not list every kernel the build holds")
+    floor = launch_floor()
     say("total", seconds=time.perf_counter() - t_start)
     print(smi, flush=True)
-    print(json.dumps({"kernels": kernels}), flush=True)
+    print(json.dumps({"kernels": kernels, "launch_floor_ms": floor["ms"],
+                      "launch_floor_graph_ms": floor["graph_ms"]}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind, "count": torch.cuda.device_count()}}),
         flush=True)

@@ -31,11 +31,11 @@ SOURCES = (
     "chunk_sddmm.cu", "quad_sddmm.cu", "mu.cu", "objectives.cu",
     "elementwise.cu",
 )
-# quotient_tile.cuh: mu.cu and objectives.cu; sddmm_warp.cuh: quad_sddmm.cu;
-# piece_walk.cuh: the chunk and quad products; piece_combine.cuh: those two
-# and the dense product; cp_async.cuh: the dense product, chunk_sddmm.cu and
-# quotient_tile.cuh
-HEADERS = ("quotient_tile.cuh", "sddmm_warp.cuh", "piece_walk.cuh",
+# quotient_tile.cuh: mu.cu and objectives.cu; sddmm_piece.cuh: the two
+# sampled products (chunk_sddmm.cu, quad_sddmm.cu); piece_walk.cuh: the chunk
+# and quad products; piece_combine.cuh: those two and the dense product;
+# cp_async.cuh: the dense product, sddmm_piece.cuh and quotient_tile.cuh
+HEADERS = ("quotient_tile.cuh", "sddmm_piece.cuh", "piece_walk.cuh",
            "piece_combine.cuh", "cp_async.cuh")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -67,11 +67,12 @@ _ARGTYPES = {
     # inv, W, Ht, out, n_pieces, n_chunks, group, span, rows, cols, k, nnz,
     # lanes, stream
     "nmf_chunk_sddmm": [_P] * 10 + [_I] * 9 + [_P],
-    # qlrows, qlcols, qinv, q_rp, qwin_panel, qwin_stripe, W, Ht, out,
-    # n_qchunks, qgroup, seg, panels_per_stripe, rows, cols, k, nnz, stream
-    "nmf_quad_sddmm": [_P] * 9 + [_I] * 8 + [_P],
-    # F, G, C, out, k, m, lam, delta, trans, stream
-    "nmf_mu_factor_update": [_P] * 4 + [_I] * 2 + [_F] * 2 + [_I, _P],
+    # qpiece_ptr, qpiece_panel, qpanel_segs, qseg_nreal, qwin_panel, qlrows,
+    # qlcols, qinv, W, Ht, out, n_pieces, n_qchunks, qgroup, seg, rows, cols,
+    # k, nnz, lanes, stream
+    "nmf_quad_sddmm": [_P] * 11 + [_I] * 9 + [_P],
+    # F, G, C, out, k, m, lam, delta, trans, bn, blocks, stream
+    "nmf_mu_factor_update": [_P] * 4 + [_I] * 2 + [_F] * 2 + [_I] * 3 + [_P],
     # X, W, H, partial, out, p, n, k, delta, xvec, splits, stream
     "nmf_wtq": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P],
     "nmf_qht": [_P] * 5 + [_I] * 3 + [_F, _I, _I, _P],

@@ -5,7 +5,8 @@
   ``G @ F`` kept inside the kernel.  Serves both halves of the sweep: H as it
   is (``G = W'W``, ``C = W'X``) and W through transposed views
   (``F = W'``, ``G = HH'``, ``C = (XH')'``), read and written in place of a
-  transposed copy.
+  transposed copy.  A persistent grid: ``mu_tiling`` picks the tile width
+  and the number of blocks, each of which walks its tiles.
 * ``wtq`` / ``qht`` — the divergence sweep's ``W' Q`` and ``Q H'`` with
   ``Q = X / (W H + delta)`` formed tile by tile inside the kernel; the
   ``p x n`` quotient never exists in device memory.  A thread block owns
@@ -33,8 +34,10 @@ import torch
 from .build import launch
 
 __all__ = [
-    "mu_factor_update", "mu_factor_update_plain", "wtq", "wtq_plain", "qht",
-    "qht_plain", "walk_splits", "MU_SLAB", "QT_SLAB", "QT_EDGE", "QT_STEP",
+    "mu_factor_update", "mu_factor_update_plain", "mu_tiling", "mu_smem",
+    "mu_blocks_per_sm", "wtq",
+    "wtq_plain", "qht", "qht_plain", "walk_splits", "MU_SLAB", "MU_WIDTHS",
+    "QT_SLAB", "QT_EDGE", "QT_STEP",
 ]
 
 # depth of one k-slab in shared memory: ``MU_KS`` of csrc/mu.cu (also the
@@ -43,6 +46,16 @@ __all__ = [
 # also the components a thread block of wtq or qht takes)
 MU_SLAB = 64
 QT_SLAB = 64
+# mu_factor_update: the columns of F a tile takes, widest first (``MU_BN``
+# of csrc/mu.cu and its halves); above ``MU_SLAB`` only the widest.  The
+# widest that gives the card ``MU_TILES_PER_SM`` tiles a multiprocessor
+MU_WIDTHS = (64, 32, 16)
+MU_TILES_PER_SM = 2
+# an H100 multiprocessor: shared memory (of which 1 KB goes to each resident
+# block), threads and blocks it keeps resident
+SM_SHARED_BYTES = 233472
+SM_THREADS = 2048
+SM_BLOCKS = 32
 # wtq / qht / the objective: the output columns / rows a thread block owns
 # (``QT_L`` of csrc/quotient_tile.cuh) and the rows / columns of X a step of
 # its walk takes (``QT_S``)
@@ -60,6 +73,46 @@ RUN_BLOCKS_PER_SM = 10
 def mu_factor_update_plain(F, G, C, lam, delta):
     """Plain version of ``mu_factor_update``."""
     return F * torch.clamp(C - lam, min=0) / (G @ F + delta)
+
+
+def mu_smem(k, bn) -> int:
+    """Bytes of shared memory a block of ``mu_factor_update`` takes at
+    ``k`` with tiles of ``bn`` columns: G and two buffers of F and C tiles;
+    above ``MU_SLAB`` a slab of G, a slab of F and the unit's own F and C
+    rows.  Rows of ``4 * (ceil(ks / 4) | 1)`` floats (csrc/mu.cu:
+    ``mu_ld``)."""
+    ks = min(k, MU_SLAB)
+    ld = 4 * (-(-ks // 4) | 1)
+    return 4 * (ks * ld + (4 if k <= MU_SLAB else 3) * bn * ld)
+
+
+def mu_blocks_per_sm(k, bn) -> int:
+    """Blocks of ``mu_factor_update`` a multiprocessor keeps resident: by
+    shared memory, threads, the card's cap and registers (the kernel's
+    launch bounds: ``128 / bn`` blocks)."""
+    threads = min(-(-k // 4), MU_SLAB // 4) * (bn // 4)
+    by_registers = 128 // bn
+    return min(SM_SHARED_BYTES // (mu_smem(k, bn) + 1024), SM_THREADS // threads,
+               SM_BLOCKS, by_registers)
+
+
+def mu_tiling(k, m, sms, bn=None):
+    """``(bn, blocks)`` of ``mu_factor_update`` for F of ``(k, m)`` on a card
+    with ``sms`` multiprocessors: the widest tile of ``MU_WIDTHS`` that cuts
+    the ``m`` columns into at least ``MU_TILES_PER_SM`` tiles a
+    multiprocessor (the narrowest where none does; the widest above
+    ``MU_SLAB``), unless ``bn`` is given; and a persistent grid of as many
+    blocks as the card keeps resident (``mu_blocks_per_sm``), or as
+    the units of work where there are fewer (a unit: a tile by a slab of
+    ``MU_SLAB`` rows of the result).  The same shapes on the same card give
+    the same grid, and every grid gives the same bits."""
+    if bn is None:
+        fits = [w for w in MU_WIDTHS if -(-m // w) >= MU_TILES_PER_SM * sms]
+        bn = MU_WIDTHS[0] if k > MU_SLAB else (fits[0] if fits else MU_WIDTHS[-1])
+    if bn not in MU_WIDTHS or (k > MU_SLAB and bn != MU_WIDTHS[0]):
+        raise ValueError(f"no tile of {bn} columns at k = {k}")
+    units = -(-m // bn) * -(-k // MU_SLAB)
+    return bn, max(1, min(units, mu_blocks_per_sm(k, bn) * sms))
 
 
 def mu_factor_update(F, G, C, lam, delta):
@@ -95,8 +148,11 @@ def mu_factor_update(F, G, C, lam, delta):
             "row-major tensors"
         )
     G = G.contiguous()
+    sms = torch.cuda.get_device_properties(F.device).multi_processor_count
+    bn, blocks = mu_tiling(k, m, sms)
     launch(
         "mu_factor_update", F, G, C, out, k, m, float(lam), float(delta), trans,
+        bn, blocks,
     )
     return out
 

@@ -51,10 +51,13 @@ __all__ = [
 
 # the chunk and quad kernels keep a (128, k) float panel in shared memory
 MAX_K = SMEM_PER_BLOCK // (TILE * 4)
-# floats of a slot's dot product one lane of the chunk sddmm kernel takes at
+# floats of a slot's dot product one lane of the sddmm kernels takes at
 # most (``sddmm_lanes``): four 16-byte gathers of H a lane; 8 lanes a slot at
 # k = 128 ran faster than 2, 4 or 16 (``tools/time_sddmm_variants.py``)
 SDDMM_LANE_FLOATS = 16
+# the largest k whose W panel the sddmm kernels stage in shared memory
+# (``SD_STAGE_K`` of csrc/sddmm_piece.cuh); above it they gather W's rows
+SDDMM_STAGE_K = 192
 # slots / blocks / band entries handled at once by the plain versions and the
 # COO band: bounds the (piece, k) temporaries to 128 MB at k = 128
 _PIECE = 1 << 18
@@ -433,7 +436,7 @@ def chunk_sddmm_plain(side: TiledSideC, W, Ht, out=None):
 
 
 def sddmm_lanes(k) -> int:
-    """Lanes of a warp that sample one slot in the chunk sddmm kernel: the
+    """Lanes of a warp that sample one slot in the sddmm kernels: the
     least power of two that leaves a lane at most ``SDDMM_LANE_FLOATS`` of
     the ``k`` products, at most a warp (8 at k = 128)."""
     g = 1
@@ -515,7 +518,10 @@ def quad_sddmm_plain(side: TiledSideC, W, Ht, out=None):
 def quad_sddmm(side: TiledSideC, W, Ht, out=None):
     """``(W @ Ht')`` at every slot of one orientation's quad store, flat
     ``(n_qchunks * 128,)`` in slot order; 0 at padding slots.  Operands as
-    for ``chunk_sddmm``."""
+    for ``chunk_sddmm``, and the kernel walks the same way: over the quad
+    pieces (a block a piece, its row panel of W in shared memory), each
+    sub-segment's real slots only (``qseg_nreal``); the blocks past the
+    pieces zero the sub-segments without entries."""
     k = _check_factors(side, W, Ht)
     nslots = side.n_qchunks * TILE
     _check_flat_out(out, nslots, W)
@@ -527,9 +533,10 @@ def quad_sddmm(side: TiledSideC, W, Ht, out=None):
         out = torch.empty(nslots, dtype=torch.float32, device=W.device)
     launch(
         "quad_sddmm",
-        side.qlrows, side.qlcols, side.qinv, side.q_rp, side.qwin_panel,
-        side.qwin_stripe, W, Ht, out, side.n_qchunks, QUAD_GROUP, side.quad_seg,
-        side.panels_per_stripe, side.rows, side.cols, k, side.perm.shape[0],
+        side.qpiece_ptr, side.qpiece_panel, side.qpanel_segs, side.qseg_nreal,
+        side.qwin_panel, side.qlrows, side.qlcols, side.qinv, W, Ht, out,
+        side.qpiece_panel.numel(), side.n_qchunks, QUAD_GROUP, side.quad_seg,
+        side.rows, side.cols, k, side.perm.shape[0], sddmm_lanes(k),
     )
     return out
 

@@ -487,6 +487,87 @@ def test_quad_kernels_match_their_plain_versions_on_the_card(card, order, seg, k
     assert (counts["quad_matmul"], counts["quad_sddmm"]) == (8, 5)
 
 
+def _quad_sddmm_store(card, store):
+    if store == "nearly_all_padding":
+        r, c, v, shape = _sparse_wide()
+        return build_tiled(r, c, v, shape, device=card, stripe_tiles=2, group=8,
+                           quad_tail_nnz=32, order="natural")
+    seg = 16 if store.startswith("seg16") else 32
+    return _quad_store(card, "natural" if store.endswith("natural") else "degree",
+                       quad_seg=seg, quad_tail_nnz=seg)[1]
+
+
+@pytest.mark.parametrize("k", [1, 16, 17, 128, 129, tsp.SDDMM_STAGE_K - 1,
+                               tsp.SDDMM_STAGE_K + 1, 450])
+@pytest.mark.parametrize("store", ["seg32_degree", "seg16_natural", "nearly_all_padding"])
+def test_quad_sddmm_kernel_at_its_edges(card, store, k):
+    """Kernel 5 at k below and above a lane's 16 floats, on both sides of a
+    group of 8 lanes (128 / 129), of the W panel it stages and at a sparse
+    product's slab (450); seg 32 and 16 and a store that is nearly all
+    padding: within 2e-5 of float64 at every slot, exactly 0 at padding
+    slots, the same bits twice and the same bits with the pieces cut at 64
+    entries (panels split)."""
+    Xt = _quad_sddmm_store(card, store)
+    side = Xt.fwd
+    g = torch.Generator(device=card).manual_seed(k)
+    W = torch.rand(side.rows, k, device=card, generator=g)
+    Ht = torch.rand(side.cols, k, device=card, generator=g)
+    build.reset_launch_counts()
+    got = tsp.quad_sddmm(side, W, Ht)
+    want = tsp.quad_sddmm_plain(side, W.double(), Ht.double())
+    assert (got.double() - want).abs().max() <= 2e-5 * want.abs().max()
+    pad = side.qinv >= side.perm.shape[0]
+    if store == "nearly_all_padding":
+        assert pad.float().mean() > 0.9
+    assert pad.any() and not got[pad].any()
+    assert torch.equal(got, tsp.quad_sddmm(side, W, Ht))
+    cut = recut_pieces(side, qcap=64)
+    assert cut.qsplit_panel.numel() > 0 or store != "nearly_all_padding"
+    assert torch.equal(got, tsp.quad_sddmm(cut, W, Ht))
+    assert build.launch_counts()["quad_sddmm"] == 3
+
+
+@pytest.mark.parametrize("k", [1, 3, 8, 63, 64, 65, 129, 450])
+@pytest.mark.parametrize("m", [333, 1028])
+def test_mu_factor_update_kernel_at_its_edges(card, k, m):
+    """Kernel 7 in both layouts (the H step's row-major F, the W step's
+    transposed views) at k across a slab and its row quads, m no multiple
+    of any tile width (333: 4-byte copies of a row-major F; 1028: 16-byte
+    ones and a partial last tile), against float64
+    within 2e-5: the same bits twice, at every tile width it has and on
+    operands one float past a 16-byte boundary (4-byte copies)."""
+    g = torch.Generator(device=card).manual_seed(k + m)
+    F = torch.rand(k, m, device=card, generator=g)
+    G = torch.rand(k, k, device=card, generator=g) / k
+    C = torch.rand(k, m, device=card, generator=g) - 0.1
+    delta = 3.45e-4
+    build.reset_launch_counts()
+    for layout in ("rows", "trans"):
+        if layout == "trans":  # views of row-major (m, k) tensors
+            F, C = F.T.contiguous().T, C.T.contiguous().T
+        got = tmu.mu_factor_update(F, G, C, 0.01, delta)
+        assert got.stride() == F.stride()
+        close(got, tmu.mu_factor_update_plain(F.double(), G.double(), C.double(), 0.01,
+                                              delta).float())
+        assert torch.equal(got, tmu.mu_factor_update(F, G, C, 0.01, delta))
+        rule = tmu.mu_tiling
+        try:
+            for w in tmu.MU_WIDTHS if k <= tmu.MU_SLAB else ():
+                tmu.mu_tiling = lambda k_, m_, sms, w=w: rule(k_, m_, sms, w)
+                assert torch.equal(got, tmu.mu_factor_update(F, G, C, 0.01, delta))
+        finally:
+            tmu.mu_tiling = rule
+        # the same operands one float past a 16-byte boundary
+        base = F.T if layout == "trans" else F
+        buf = torch.empty(base.numel() + 1, device=card)
+        Fs = buf[1:].view(base.shape).copy_(base)
+        Fs = Fs.T if layout == "trans" else Fs
+        assert Fs.data_ptr() % 16 == 4 and torch.equal(Fs, F)
+        assert torch.equal(got, tmu.mu_factor_update(Fs, G, C, 0.01, delta))
+    assert build.launch_counts()["mu_factor_update"] == 2 * (
+        3 + (len(tmu.MU_WIDTHS) if k <= tmu.MU_SLAB else 0))
+
+
 def test_quad_kernel_takes_k_up_to_its_ceiling(card):
     """The quad product keeps a (128, k) panel in shared memory: k up to
     ``MAX_K`` launches, one more is refused by the wrapper and taken by the

@@ -87,7 +87,7 @@ def test_every_source_of_the_port_is_checked():
             "interface.py", "chunk_sddmm.cu", "mu.cu", "objectives.cu",
             "quotient_tile.cuh", "mu.py", "objectives.py", "multupd.py",
             "greedycd.py", "quad_matmul.cu", "quad_sddmm.cu",
-            "sddmm_warp.cuh", "elementwise.cu", "elementwise.py", "rsvd.py",
+            "sddmm_piece.cuh", "elementwise.cu", "elementwise.py", "rsvd.py",
             "tsqr.py", "linalg.py", "initialization.py"} <= names
 
 

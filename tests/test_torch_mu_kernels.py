@@ -20,6 +20,7 @@ from nmf_tpu.ops.pallas import objectives as jobj
 from nmf_tpu_torch.ops.cuda import build
 from nmf_tpu_torch.ops.cuda import mu as tmu
 from nmf_tpu_torch.ops.cuda import objectives as tobj
+from nmf_tpu_torch.ops.cuda import sparse as tsp
 
 CSRC = pathlib.Path(tmu.__file__).resolve().parents[2] / "csrc"
 DELTA = float(np.sqrt(np.finfo(np.float32).eps))
@@ -197,6 +198,11 @@ def _shared_bytes(text, define):
     # sizes the partials; its shared memory (the H slab, two W slabs, two X
     # tiles) within a block's
     ("objectives.cu", (("QT_L", "QT_EDGE"),), "OBJ_SMEM"),
+    # mu_factor_update: its slab, the widest tile and the shared memory of a
+    # block there and above a slab, which mu_smem repeats
+    ("mu.cu", (("MU_KS", "MU_SLAB"),), "MU_SMEM"),
+    # the sampled products' routine: the W panel it stages at most
+    ("sddmm_piece.cuh", (), "SD_SMEM"),
 ])
 def test_largest_k_stated_in_the_sources_is_the_wrappers(source, limit, smem):
     """No kernel states a largest k any more (any k fits: the reduction runs
@@ -211,6 +217,20 @@ def test_largest_k_stated_in_the_sources_is_the_wrappers(source, limit, smem):
         assert 0 < _shared_bytes(text, smem) <= build.SMEM_PER_BLOCK
     if source == "objectives.cu":
         assert re.search(r"grid\(\(n \+ QT_L - 1\) / QT_L,", text)
+    if smem == "MU_SMEM":
+        stated = dict(re.findall(r"#define\s+(MU_BN|MU_LD)\s+(\d+)", text))
+        assert int(stated["MU_BN"]) == max(tmu.MU_WIDTHS) == tmu.MU_WIDTHS[0]
+        assert int(stated["MU_LD"]) == tmu.mu_smem(tmu.MU_SLAB, 0) // (4 * tmu.MU_SLAB)
+        assert _shared_bytes(text, "MU_SMEM") == tmu.mu_smem(tmu.MU_SLAB, tmu.MU_WIDTHS[0])
+        assert _shared_bytes(text, "MU_SMEM_SLABS") == tmu.mu_smem(tmu.MU_SLAB + 1,
+                                                                   tmu.MU_WIDTHS[0])
+        assert max(tmu.mu_smem(k, w) for k in range(1, 130) for w in tmu.MU_WIDTHS
+                   if k <= tmu.MU_SLAB or w == tmu.MU_WIDTHS[0]) == max(
+            _shared_bytes(text, "MU_SMEM"), _shared_bytes(text, "MU_SMEM_SLABS"))
+        assert re.search(r"__launch_bounds__\(4 \* BN, 128 / BN\)", text)
+    if smem == "SD_SMEM":
+        stated = re.findall(r"#define\s+SD_STAGE_K\s+(\d+)", text)
+        assert [int(v) for v in stated] == [tsp.SDDMM_STAGE_K]
     for src in ("mu.cu", "objectives.cu", "quotient_tile.cuh"):
         text = (CSRC / src).read_text().replace("//", "")
         assert not re.search(r"largest\s+k\s+is", text), src
@@ -222,6 +242,44 @@ def test_largest_k_stated_in_the_sources_is_the_wrappers(source, limit, smem):
 # chip_smoke.check_k_ceilings (300 x 260, k 183) on an H100's 132
 # multiprocessors; the main path's wtq on a card with 114; an output of
 # three waves with a thin last one
+# (k, m, multiprocessors, columns a tile, blocks): kernel 7 at the main
+# path's dense problem (the W step's 100,000 columns, the H step's 10,000, k
+# 64), at ttt1 (500 x 500, k 8), at chip_smoke.check_k_ceilings (300 x 260,
+# k 183 to 512: slabs), at the ragged edge checks, and on a card with 114
+# multiprocessors
+@pytest.mark.parametrize("k, m, sms, bn, blocks", [
+    (64, 100_000, 132, 64, 264),   # 1,563 tiles, two blocks an SM resident
+    (64, 10_000, 132, 32, 313),    # 157 tiles of 64 would leave the card idle
+    (8, 500, 132, 16, 32),         # ttt1: a tile a block
+    (183, 260, 132, 64, 15),       # 5 tiles x 3 row slabs
+    (183, 300, 132, 64, 15),
+    (512, 300, 132, 64, 40),
+    (5, 777, 132, 16, 49),
+    (64, 100_000, 114, 64, 228),
+    (64, 10_000, 114, 32, 313),
+])
+def test_mu_tiling_rule(k, m, sms, bn, blocks):
+    assert tmu.mu_tiling(k, m, sms) == (bn, blocks)
+    units = -(-m // bn) * -(-k // tmu.MU_SLAB)
+    threads = min(-(-k // 4), tmu.MU_SLAB // 4) * (bn // 4)
+    per_sm = tmu.mu_blocks_per_sm(k, bn)
+    assert per_sm * (tmu.mu_smem(k, bn) + 1024) <= tmu.SM_SHARED_BYTES
+    assert per_sm * threads <= tmu.SM_THREADS
+    # the launch bounds' blocks: 128 registers a thread at most
+    assert per_sm * threads * 128 <= 65536
+    assert blocks == min(units, sms * per_sm)
+    # the widest tile that gives every multiprocessor two, the widest above
+    # a slab; any width the kernel has may be asked for at k <= MU_SLAB
+    wider = [w for w in tmu.MU_WIDTHS if w > bn]
+    assert k > tmu.MU_SLAB or all(-(-m // w) < tmu.MU_TILES_PER_SM * sms for w in wider)
+    assert 0 < tmu.mu_smem(k, bn) <= build.SMEM_PER_BLOCK
+    if k <= tmu.MU_SLAB:
+        assert [tmu.mu_tiling(k, m, sms, w)[0] for w in tmu.MU_WIDTHS] == list(tmu.MU_WIDTHS)
+    else:
+        with pytest.raises(ValueError, match="no tile"):
+            tmu.mu_tiling(k, m, sms, 32)
+
+
 @pytest.mark.parametrize("owned, walked, k, sms, runs", [
     (10_000, 100_000, 64, 132, 33),   # wtq: 40 blocks, 1,563 steps
     (100_000, 10_000, 64, 132, 1),    # qht: 391 blocks, 2.96 waves: no cut

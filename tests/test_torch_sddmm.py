@@ -313,31 +313,64 @@ def test_quad_sddmm_checks_its_operands_and_the_store():
         tsp.tiled_sddmm(half, W, H)
 
 
-def _kernel_walk(side, W, Ht):
-    """What the chunk sddmm kernel (``csrc/chunk_sddmm.cu``) writes, in
-    numpy: a block a piece samples the real slots at the front of each of
-    its chunks (``chunk_nreal``), the W row read through the piece's row
-    panel, and zeroes the chunk's tail; the blocks past the pieces zero the
-    chunks without entries.  Returns (times each slot is written, the
-    values in float64)."""
-    n_chunks = side.coords.shape[0]
-    nreal, coords = side.chunk_nreal.numpy(), side.coords.numpy().reshape(-1)
-    inv, nnz = side.inv.numpy(), side.perm.shape[0]
-    ptr, chunks = side.piece_ptr.numpy(), side.panel_chunks.numpy()
-    writes = np.zeros(n_chunks * TILE, np.int64)
-    out = np.zeros(n_chunks * TILE, np.float64)
-    for piece, panel in enumerate(side.piece_panel.numpy()):
-        for c in chunks[ptr[piece]:ptr[piece + 1]]:
-            writes[c * TILE:(c + 1) * TILE] += 1
-            for slot in range(c * TILE, c * TILE + nreal[c]):
-                co = int(coords[slot])
-                row = int(panel) * TILE + (co & 127)
-                col = int(side.win_panel[c // side.group]) * side.span * TILE + (co >> 7)
+def _kernel_walk(side, W, Ht, quad=False):
+    """What the sampled-product kernels (``csrc/sddmm_piece.cuh``) write, in
+    numpy, over the chunks (kernel 4) or the quad sub-segments (kernel 5):
+    a block a piece samples the real slots at the front of each of its items
+    (``chunk_nreal`` / ``qseg_nreal``), the W row read through the piece's
+    row panel, the column through the item's window, and zeroes the item's
+    tail; the blocks past the pieces zero the items without entries.
+    Checks on the way that a piece lists only items of its own row panel and
+    that no entry lies past an item's front.  Returns (times each slot is
+    written, the values in float64)."""
+    nnz = side.perm.shape[0]
+    if quad:
+        seg = side.quad_seg
+        nreal, ptr, items = (side.qseg_nreal.numpy(), side.qpiece_ptr.numpy(),
+                             side.qpanel_segs.numpy())
+        panels, inv = side.qpiece_panel.numpy(), side.qinv.numpy()
+        lrows, lcols = side.qlrows.numpy().reshape(-1), side.qlcols.numpy().reshape(-1)
+        stripe = side.qwin_stripe.numpy()[np.arange(len(nreal)) * seg // TILE // QUAD_GROUP]
+        rp, win_panel, group, span = side.q_rp.numpy(), side.qwin_panel.numpy(), QUAD_GROUP, 1
+    else:
+        seg = TILE
+        nreal, ptr, items = (side.chunk_nreal.numpy(), side.piece_ptr.numpy(),
+                             side.panel_chunks.numpy())
+        panels, inv = side.piece_panel.numpy(), side.inv.numpy()
+        coords = side.coords.numpy().reshape(-1)
+        lrows, lcols = coords & 127, coords >> 7
+        stripe = side.win_stripe.numpy()[np.arange(len(nreal)) // side.group]
+        rp, win_panel, group, span = (side.chunk_rp.numpy(), side.win_panel.numpy(),
+                                      side.group, side.span)
+    n_slots = len(nreal) * seg
+    assert len(inv) == n_slots
+    writes = np.zeros(n_slots, np.int64)
+    out = np.zeros(n_slots, np.float64)
+    for piece, panel in enumerate(panels):
+        for c in items[ptr[piece]:ptr[piece + 1]]:
+            assert stripe[c] * side.panels_per_stripe + rp[c] == panel
+            first = c * seg
+            assert (inv[first + nreal[c]:first + seg] >= nnz).all()
+            writes[first:first + seg] += 1
+            for slot in range(first, first + nreal[c]):
+                row = int(panel) * TILE + int(lrows[slot])
+                col = int(win_panel[first // TILE // group]) * span * TILE + int(lcols[slot])
                 if inv[slot] < nnz and row < side.rows and col < side.cols:
                     out[slot] = W[row].astype(np.float64) @ Ht[col]
     for c in np.flatnonzero(nreal == 0):
-        writes[c * TILE:(c + 1) * TILE] += 1
+        assert (inv[c * seg:(c + 1) * seg] >= nnz).all()
+        writes[c * seg:(c + 1) * seg] += 1
     return writes, out
+
+
+def _nearly_all_padding():
+    """About five entries a 128 x 128 tile: every quad sub-segment holds a
+    few entries at its front, most of each one and most chunks padding."""
+    rng = np.random.default_rng(3)
+    p, n = 200, 20_000
+    key = np.unique(rng.integers(0, p, 1200) * n + rng.integers(0, n, 1200))
+    return ((key // n).astype(np.int32), (key % n).astype(np.int32),
+            (rng.random(len(key)) + 0.5).astype(np.float32), (p, n))
 
 
 @pytest.mark.parametrize("name, build, cap", [
@@ -345,28 +378,53 @@ def _kernel_walk(side, W, Ht):
     ("degree", dict(BUILD, order="degree"), None),
     ("span4", QUAD_CASES["span4_dense_band"], None),
     ("pieces_of_128", dict(BUILD, order="degree"), 128),
+    # kernel 5 over the quad sub-segments
+    ("quad32_natural", QUAD_CASES["four_classes_natural"], None),
+    ("quad32_degree", QUAD_CASES["four_classes_degree"], None),
+    ("quad16_natural", QUAD_CASES["seg16_natural"], None),
+    ("quad16_degree", QUAD_CASES["seg16_degree"], None),
+    # at most a sub-segment's worth of entries a piece: panels of 37 and 38
+    # entries (seg 32), of 24 and 29 (seg 16) are cut
+    ("quad32_pieces_of_32", QUAD_CASES["four_classes_degree"], 32),
+    ("quad16_pieces_of_16", QUAD_CASES["seg16_natural"], 16),
+    ("quad32_nearly_all_padding", dict(stripe_tiles=2, group=8, quad_tail_nnz=32,
+                                       order="natural"), None),
 ])
 def test_chunk_sddmm_kernel_walk_covers_every_slot_once(name, build, cap):
-    """The host-side facts the chunk sddmm kernel stands on: the pieces list
-    every chunk with entries once and no other, a chunk's entries are its
-    first ``chunk_nreal`` slots, and the piece's row panel is the chunk's;
-    so its walk writes every slot once and gives the plain version's values
-    (padding slots 0), however the pieces are cut."""
-    Xd = four_class_matrix() if name == "span4" else three_class_matrix()
-    r, c, v = coo_of(Xd)
-    Xt = build_tiled(r, c, v, Xd.shape, device="cpu", **build)
-    side = Xt.fwd if cap is None else recut_pieces(Xt.fwd, cap)
+    """The host-side facts the sampled-product kernels stand on, over the
+    chunks (kernel 4) and over the quad sub-segments (kernel 5, the
+    ``quad`` cases): the pieces list every item with entries once and no
+    other, an item's entries are its first ``chunk_nreal`` / ``qseg_nreal``
+    slots, and the piece's row panel is the item's; so the walk writes every
+    slot once and gives the plain version's values (padding slots 0),
+    however the pieces are cut."""
+    quad = name.startswith("quad")
+    if name.endswith("nearly_all_padding"):
+        r, c, v, shape = _nearly_all_padding()
+    else:
+        Xd = four_class_matrix() if name == "span4" or quad else three_class_matrix()
+        (r, c, v), shape = coo_of(Xd), Xd.shape
+    Xt = build_tiled(r, c, v, shape, device="cpu", **build)
+    side = Xt.fwd
+    if cap is not None:
+        side = recut_pieces(side, qcap=cap) if quad else recut_pieces(side, cap)
     assert side.span == (4 if name == "span4" else 1)
     rng = np.random.default_rng(5)
     W = rng.random((side.rows, 7)).astype(np.float32)
     Ht = rng.random((side.cols, 7)).astype(np.float32)
-    writes, out = _kernel_walk(side, W, Ht)
+    writes, out = _kernel_walk(side, W, Ht, quad)
     assert (writes == 1).all()
-    want = tsp.chunk_sddmm_plain(side, torch.from_numpy(W).double(),
-                                 torch.from_numpy(Ht).double()).numpy()
+    plain = tsp.quad_sddmm_plain if quad else tsp.chunk_sddmm_plain
+    want = plain(side, torch.from_numpy(W).double(), torch.from_numpy(Ht).double()).numpy()
     np.testing.assert_allclose(out, want, rtol=1e-12, atol=1e-12)
-    pad = side.inv.numpy() >= side.perm.shape[0]
+    pad = (side.qinv if quad else side.inv).numpy() >= side.perm.shape[0]
     assert pad.any() and not out[pad].any()
+    if quad:
+        assert side.quad_seg == (16 if "quad16" in name else 32)
+        if cap is not None:  # some panel's sub-segments are cut into pieces
+            assert side.qsplit_panel.numel() > 0
+        if name.endswith("nearly_all_padding"):
+            assert pad.mean() > 0.9 and (side.qseg_nreal.numpy() == 0).any()
 
 
 @pytest.mark.parametrize("k, lanes", [

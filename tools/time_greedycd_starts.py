@@ -1,10 +1,11 @@
 #!/usr/bin/env python3
-"""Iterations and seconds GreedyCD (the ``nnmf`` default solver) takes to
-relative error 0.84 on the 163,000 x 59,000 problem of ``chip_smoke.py``,
-from several random starts, for one checkout of the PyTorch build, so that
-two checkouts can be compared on one card in one run:
+"""Iterations and seconds GreedyCD (the ``nnmf`` default solver), or with
+``hals`` Fast-HALS, takes to relative error 0.84 on the 163,000 x 59,000
+problem of ``chip_smoke.py``, from several random starts, for one checkout
+of the PyTorch build, so that two checkouts can be compared on one card in
+one run:
 
-    python3 tools/time_greedycd_starts.py [TREE] [SEEDS]
+    python3 tools/time_greedycd_starts.py [TREE] [SEEDS] [hals]
 
 ``TREE`` is the root of a checkout (default: this one); its ``nmf_tpu_torch``
 package and its ``chip_smoke`` helpers are imported.  The matrix (seed 0,
@@ -35,6 +36,7 @@ def main():
     sys.path.insert(0, str(tree))
     import chip_smoke as cs
     from nmf_tpu_torch.models import common
+    from nmf_tpu_torch.models.coorddesc import CoordinateDescent
     from nmf_tpu_torch.models.greedycd import GreedyCD
     from nmf_tpu_torch.ops import sparse_format as sf
 
@@ -43,13 +45,16 @@ def main():
     rows, cols, vals = _matrix(cs)
     X = sf.build_tiled(rows, cols, vals, (cs.P, cs.N), dense_tile_nnz=192, coo_tail_nnz=3)
     xsq = float(X.stats[1])
-    out = {"tree": str(tree), "target": cs.TARGET_RELERR, "starts": []}
+    hals = sys.argv[3:] == ["hals"]
+    out = {"tree": str(tree), "solver": "hals" if hals else "greedycd",
+           "target": cs.TARGET_RELERR, "starts": []}
     for s in range(seeds):
         rng = np.random.default_rng(100 + s)
         W0 = torch.from_numpy(rng.random((cs.P, cs.K), dtype=np.float32)).cuda()
         H0 = torch.from_numpy(rng.random((cs.K, cs.N), dtype=np.float32)).cuda()
         Xr, w, h, _ = common.renumbered_problem(X, W0, H0)
-        upd = GreedyCD(maxiter=100)
+        upd = (CoordinateDescent(maxiter=100)._resolved(torch.float32)[0] if hals
+               else GreedyCD(maxiter=100))
         state = common._prepare(upd, Xr, w, h)
         torch.cuda.synchronize()
         t0 = time.perf_counter()

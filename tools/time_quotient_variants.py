@@ -2,8 +2,10 @@
 """Time variants of the kernels built on the W @ H tile routine
 (``nmf_tpu_torch/csrc/quotient_tile.cuh``): the divergence products (kernels
 8 and 9, ``wtq`` and ``qht`` in ``mu.cu``) and the dense objectives (kernel
-6, ``objectives.cu``, both kinds), against the sources as they stand, on the
-dense 100,000 x 10,000 rank-64 problem of ``chip_smoke.py``.
+6, ``objectives.cu``, both kinds), and of the MSE factor step beside them
+(kernel 7, ``mu_factor_update`` in ``mu.cu``, its H and W steps), against
+the sources as they stand, on the dense 100,000 x 10,000 rank-64 problem of
+``chip_smoke.py``.
 
     python3 tools/time_quotient_variants.py [NAME ...]
 
@@ -20,8 +22,13 @@ after an L2 flush, median of 3, the walk cut as the wrapper cuts it), the
 highest SM clock nvidia-smi reads meanwhile (every 20 ms), the error against the plain
 version run in float64, whether two runs give the same bits and whether they
 are the source's, and the registers, spills and barriers ``ptxas`` reports
-for the k <= 64 instances.  Prints one JSON line with the card's name and
-power limit."""
+for the k <= 64 instances.  Kernel 7 as the sources stand is also timed
+at other grids (``mu_ms_by_grid``: tile width and blocks), by
+``chip_smoke.time_ms`` (one launch after the L2 flush, which leaves the
+flush's last 50 MB dirty in L2), after a flush that only reads (``clean``:
+nothing to write back) and by its device time alone (``graph``: 100
+launches as one CUDA graph, replayed).  Prints one JSON line with the
+card's name and power limit."""
 
 import ctypes
 import json
@@ -72,6 +79,22 @@ _TERM_BODY = "  if (KIND == 0) {\n    const float d = x - w;\n"
 
 QUOTIENTS = ("wtq", "qht")
 OBJECTIVES = ("objective_mse", "objective_kl")
+FACTOR = ("mu_factor_update_H", "mu_factor_update_W")
+_MU_DIV = "      for (int c = 0; c < 4; ++c) o[a][c] = div_rn(num(a, c), den(a, c), ok);\n"
+_MU_FMA = ("          mu_fma<TRANS, BN>(acc, Gs, Fb, ld, q * MU_RC, min(k, (q + 1) * MU_RC), "
+           "tx, ty);\n")
+_MU_READY = "    if (dev < 32) ready |= 1u << dev;\n  }\n  const int ks = k < MU_KS"
+_MU_NQ = "#define MU_NQ 2 "
+_MU_ST = ("      if (vec && i + 3 < ni) {\n"
+          "        st4(dst, make_float4(o[0][c], o[1][c], o[2][c], o[3][c]));\n"
+          "      } else {\n"
+          "        for (int a = 0; a < 4 && i + a < ni; ++a) dst[a] = o[a][c];\n"
+          "      }\n")
+_MU_PREFETCH = "          if (next < tiles) {\n            stage_unit("
+_MU_UNROLL = "#pragma unroll 2\n  for (int r = rb; r < nr4; r += 4) {\n"
+_MU_GLDS = "    for (int a = 0; a < 4; ++a) g[a] = ld4(g0 + a * ld + r);\n"
+_MU_FLDS = ("      f[c] = TRANS ? ld4(Fs + (tx + BN / 4 * c) * ld + r) : "
+            "ld4(Fs + (r + c) * BN + 4 * tx);\n")
 # name: (the kernels it times, [(text in a source, its replacement), ...])
 VARIANTS = {
     # the division as '/' writes it: a branch after each; the same bits
@@ -113,6 +136,40 @@ VARIANTS = {
         ("  return t + t1;\n", "  return t;\n")]),
     "objective_no_log": (OBJECTIVES, [("logf(", "(")]),
     "objective_no_term": (OBJECTIVES, [(_TERM_BODY, "  return x + w;\n" + _TERM_BODY)]),
+    # kernel 7: the epilogue's division by '/' (the same bits); no FMA (the
+    # loads, the epilogue and the stores alone; changes the result); the
+    # shared-memory carveout asked at its largest
+    "mu_slash": (FACTOR, [(_MU_DIV, _MU_DIV.replace("div_rn(num(a, c), den(a, c), ok)",
+                                                    "num(a, c) / den(a, c)"))]),
+    "mu_no_fma": (FACTOR, [(_MU_FMA, "")]),
+    # the G or the F tile's shared loads replaced by constants (the FMA
+    # stay; change the result): what the shared loads cost
+    "mu_no_g_lds": (FACTOR, [(_MU_GLDS, _MU_GLDS.replace("ld4(g0 + a * ld + r)",
+                                                         "make_float4(1.f, 1.f, 1.f, 1.f)"))]),
+    "mu_no_f_lds": (FACTOR, [(_MU_FLDS, "      f[c] = make_float4(1.f, 1.f, 1.f, 1.f);\n")]),
+    # a unit's copies in one group, the whole tile before its FMA (the
+    # source: MU_NQ = 2, the FMA over each half once it is in)
+    "mu_nq_1": (FACTOR, [(_MU_NQ, _MU_NQ.replace(" 2 ", " 1 "))]),
+    # no tile staged after a block's first (its FMA, epilogue and stores
+    # alone, on stale tiles; changes the result); the sum's loop unrolled by
+    # 1 or 4 (the source: 2)
+    "mu_no_loads": (FACTOR, [(_MU_PREFETCH, _MU_PREFETCH.replace("next < tiles", "false"))]),
+    # the epilogue without its division (F * max(C - lam, 0) + acc), and
+    # without its stores (a result is written only where it equals an
+    # unlikely value, so that nothing is left out of the computation);
+    # both change the result
+    "mu_no_division": (FACTOR, [(_MU_DIV, _MU_DIV.replace("div_rn(num(a, c), den(a, c), ok)",
+                                                          "num(a, c) + den(a, c)"))]),
+    "mu_no_stores": (FACTOR, [(_MU_ST, "      if (o[0][c] == 12345.f)\n"
+                                       "        st4(dst, make_float4(o[0][c], o[1][c], o[2][c], "
+                                       "o[3][c]));\n")]),
+    "mu_unroll_1": (FACTOR, [(_MU_UNROLL, _MU_UNROLL.replace("unroll 2", "unroll 1"))]),
+    "mu_unroll_4": (FACTOR, [(_MU_UNROLL, _MU_UNROLL.replace("unroll 2", "unroll 4"))]),
+    "mu_carveout": (FACTOR, [(_MU_READY, _MU_READY.replace(
+        "    if (dev < 32)",
+        "    cudaFuncSetAttribute(mu_update_kernel<TRANS, BN, ONE>,\n"
+        "                         cudaFuncAttributePreferredSharedMemoryCarveout, 100);\n"
+        "    if (dev < 32)"))]),
 }
 SOURCES = ("mu.cu", "objectives.cu", "quotient_tile.cuh", "cp_async.cuh")
 
@@ -141,7 +198,9 @@ def _build(name, edits):
 # kernel: the mangled name of its k <= 64 instance
 _INSTANCES = {"wtq": "wtq_kernelILb1E", "qht": "qht_kernelILb1E",
               "objective_mse": "objective_kernelILb1ELi0E",
-              "objective_kl": "objective_kernelILb1ELi1E"}
+              "objective_kl": "objective_kernelILb1ELi1E",
+              "mu_factor_update_H": "mu_update_kernelILb0ELi32ELb1E",
+              "mu_factor_update_W": "mu_update_kernelILb1ELi64ELb1E"}
 
 
 def _ptxas(log):
@@ -156,6 +215,42 @@ def _ptxas(log):
             out[kern] = {"registers": int(m[4]), "spill_stores": int(m[2]),
                          "spill_loads": int(m[3]), "barriers": int(m[5])}
     return out
+
+
+def _clean_ms(fn, reps=5):
+    """``chip_smoke.time_ms`` with a flush that reads 256 MB (``sum``)
+    instead of writing it: L2 is as cold, but holds nothing dirty."""
+    flush = torch.empty(64 << 20, device="cuda")
+    out = []
+    for _ in range(reps + 1):
+        flush.sum()
+        a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        out.append(a.elapsed_time(b))
+    return sorted(out[1:])[reps // 2]
+
+
+def _factor_grids(M, run, k, m, sms):
+    """Kernel 7 as the sources stand at one step's shape: by time_ms, after
+    a clean flush and by its device time alone, and by time_ms at other tile
+    widths and grids (the wrapper's rule patched)."""
+    rec = {"tiling": M.mu_tiling(k, m, sms), "ms": cs.time_ms(run),
+           "clean_ms": _clean_ms(run), "graph_ms": cs.graph_ms(run), "ms_by_grid": {}}
+    rule, want = M.mu_tiling, run()
+    try:
+        for bn in M.MU_WIDTHS:
+            resident = rule(k, m, sms, bn)[1]
+            for blocks in sorted({resident, min(resident, sms)}):
+                M.mu_tiling = lambda *a, t=(bn, blocks): t
+                if not torch.equal(run(), want):
+                    cs.fail(f"kernel 7 at {bn} columns, {blocks} blocks: other bits")
+                rec["ms_by_grid"][f"{bn}x{blocks}"] = cs.time_ms(run, reps=3)
+    finally:
+        M.mu_tiling = rule
+    return rec
 
 
 def _entry(so, name):
@@ -191,8 +286,32 @@ def main():
     Xd, Wd, Hd = X.double(), W.double(), H.double()
     xvec = M.check_dense_problem(X, W, H, "wtq")[5]
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
-    for kern in QUOTIENTS + OBJECTIVES:
-        if kern in QUOTIENTS:
+    G_h, C_h = W.T @ W, W.T @ X
+    G_w, C_w = H @ H.T, X @ H.T
+    steps = {"mu_factor_update_H": (H, G_h, C_h), "mu_factor_update_W": (W.T, G_w, C_w.T)}
+    for kern in QUOTIENTS + OBJECTIVES + FACTOR:
+        if kern in FACTOR:
+            F, G, C = steps[kern]
+            kk, m = F.shape
+            trans = int(not F.is_contiguous())
+            want = M.mu_factor_update_plain(F.double(), G.double(), C.double(), 0.01, delta)
+            res = torch.empty((m, kk), device="cuda").T if trans else torch.empty_like(F)
+            wrapped = lambda F=F, G=G, C=C: M.mu_factor_update(F, G, C, 0.01, delta)  # noqa: E731
+            tiling = M.mu_tiling(kk, m, sms)
+            args = lambda F=F, G=G, C=C, kk=kk, m=m, trans=trans, tiling=tiling: (  # noqa: E731
+                F.data_ptr(), G.data_ptr(), C.data_ptr(), res.data_ptr(), kk, m, 0.01,
+                delta, trans, *tiling, stream())
+            entry = "mu_factor_update"
+            out.setdefault("mu", {})[kern] = _factor_grids(M, wrapped, kk, m, sms)
+            # the sources' kernel launched as the variants are (the wrapper's
+            # Python would hold back ten launches in a row of the H step)
+            own_fn = getattr(build.load_kernels(), "nmf_mu_factor_update")
+
+            def own_run(own_fn=own_fn, args=args):
+                if own_fn(*args()):
+                    raise RuntimeError("launch failed")
+                return res
+        elif kern in QUOTIENTS:
             plain, shape, owned, walked = {"wtq": (M.wtq_plain, (k, n), n, p),
                                            "qht": (M.qht_plain, (p, k), p, n)}[kern]
             want = plain(Xd, Wd, Hd, delta)

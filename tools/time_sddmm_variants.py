@@ -1,19 +1,22 @@
 #!/usr/bin/env python3
-"""Time variants of the chunk store's sampled product (kernel 4,
-``csrc/chunk_sddmm.cu``) of one checkout, on the forward side of the ttt4
-chunk store of ``chip_smoke.py`` (163,000 x 59,000, seed 0, k 128).
+"""Time variants of a sampled-product kernel of one checkout: kernel 4
+(``csrc/chunk_sddmm.cu``) on the forward side of the ttt4 chunk store of
+``chip_smoke.py`` (163,000 x 59,000, seed 0, k 128), or with ``quad`` kernel
+5 (``csrc/quad_sddmm.cu``) on the forward side of its quad store.
 
-    python3 tools/time_sddmm_variants.py [TREE]
+    python3 tools/time_sddmm_variants.py [TREE] [quad]
 
 ``TREE`` is the root of a checkout (default: this one).  Each variant is the
-tree's ``chunk_sddmm.cu`` and headers with a few lines replaced (``VARIANTS``
-below; a variant whose lines are in none of the tree's sources is skipped
-and reported; a ``warp_`` variant is of the one-warp kernel and a ``piece_``
-one of the kernel that walks pieces, each built for a tree that has that
-kernel), built into ``_cache/sddmm/`` (ignored by git), all ``nvcc``
-started together, and launched through the tree's own wrapper, its entry
-point swapped for the variant's.  The variants take parts of the work away
-(the gathers of W or of H, or both; they change the result) or change the
+tree's source of the kernel and its headers with a few lines replaced
+(``VARIANTS`` below; a variant whose lines are in none of the tree's sources
+is skipped and reported; a ``warp_`` variant is of the one-warp routine
+(``sddmm_warp.cuh``, which kernel 5 used before it walked pieces) and a
+``piece_`` one of the walk over pieces (``chunk_sddmm.cu``, later
+``sddmm_piece.cuh``), each built for a tree whose kernel has that routine),
+built into ``_cache/sddmm/`` (ignored by git), all ``nvcc`` started
+together, and launched through the tree's own wrapper, its entry point
+swapped for the variant's.  The variants take parts of the work away (the
+gathers of W or of H, or both; they change the result) or change the
 tree's design (the slots a group samples at once, the lanes a slot, the
 staged panel), and so say where the time goes.  For each: ms (L2 flushed,
 median of 9, taken in three passes over all the variants in turns; the
@@ -34,13 +37,13 @@ import torch
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 
-# the one-warp routine (sddmm_warp.cuh, both sampled products before the
-# chunk store's kernel walked pieces)
+# the one-warp routine (sddmm_warp.cuh: kernel 4 before it walked pieces,
+# kernel 5 before it walked them too)
 _WARP_LOADS = ("        const float4 a = w4[j];\n"
                "        const float4 b = h4[j];\n")
 _WARP_H = "    const float* h = Ht + (size_t)__shfl_sync(0xffffffffu, col, s) * k;\n"
 _WARP_W = "    const float* w = W + (size_t)__shfl_sync(0xffffffffu, row, s) * k;\n"
-# the kernel that walks pieces (chunk_sddmm.cu)
+# the walk over pieces (chunk_sddmm.cu; now sddmm_piece.cuh, both kernels)
 _PIECE_H = "        const float* h = Ht + (size_t)col * k;\n"
 _PIECE_HLOAD = ("        hb[t] = ok && j < len ? reinterpret_cast<const float4*>(h)[j]\n"
                 "                              : make_float4(0.f, 0.f, 0.f, 0.f);\n")
@@ -48,6 +51,8 @@ _STAGE_K = "#define SD_STAGE_K 192 "
 _NT = "#define SD_NT 512 "
 _SLOTS = "#define SD_SLOTS 2048 "
 _PASS = "#define SD_PASS 8 "
+_BOUNDS = "__global__ void __launch_bounds__(SD_NT)\nsddmm_piece_kernel("
+_ZERO = "    zero_empty_items<SHIFT>(nreal, out"
 
 # the walk of one slot a group (the source) and of SD_U slots a group at
 # once, the gathers of all SD_U in flight together (the form before the
@@ -233,6 +238,11 @@ VARIANTS = {
     "piece_pass_4": [(_PASS, "#define SD_PASS 4 ")],
     "piece_lanes_4": [],
     "piece_lanes_16": [],
+    # the walk over pieces at most 64 registers a thread (two blocks an SM);
+    # the blocks past the pieces leave the items without entries unwritten
+    # (what zeroing them costs; changes the result)
+    "piece_min_blocks_2": [(_BOUNDS, _BOUNDS.replace("(SD_NT)", "(SD_NT, 2)"))],
+    "piece_no_zero_blocks": [(_ZERO, _ZERO.replace("    zero_empty_items", "    return;\n    zero_empty_items"))],
 }
 # times each variant is timed, in turns with the others
 PASSES = 3
@@ -240,19 +250,19 @@ PASSES = 3
 LANES = {"piece_lanes_4": 4, "piece_lanes_16": 16}
 
 
-def _build(tree, name, edits):
-    """Starts nvcc on the tree's chunk_sddmm.cu with ``edits``; returns
+def _build(tree, source, name, edits):
+    """Starts nvcc on the tree's ``source`` with ``edits``; returns
     (process, .so path), or None where an edit hits no source."""
     csrc = tree / "nmf_tpu_torch" / "csrc"
     texts = {f.name: f.read_text() for f in csrc.iterdir()
-             if f.name == "chunk_sddmm.cu" or f.suffix == ".cuh"}
+             if f.name == source or f.suffix == ".cuh"}
     for old, new in edits:
         hit = [f for f, t in texts.items() if old in t]
         if not hit:
             return None
         for f in hit:
             texts[f] = texts[f].replace(old, new)
-    d = ROOT / "_cache" / "sddmm" / tree.name / name
+    d = ROOT / "_cache" / "sddmm" / tree.name / source.split(".")[0] / name
     d.mkdir(parents=True, exist_ok=True)
     for f, t in texts.items():
         (d / f).write_text(t)
@@ -261,7 +271,7 @@ def _build(tree, name, edits):
 
     proc = subprocess.Popen(
         [build._nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-shared",
-         str(d / "chunk_sddmm.cu"), "-o", str(so)],
+         str(d / source), "-o", str(so)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     return proc, so
 
@@ -277,7 +287,10 @@ class _Swapped:
 
 
 def main():
-    tree = pathlib.Path(sys.argv[1] if len(sys.argv) > 1 else ROOT).resolve()
+    args = sys.argv[1:]
+    quad = "quad" in args
+    rest = [a for a in args if a != "quad"]
+    tree = pathlib.Path(rest[0] if rest else ROOT).resolve()
     sys.path.insert(0, str(tree))
     import chip_smoke as cs
     from nmf_tpu_torch.ops import sparse_format as sf
@@ -286,12 +299,18 @@ def main():
 
     if not torch.cuda.is_available():
         cs.fail("no CUDA device: this script only runs on the card")
-    # a "warp_" variant is of the one-warp kernel, a "piece_" one of the
-    # kernel that walks pieces: each is built where the tree has that kernel
-    kind = "piece_" if hasattr(S, "sddmm_lanes") else "warp_"
+    source = "quad_sddmm.cu" if quad else "chunk_sddmm.cu"
+    entry = "nmf_" + source.split(".")[0]
+    kernel = S.quad_sddmm if quad else S.chunk_sddmm
+    plain = S.quad_sddmm_plain if quad else S.chunk_sddmm_plain
+    # a "warp_" variant is of the one-warp routine, a "piece_" one of the
+    # walk over pieces: each is built where the tree's kernel has that routine
+    walks = ((tree / "nmf_tpu_torch" / "csrc" / "sddmm_piece.cuh").exists() if quad
+             else hasattr(S, "sddmm_lanes"))
+    kind = "piece_" if walks else "warp_"
     builds, skipped = {}, []
     for name, edits in VARIANTS.items():
-        got = _build(tree, name, edits) if name.startswith(kind) else None
+        got = _build(tree, source, name, edits) if name.startswith(kind) else None
         if got is None:
             skipped.append(name)
         else:
@@ -300,15 +319,16 @@ def main():
     from time_sparse_kernels import _matrix
 
     rows, cols, vals = _matrix(cs)
-    X = sf.build_tiled(rows, cols, vals, (cs.P, cs.N), dense_tile_nnz=192, coo_tail_nnz=3)
+    opts = dict(quad_tail_nnz=32) if quad else dict(coo_tail_nnz=3)
+    X = sf.build_tiled(rows, cols, vals, (cs.P, cs.N), dense_tile_nnz=192, **opts)
     side = X.fwd
     gen = torch.Generator(device="cuda").manual_seed(2)
     W = torch.rand((side.rows, cs.K), generator=gen, device="cuda")
     Ht = torch.rand((side.cols, cs.K), generator=gen, device="cuda")
-    want = S.chunk_sddmm_plain(side, W.double(), Ht.double())
+    want = plain(side, W.double(), Ht.double())
     lib = build.load_kernels()
-    out = {"tree": str(tree), "k": cs.K, "ms": {}, "rel_err": {}, "same_bits": {},
-           "skipped": skipped, "build_errors": {}, "registers": {}}
+    out = {"tree": str(tree), "kernel": source, "k": cs.K, "ms": {}, "rel_err": {},
+           "same_bits": {}, "skipped": skipped, "build_errors": {}, "registers": {}}
     runs = {"own": None}
     for name, (proc, so) in builds.items():
         log = proc.communicate()[0]
@@ -316,30 +336,32 @@ def main():
             out["build_errors"][name] = log[-2000:]
             continue
         out["registers"][name] = sorted({int(r) for r in re.findall(r"Used (\d+) registers", log)})
-        fn = getattr(ctypes.CDLL(str(so)), "nmf_chunk_sddmm")
-        fn.argtypes = build._ARGTYPES["nmf_chunk_sddmm"]
+        fn = getattr(ctypes.CDLL(str(so)), entry)
+        fn.argtypes = build._ARGTYPES[entry]
         fn.restype = ctypes.c_int
         runs[name] = fn
     lanes = getattr(S, "sddmm_lanes", None)
     out["ms_by_pass"] = {name: [] for name in runs}
     for pass_ in range(PASSES):  # every variant once a pass, in turns
         for name, fn in runs.items():
-            build._lib = lib if fn is None else _Swapped(lib, "nmf_chunk_sddmm", fn)
+            build._lib = lib if fn is None else _Swapped(lib, entry, fn)
             if name in LANES:
                 S.sddmm_lanes = lambda k, g=LANES[name]: g
             try:
                 if pass_ == 0:
-                    got = S.chunk_sddmm(side, W, Ht)
+                    got = kernel(side, W, Ht)
                     torch.cuda.synchronize()
                     out["rel_err"][name] = float(
                         (got.double() - want).abs().max() / want.abs().max())
-                    out["same_bits"][name] = bool(torch.equal(got, S.chunk_sddmm(side, W, Ht)))
-                out["ms_by_pass"][name].append(cs.time_ms(lambda: S.chunk_sddmm(side, W, Ht), reps=9))
+                    out["same_bits"][name] = bool(torch.equal(got, kernel(side, W, Ht)))
+                out["ms_by_pass"][name].append(cs.time_ms(lambda: kernel(side, W, Ht), reps=9))
+            except RuntimeError as err:  # a variant the card refuses: reported
+                out.setdefault("launch_errors", {})[name] = str(err)
             finally:
                 build._lib = lib
                 if lanes is not None:
                     S.sddmm_lanes = lanes
-    out["ms"] = {name: statistics.median(v) for name, v in out["ms_by_pass"].items()}
+    out["ms"] = {name: statistics.median(v) for name, v in out["ms_by_pass"].items() if v}
     out["card"] = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
         capture_output=True, text=True, check=True).stdout.strip().splitlines()[0]

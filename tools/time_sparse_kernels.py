@@ -15,7 +15,7 @@ median of 5, beside one ``torch.sparse.mm`` on the same entries (the band
 adds into one output tensor a call); and the sampled products over the
 chunks and the quad chunks (kernels 4 and 5, forward side) beside one
 ``torch.sparse.sampled_addmm`` on the same entries, with a hash of their
-bits, and one sparse divergence sweep on the chunk store (``sddmm``: only
+bits, and one sparse divergence sweep on each store (``sddmm``: only
 these).  A tree that cuts panels into pieces
 also reports its pieces and the kernels' times at other piece caps (for the
 dense kernel: blocks a piece, where the tree cuts its dense lists).  The matrix is made once and kept in ``_cache/`` beside
@@ -100,8 +100,8 @@ def main():
             ("quad", dict(dense_tile_nnz=192, quad_tail_nnz=32), True)):
         X = sf.build_tiled(rows, cols, vals, (cs.P, cs.N), **opts)
         _sampled(cs, S, X.fwd, quad, out)
-        if not quad:  # one sparse divergence sweep, two sampled products in it
-            out["mu_div_iteration_ms"] = _div_iteration_ms(cs, X)
+        # one sparse divergence sweep, two sampled products in it
+        out["mu_div_iteration_ms" + ("_quad" if quad else "")] = _div_iteration_ms(cs, X)
         if only_sampled:
             continue
         kern = S.quad_matmul if quad else S.chunk_matmul
