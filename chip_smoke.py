@@ -40,7 +40,16 @@ time (``launch_floor_ms``, ``launch_floor_graph_ms``).
 Kernels 1, 2 and 3 are also run with most row panels cut into several
 pieces (phase ``kernels_split``), and the products over the first store and
 five HALS iterations on it give the same bits twice (phase
-``same_bits_products``).  Every phase prints one JSON line; any failure
+``same_bits_products``).  Kernel 11 is held at ragged and narrow shapes
+within 1 ulp of the float64 sums, twice and from two streams, and timed
+beside the two-pass design it replaced, built from
+``tools/colsum_two_pass.cu`` (phase
+``kernels_colsum``); the store's row and column sums repeat bit for bit
+(phase ``sparse_sums``); a caller who turned TF32 on gets the solves' bits
+and its setting back (phase ``precision``).  Every phase prints one JSON
+line; the ``kernels`` line gives each use of a kernel its own times
+(``fwd_ms``, ``fwd_plain_ms``, ``fwd_library_ms``, ``fwd_bound_ms``) beside
+the sums over its uses (``summed_over``).  Any failure
 ends the run with a non-zero exit code.  There is no CPU path: without a
 card the script fails at once.  The last line is
 ``{"ok": true, "device": {...}}``.
@@ -51,6 +60,7 @@ from __future__ import annotations
 import contextlib
 import json
 import math
+import pathlib
 import statistics
 import subprocess
 import sys
@@ -144,25 +154,30 @@ def bound_of(nbytes, flops, rate=FP32_FLOPS):
 _flush_buf = None
 
 
-def _flush_l2():
+def _flush_l2(clean=False):
     """Overwrite 256 MB so the next launch finds the 50 MB L2 cold, as a
     launch inside a HALS sweep does (the column loop streams the factor
-    128 times between two products)."""
+    128 times between two products).  That leaves up to 50 MB of dirty
+    lines, which the next launch writes back as it fills L2; ``clean``
+    reads the 256 MB instead, so nothing is left to write back."""
     global _flush_buf
     if _flush_buf is None:
-        _flush_buf = torch.empty(64 << 20, dtype=torch.float32, device="cuda")
-    _flush_buf.zero_()
+        _flush_buf = torch.zeros(64 << 20, dtype=torch.float32, device="cuda")
+    if clean:
+        _flush_buf.max()
+    else:
+        _flush_buf.zero_()
 
 
-def time_ms(fn, reps=5, warmup=1):
+def time_ms(fn, reps=5, warmup=1, clean=False):
     """Median milliseconds of ``fn()`` by CUDA events, L2 flushed before
-    each launch, a synchronize between launches."""
+    each launch (``_flush_l2``), a synchronize between launches."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     out = []
     for _ in range(reps):
-        _flush_l2()
+        _flush_l2(clean)
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -880,6 +895,214 @@ def check_elementwise(shape, timed, gen):
                              library_ms=time_ms(lib), bound_ms=bound_ms,
                              bound_by=by, bytes=nbytes)
     return rec
+
+
+def start_two_pass_colsum_build():
+    """``nvcc`` on ``tools/colsum_two_pass.cu`` (kernel 11's two-pass
+    design, which the one-launch kernel replaced), started now and awaited by
+    ``load_two_pass_colsum``: the measurement the redesign starts from."""
+    from nmf_tpu_torch.ops.cuda import build
+
+    build.BUILD.mkdir(parents=True, exist_ok=True)
+    target = build.BUILD / "libcolsum_two_pass.so"
+    src = pathlib.Path(__file__).resolve().parent / "tools" / "colsum_two_pass.cu"
+    proc = subprocess.Popen(
+        [build._nvcc(), *build.NVCC_FLAGS, "-shared", "-o", str(target), str(src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    return proc, target
+
+
+def load_two_pass_colsum(started):
+    import ctypes
+
+    proc, target = started
+    log = proc.communicate()[0]
+    if proc.returncode:
+        fail(f"nvcc failed on tools/colsum_two_pass.cu:\n{log}")
+    lib = ctypes.CDLL(str(target))
+    for fn in (lib.two_pass_colsum_partial, lib.two_pass_colsum_finish):
+        fn.argtypes = [ctypes.c_void_p] * 2 + [ctypes.c_int] * 2 + [ctypes.c_void_p]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def _ulps_off(got, want):
+    """Largest distance, in float32 ulps, of ``got`` (float32) from ``want``
+    (float64) rounded to float32; both of one sign (the sums of positive
+    entries)."""
+    a = got.contiguous().view(torch.int32).to(torch.int64)
+    b = want.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    return int((a - b).abs().max())
+
+
+COLSUM_EDGE_M = (1, 1000, 9973, P + 1)
+COLSUM_EDGE_N = (1, 3, 4, 127, 128, 450, 512)
+
+
+def check_colsum(lib, gen):
+    """Kernel 11 at its edges and at the path's shape.  Edges: m of 1, 1,000
+    (fewer rows than a block an SM), 9,973 and 163,001 (ragged) by n of
+    1, 3, 4, 127, 128, 450 and 512, and a misaligned A (the one-column
+    loads): each column within 1 ulp of the float64 sum, the same bits twice
+    and from two streams at once.  At 163,000 x 128: ``ms``, ``graph_ms``,
+    the bound, ``sum(0)``, the two-pass design's passes each alone and together
+    (``tools/colsum_two_pass.cu``), and ``normalize1_cols`` (kernels 11 and 12)
+    end to end."""
+    from nmf_tpu_torch.ops.cuda import elementwise as E
+    from nmf_tpu_torch.utils import numeric
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    edges = {}
+    side = [torch.cuda.Stream(), torch.cuda.Stream()]
+    for m in COLSUM_EDGE_M:
+        for n in COLSUM_EDGE_N:
+            A = torch.rand((m, n), generator=gen, device="cuda")
+            edges[f"{m}x{n}"] = _colsum_edge(E, A, side)
+    base = torch.rand(9973 * 128 + 1, generator=gen, device="cuda")
+    edges["9973x128_misaligned"] = _colsum_edge(E, base[1:].view(9973, 128), side)
+    if edges["9973x128_misaligned"]["vec"]:
+        fail("colsum: a misaligned A took the 16-byte loads")
+    worst = max(r["ulps"] for r in edges.values())
+
+    m, n = P, K
+    A = torch.rand((m, n), generator=gen, device="cuda") + 0.1
+    got = E.colsum(A)
+    want = A.double().sum(0)
+    if _ulps_off(got, want) > 1:
+        fail("colsum 163000x128: more than 1 ulp from the float64 sum")
+    nb = -(-m // 256)
+    partial = torch.empty((nb, n), dtype=torch.float64, device="cuda")
+    old = torch.empty(n, device="cuda")
+
+    def two_pass(which):
+        stream = torch.cuda.current_stream().cuda_stream  # a graph captures on its own
+        if which in ("partial", "both") and lib.two_pass_colsum_partial(
+                A.data_ptr(), partial.data_ptr(), m, n, stream):
+            fail("the two-pass colsum's partial pass failed to launch")
+        if which in ("finish", "both") and lib.two_pass_colsum_finish(
+                partial.data_ptr(), old.data_ptr(), m, n, stream):
+            fail("the two-pass colsum's finish pass failed to launch")
+
+    two_pass("both")
+    torch.cuda.synchronize()
+    plan = E.colsum_plan(m, n, sms)
+    nbytes = 4 * m * n + 4 * n
+    bound_ms, by = bound_of(nbytes, m * n)
+    rec = {
+        "shape": [m, n], "plan": plan._asdict(), "ulps_two_pass": _ulps_off(old, want),
+        "ms": time_ms(lambda: E.colsum(A), reps=11),
+        "graph_ms": graph_ms(lambda: E.colsum(A)),
+        "bound_ms": bound_ms, "bound_by": by, "bytes": nbytes,
+        "library_ms": time_ms(lambda: A.sum(0), reps=11),
+        "two_pass_ms": time_ms(lambda: two_pass("both"), reps=11),
+        "two_pass_partial_ms": time_ms(lambda: two_pass("partial"), reps=11),
+        "two_pass_finish_ms": time_ms(lambda: two_pass("finish"), reps=11),
+        "two_pass_graph_ms": graph_ms(lambda: two_pass("both")),
+        "normalize1_cols_ms": time_ms(lambda: numeric.normalize1_cols(A), reps=11),
+        "normalize1_cols_graph_ms": graph_ms(lambda: numeric.normalize1_cols(A)),
+    }
+    return {"edges": edges, "max_ulps": worst, "path_shape": rec}
+
+
+def _colsum_edge(E, A, streams):
+    m, n = A.shape
+    want = A.double().sum(0)
+    got = E.colsum(A)
+    torch.cuda.synchronize()
+    ulps = _ulps_off(got, want)
+    if tuple(got.shape) != (n,) or ulps > 1:
+        fail(f"colsum {m}x{n}: {ulps} ulps from the float64 sum")
+    _same_bits(f"colsum {m}x{n}", lambda: E.colsum(A))
+    outs = []
+    for st in streams:  # both in flight at once, each with its own scratch
+        with torch.cuda.stream(st):
+            outs.append(E.colsum(A))
+    torch.cuda.synchronize()
+    if not all(torch.equal(o, got) for o in outs):
+        fail(f"colsum {m}x{n}: another stream gave other bits")
+    return {"ulps": ulps, "vec": bool(n % 4 == 0 and A.data_ptr() % 16 == 0)}
+
+
+def sparse_sums(X, rows, cols, vals):
+    """``matops.colsums`` / ``rowsums`` on the chunk store (its products
+    against a ones column, kernels 1-3 and the band): within ``REL_TOL`` of
+    ``max|want|`` of the float64 sums, the same bits twice; timed beside
+    ``index_add_`` over the CSR-order values, the atomics they replace."""
+    from nmf_tpu_torch.ops import matops
+    from nmf_tpu_torch.ops.cuda import build
+
+    out = {}
+    for name, fn, idx, size in (("colsums", matops.colsums, cols, N),
+                                ("rowsums", matops.rowsums, rows, P)):
+        want = torch.from_numpy(np.bincount(idx, weights=vals.astype(np.float64),
+                                            minlength=size)).cuda()
+        build.reset_launch_counts()
+        got = fn(X)
+        torch.cuda.synchronize()
+        launches = {k: v for k, v in build.launch_counts().items() if v}
+        r = _held(f"sparse_sums {name}", got, want, REL_TOL, (size,))
+        r["same_bits"] = _same_bits(f"sparse_sums {name}", lambda: fn(X))
+        ix = torch.from_numpy(idx.astype(np.int64)).cuda()
+        v = torch.from_numpy(vals).cuda()
+        r.update(launches=launches, ms=time_ms(lambda: fn(X)),
+                 index_add_ms=time_ms(lambda: v.new_zeros(size).index_add_(0, ix, v)))
+        out[name] = r
+        del ix, v
+    return out
+
+
+def precision(Xd):
+    """The caller turns TF32 on through the legacy API
+    (``torch.set_float32_matmul_precision("high")``): a dense HALS solve of
+    three iterations and ``nnmf(Xd, 64, maxiter=5)`` with its defaults give
+    the bits they give under ``"highest"``; inside the solves cuBLAS reads
+    ``"ieee"`` (recorded at every ``matops.mm``); afterwards
+    ``torch.get_float32_matmul_precision()`` reads ``"high"`` again.  A bare
+    product outside any solve shows that the caller's setting is live."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops import matops
+
+    seen = []
+    mm = matops.mm
+
+    def recording_mm(X, D):
+        seen.append(torch.backends.cuda.matmul.fp32_precision)
+        return mm(X, D)
+
+    runs = {
+        "hals_3": lambda: nt.nnmf(Xd, DK, alg="cd", init="random", maxiter=3),
+        "nnmf_defaults_5": lambda: nt.nnmf(Xd, DK, maxiter=5),
+    }
+    Hp = torch.rand((DN, DK), device="cuda")
+    out = {}
+    results = {}
+    for setting in ("highest", "high"):
+        torch.set_float32_matmul_precision(setting)
+        matops.mm = recording_mm
+        try:
+            results[setting] = {name: run() for name, run in runs.items()}
+        finally:
+            matops.mm = mm
+        torch.cuda.synchronize()
+        out[setting] = {"after": torch.get_float32_matmul_precision(),
+                        "inside": sorted(set(seen))}
+        seen.clear()
+        if out[setting]["after"] != setting:
+            fail(f"precision: the caller's {setting!r} read "
+                 f"{out[setting]['after']!r} after the solves")
+        if out[setting]["inside"] != ["ieee"]:
+            fail(f"precision: under {setting!r} a solve ran at {out[setting]['inside']}")
+        results[setting]["bare"] = Xd @ Hp
+    torch.set_float32_matmul_precision("highest")
+    for name in runs:
+        a, b = results["highest"][name], results["high"][name]
+        if not (torch.equal(a.W, b.W) and torch.equal(a.H, b.H)
+                and a.objvalue == b.objvalue):
+            fail(f"precision: {name} gave other bits under 'high'")
+        out[name] = {"same_bits": True, "objvalue": a.objvalue, "niters": a.niters}
+    out["bare_product_differs_under_high"] = not torch.equal(
+        results["highest"]["bare"], results["high"]["bare"])
+    return out
 
 
 def check_k_ceilings(rs, cs, vs, shape):
@@ -1659,7 +1882,6 @@ def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script only runs on the card")
-    import nmf_tpu_torch  # noqa: F401  (TF32 off)
     from nmf_tpu_torch.ops.cuda import build
     from nmf_tpu_torch.ops.sparse_format import build_tiled
 
@@ -1670,12 +1892,13 @@ def main():
     ).stdout.strip().splitlines()[0]
     kind = torch.cuda.get_device_name(0)
     say("device", nvidia_smi=smi, kind=kind, torch=torch.__version__,
-        cuda=torch.version.cuda, count=torch.cuda.device_count(),
-        allow_tf32=torch.backends.cuda.matmul.allow_tf32)
+        cuda=torch.version.cuda, count=torch.cuda.device_count())
 
-    # 2. build
+    # 2. build (kernel 11's two-pass design alongside, for its measurement)
     t0 = time.perf_counter()
+    two_pass_build = start_two_pass_colsum_build()
     build.load_kernels()
+    two_pass_colsum = load_two_pass_colsum(two_pass_build)
     logs = sorted(build.BUILD.glob("*.log"))
     ptxas = [ln.strip() for ln in logs[-1].read_text().splitlines()
              if "registers" in ln or "spill" in ln] if logs else []
@@ -1744,6 +1967,9 @@ def main():
     ew = {f"{m}x{n}": check_elementwise((m, n), timed=True, gen=gen)
           for m, n in ((P, K), (N, K), (DP, DK), (DN, DK), (1000, 777))}
     say("kernels_elementwise", card=smi, tolerance=EW_REL_TOL, **ew)
+    # kernel 11 at its edges, from two streams, and against its two passes
+    colsum_rec = check_colsum(two_pass_colsum, gen)
+    say("kernels_colsum", card=smi, tolerance_ulps=1, **colsum_rec)
     # every k a kernel refused before it summed over k in slabs
     say("k_ceilings", tolerance=REL_TOL, shape=[3000, 2500],
         **check_k_ceilings(rs, cs, vs, (3000, 2500)))
@@ -1786,6 +2012,8 @@ def main():
         host_build_seconds_quad=t_build_quad,
         **{s: classes(side) for s, side in (("fwd", X.fwd), ("bwd", X.bwd))},
         quad_store={s: classes(side) for s, side in (("fwd", Xq.fwd), ("bwd", Xq.bwd))})
+    # the store's row and column sums in a fixed order
+    say("sparse_sums", card=smi, tolerance=REL_TOL, **sparse_sums(X, rows, cols, vals))
     del rows, cols
 
     full = check_kernels(X, K, "full store", timed=True)
@@ -1904,6 +2132,8 @@ def main():
     say("solve_mu_dense", shape=[DP, DN], k=DK, card=smi, **mu_dense)
     dense_defaults = solve_defaults_dense(Xd)
     say("solve_defaults_dense", shape=[DP, DN], k=DK, card=smi, **dense_defaults)
+    # the caller's TF32 setting neither reaches a solve nor is lost by one
+    say("precision", shape=[DP, DN], k=DK, card=smi, **precision(Xd))
     del Xd
 
     # 7. the report: launches are those of the paths' runs, each read with
@@ -1970,6 +2200,16 @@ def main():
                                           ["nnmf_defaults_dense"]),
         },
     }
+
+    def per_use(parts):
+        """Each use's own ms, plain, library and bound times (``fwd_ms``,
+        ``fwd_plain_ms``, ...) beside the sums over the uses, and which uses
+        those sums are over (``summed_over``)."""
+        uses = [part for part in parts if part]
+        return {**({"summed_over": uses} if len(uses) > 1 else {}),
+                **{f"{part}_{key}": r[key] for part, r in parts.items() if part
+                   for key in ("ms", "plain_ms", "library_ms", "bound_ms")}}
+
     kernels = []
     for name, (source, replaces, parts) in meta.items():
         tot = lambda key: sum(r[key] for r in parts.values())
@@ -1988,7 +2228,7 @@ def main():
             "library_ms": tot("library_ms"),
             "same_bits": all(r["same_bits"] for r in parts.values()),
             "launches_by_path": by_path,
-            **{f"{part}_ms": r["ms"] for part, r in parts.items() if part},
+            **per_use(parts),
             # kernel 2's bound on the CUDA cores beside its tensor-core one
             **({"bound_ms_cuda_core": tot("bound_ms_cuda_core")}
                if all("bound_ms_cuda_core" in r for r in parts.values()) else {}),
@@ -1998,11 +2238,15 @@ def main():
                         "bound_ms": sum(r["bound_ms"] for r in recs.values()),
                         "plain_ms": sum(r["plain_ms"] for r in recs.values()),
                         "library_ms": sum(r["library_ms"] for r in recs.values()),
-                        **{f"{part}_ms": r["ms"] for part, r in recs.items()},
+                        **per_use(recs),
                         **({"graph_ms": sum(r["graph_ms"] for r in recs.values())}
                            if all("graph_ms" in r for r in recs.values()) else {})}
                 for shape, (recs, qs) in by_shape[name].items()}}
                if name in by_shape else {}),
+            # kernel 11: its device time alone and the two-pass design's
+            **({key: colsum_rec["path_shape"][key] for key in (
+                "graph_ms", "two_pass_ms", "two_pass_partial_ms", "two_pass_finish_ms",
+                "two_pass_graph_ms")} if name == "colsum" else {}),
         })
     if sorted(k["name"] for k in kernels) != sorted(build.KERNELS):
         fail("the report does not list every kernel the build holds")

@@ -7,24 +7,43 @@ entry point raises instead of silently carrying on on the CPU (a CPU run says
 nothing about the card).  Callers that want the CPU — the parity tests — say
 ``device="cpu"``.
 
-Float32 products run in full float32: TF32 is switched off here and the
-hand-written kernels use FMA on the CUDA cores.  Any faster precision would
-be opt-in and has to be measured on the card first.
+Float32 products run in full float32: every public entry point that
+computes runs inside ``precision_scope``, which holds cuBLAS at IEEE float32
+for the call and gives the caller's setting back after it; the hand-written
+kernels use FMA on the CUDA cores and read no flag.  Importing the package
+changes no torch setting.  Any faster precision would be opt-in and has to
+be measured on the card first.
 """
 
 from __future__ import annotations
 
+import contextlib
+
 import torch
 
 __all__ = ["DEFAULT_DEVICE", "resolve_device", "same_device", "check_on_device",
-           "greedycd_cascade", "set_greedycd_cascade"]
-
-# exact fp32: stated and set (PyTorch's own default for matmul is already
-# False; cuDNN's is True)
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
+           "precision_scope", "greedycd_cascade", "set_greedycd_cascade"]
 
 DEFAULT_DEVICE = "cuda"
+
+
+@contextlib.contextmanager
+def precision_scope():
+    """Hold cuBLAS's float32 matmul precision at ``"ieee"`` (no TF32) inside
+    the ``with`` block and give back the caller's value on the way out,
+    also when the block raises.  It reads and writes through torch's new
+    API only (``torch.backends.cuda.matmul.fp32_precision``), so a caller
+    who set the legacy ``torch.set_float32_matmul_precision("high")`` reads
+    ``"high"`` from ``torch.get_float32_matmul_precision()`` afterwards.
+    cuDNN's setting is not touched: the port runs no convolution.  Scopes
+    nest; ``@precision_scope()`` runs a function inside one."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.fp32_precision
+    matmul.fp32_precision = "ieee"
+    try:
+        yield
+    finally:
+        matmul.fp32_precision = saved
 
 
 def resolve_device(device=DEFAULT_DEVICE) -> torch.device:

@@ -19,17 +19,31 @@
 // padded or copied.  An entry is kept unless it is below zero, so NaN passes
 // through and -0.0 stays -0.0: the bits of A.clamp_min(0).
 //
-// Column sums.  The TPU kernel adds every 512-row block into one (1, n)
-// output that its sequential grid revisits.  Here thread blocks run in no
-// order, and no atomics are used: a block of 8 warps owns COLSUM_ROWS rows
-// and 32 columns; lane c of every warp reads column c, so a warp reads 128
-// contiguous bytes of a row at a time, and warp w takes rows w, w + 8, ...,
-// adding them into a double in increasing row order.  The block adds its 8
-// warps in order and writes one double per column into a (blocks, n)
-// partial; a second kernel adds the partials of a column in increasing
-// block order and rounds once to float.  A fixed order throughout: the same
-// bits from run to run, and the float64 sum rounded once.
-//
+// Column sums (kernel 11).  The TPU kernel adds every 512-row block into one
+// (1, n) output that its sequential grid revisits.  Here thread blocks run
+// in no order and no atomics add the sums.  One launch: a grid the size of
+// the card (``colsum_plan`` in ops/cuda/elementwise.py: one block of
+// COLSUM_NT threads an SM, fewer for a short matrix), each block owning a
+// contiguous range of rows across all n columns.  A thread owns a unit of
+// columns (four, read as one 16-byte load, where n % 4 == 0 and A is
+// 16-byte aligned; else one) and one of the R = COLSUM_NT / w sub-rows of a
+// step (w: the units of a pass over at most COLSUM_NT units), adds rows r0 +
+// sub, r0 + sub + R, ... into doubles in increasing order, COLSUM_UNROLL
+// loads in flight (about 128 KB an SM at n = 128; the launch bounds' least
+// block count lets ptxas keep them: without it, it aims at two blocks an SM,
+// 32 registers, and keeps one load in flight).  The block adds its R
+// sub-rows in order into one double a column of a (blocks, n) partial in
+// the call's scratch.  Then each block takes a ticket (``atomicInc`` on a
+// word of the same scratch, after ``__threadfence``); the last block adds
+// the partials with all its threads: for each column, S = COLSUM_NT / w
+// stripes of consecutive blocks, each stripe's blocks in increasing order,
+// then the stripes in order, rounded once to float.  The order depends only
+// on (m, n, the grid), so the same inputs give the same bits on every call
+// and stream of one card.  The ticket word is zeroed by a 4-byte
+// ``cudaMemsetAsync`` on the call's stream before the kernel (the scratch
+// comes from PyTorch's allocator), and ``atomicInc`` leaves it at 0 again.
+// Bound by bytes: A read once, n floats written.
+
 // Scaling.  A flat pass like projectnn; each entry divides by its column's
 // sum with IEEE division (the build takes no fast-math flag), so given the
 // same sums it gives the bits of a / s.
@@ -39,8 +53,10 @@
 
 #define EW_NT 256
 #define EW_MAX_BLOCKS 8192
-#define COLSUM_ROWS 256
-#define COLSUM_WARPS (EW_NT / 32)
+#define COLSUM_NT 1024       // threads a block of the column sums
+#define COLSUM_BPS 1         // blocks an SM: the grid's and the launch bounds'
+#define COLSUM_UNROLL 8      // rows of loads a thread keeps in flight
+#define COLSUM_FIN_UNROLL 8  // partials a thread of the last block keeps in flight
 
 __device__ __forceinline__ float proj(float x) { return !(x < 0.f) ? x : 0.f; }
 
@@ -67,36 +83,99 @@ projectnn_kernel(const float* __restrict__ A, float* __restrict__ out,
   for (size_t e = done + first; e < count; e += stride) out[e] = proj(A[e]);
 }
 
-__global__ void __launch_bounds__(EW_NT)
-colsum_partial_kernel(const float* __restrict__ A, double* __restrict__ partial,
-                      int m, int n) {
-  __shared__ double warp_sum[COLSUM_WARPS][32];
-  const int lane = threadIdx.x & 31, w = threadIdx.x >> 5;
-  const int c = blockIdx.y * 32 + lane;
-  const int r0 = blockIdx.x * COLSUM_ROWS;
-  const int r1 = min(m, r0 + COLSUM_ROWS);
-  double s = 0.0;
-  if (c < n) {
-#pragma unroll 4
-    for (int r = r0 + w; r < r1; r += COLSUM_WARPS) s += (double)A[(size_t)r * n + c];
-  }
-  warp_sum[w][lane] = s;
-  __syncthreads();
-  if (w == 0 && c < n) {
-    double tot = 0.0;
-    for (int v = 0; v < COLSUM_WARPS; ++v) tot += warp_sum[v][lane];
-    partial[(size_t)blockIdx.x * n + c] = tot;
-  }
+__device__ __forceinline__ void add_cols(double* s, float4 x) {
+  s[0] += (double)x.x; s[1] += (double)x.y; s[2] += (double)x.z; s[3] += (double)x.w;
 }
+__device__ __forceinline__ void add_cols(double* s, float x) { s[0] += (double)x; }
+// a whole 512-byte row of a warp at n = 128: evict-first (ld.global.cs), so
+// that the lines A brings into L2 go before the ones already there (dirty
+// ones written by the kernel before, which a normalised start reads next);
+// a one-column load shares its lines with the neighbouring warps' and keeps
+// the default policy
+__device__ __forceinline__ float4 load_cols(const float4* p) { return __ldcs(p); }
+__device__ __forceinline__ float load_cols(const float* p) { return *p; }
 
-__global__ void __launch_bounds__(EW_NT)
-colsum_finish_kernel(const double* __restrict__ partial, float* __restrict__ out,
-                     int nblocks, int n) {
-  const int c = blockIdx.x * EW_NT + threadIdx.x;
-  if (c >= n) return;
-  double s = 0.0;
-  for (int b = 0; b < nblocks; ++b) s += partial[(size_t)b * n + c];
-  out[c] = (float)s;
+// V columns a unit: 4 (float4 loads; n % 4 == 0, A 16-byte aligned) or 1
+template <int V, typename Vec>
+__global__ void __launch_bounds__(COLSUM_NT, COLSUM_BPS)
+colsum_kernel(const float* __restrict__ A, double* __restrict__ partial,
+              unsigned* __restrict__ ticket, float* __restrict__ out, int m,
+              int n, int rows) {
+  __shared__ double red[COLSUM_NT * V];
+  __shared__ unsigned taken;
+  const int t = threadIdx.x;
+  const int r0 = blockIdx.x * rows, r1 = min(m, r0 + rows);
+  const int units = n / V;
+  double* mine = partial + (size_t)blockIdx.x * n;
+  for (int u0 = 0; u0 < units; u0 += COLSUM_NT) {
+    const int w = min(COLSUM_NT, units - u0);  // units of this pass
+    const int R = COLSUM_NT / w;               // rows a step
+    const int sub = t / w, u = t - sub * w;
+    if (sub < R) {
+      double s[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) s[v] = 0.0;
+      const Vec* p = reinterpret_cast<const Vec*>(A + (size_t)(r0 + sub) * n) + u0 + u;
+      const size_t step = (size_t)R * units;  // Vecs between a thread's rows
+      int r = r0 + sub;
+      for (; r + (COLSUM_UNROLL - 1) * R < r1; r += COLSUM_UNROLL * R) {
+        Vec x[COLSUM_UNROLL];
+#pragma unroll
+        for (int j = 0; j < COLSUM_UNROLL; ++j) x[j] = load_cols(p + j * step);
+#pragma unroll
+        for (int j = 0; j < COLSUM_UNROLL; ++j) add_cols(s, x[j]);
+        p += COLSUM_UNROLL * step;
+      }
+      for (; r < r1; r += R, p += step) add_cols(s, load_cols(p));
+#pragma unroll
+      for (int v = 0; v < V; ++v) red[(sub * w + u) * V + v] = s[v];
+    }
+    __syncthreads();
+    for (int c = t; c < w * V; c += COLSUM_NT) {  // the sub-rows in order
+      double tot = 0.0;
+      for (int j = 0; j < R; ++j) tot += red[j * w * V + c];
+      mine[u0 * V + c] = tot;
+    }
+    __syncthreads();
+  }
+
+  // the last block to finish adds every block's partial
+  __threadfence();
+  __syncthreads();
+  if (t == 0) taken = atomicInc(ticket, gridDim.x - 1);
+  __syncthreads();
+  if (taken != gridDim.x - 1) return;
+  __threadfence();
+  const int nb = gridDim.x;
+  for (int c0 = 0; c0 < n; c0 += COLSUM_NT) {
+    const int w = min(COLSUM_NT, n - c0);  // columns of this pass
+    const int S = COLSUM_NT / w;           // stripes of blocks
+    const int per = (nb + S - 1) / S;      // blocks a stripe
+    const int st = t / w, c = t - st * w;
+    if (st < S) {
+      const int b1 = min(nb, (st + 1) * per);
+      int b = st * per;
+      const double* q = partial + (size_t)b * n + c0 + c;
+      double s = 0.0;
+      for (; b + COLSUM_FIN_UNROLL <= b1; b += COLSUM_FIN_UNROLL) {
+        double x[COLSUM_FIN_UNROLL];
+#pragma unroll
+        for (int j = 0; j < COLSUM_FIN_UNROLL; ++j) x[j] = __ldcg(q + (size_t)j * n);
+#pragma unroll
+        for (int j = 0; j < COLSUM_FIN_UNROLL; ++j) s += x[j];
+        q += (size_t)COLSUM_FIN_UNROLL * n;
+      }
+      for (; b < b1; ++b, q += n) s += __ldcg(q);
+      red[t] = s;
+    }
+    __syncthreads();
+    if (t < w) {  // the stripes in order
+      double tot = 0.0;
+      for (int j = 0; j < S; ++j) tot += red[j * w + t];
+      out[c0 + t] = (float)tot;
+    }
+    __syncthreads();
+  }
 }
 
 __global__ void __launch_bounds__(EW_NT)
@@ -130,19 +209,26 @@ extern "C" int nmf_projectnn(const float* A, float* out, size_t count, int vec,
   return (int)cudaGetLastError();
 }
 
-// out (n floats) = column sums of A (m x n, row-major); ``partial`` holds
-// ceil(m / COLSUM_ROWS) * n doubles of scratch.
-extern "C" int nmf_colsum(const float* A, double* partial, float* out, int m,
-                          int n, void* stream) {
-  if (m <= 0 || n <= 0) return (int)cudaErrorInvalidValue;
+// out (n floats) = column sums of A (m x n, row-major) in one launch of
+// ``blocks`` blocks of ``rows`` rows each (the last may take fewer; from
+// colsum_plan); ``scratch`` holds blocks * n doubles of partials and then
+// the ticket word; ``vec``: n % 4 == 0 and A 16-byte aligned.
+extern "C" int nmf_colsum(const float* A, double* scratch, float* out, int m,
+                          int n, int blocks, int rows, int vec, void* stream) {
+  if (m <= 0 || n <= 0 || blocks <= 0 || rows <= 0 ||
+      (long long)blocks * rows < m || (long long)(blocks - 1) * rows >= m ||
+      (vec && n % 4))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  const int nblocks = (m + COLSUM_ROWS - 1) / COLSUM_ROWS;
-  colsum_partial_kernel<<<dim3(nblocks, (n + 31) / 32), EW_NT, 0, st>>>(
-      A, partial, m, n);
-  cudaError_t e = cudaGetLastError();
+  unsigned* ticket = reinterpret_cast<unsigned*>(scratch + (size_t)blocks * n);
+  cudaError_t e = cudaMemsetAsync(ticket, 0, sizeof(unsigned), st);
   if (e != cudaSuccess) return (int)e;
-  colsum_finish_kernel<<<(n + EW_NT - 1) / EW_NT, EW_NT, 0, st>>>(partial, out,
-                                                                 nblocks, n);
+  if (vec)
+    colsum_kernel<4, float4><<<blocks, COLSUM_NT, 0, st>>>(A, scratch, ticket, out,
+                                                          m, n, rows);
+  else
+    colsum_kernel<1, float><<<blocks, COLSUM_NT, 0, st>>>(A, scratch, ticket, out,
+                                                         m, n, rows);
   return (int)cudaGetLastError();
 }
 

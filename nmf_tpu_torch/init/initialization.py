@@ -108,6 +108,7 @@ def _as_tensor(a):
     return a if isinstance(a, torch.Tensor) else torch.from_numpy(np.array(a))
 
 
+@config.precision_scope()
 def nndsvd(X, k: int, *, zeroh: bool = False, variant: str = "std",
            initdata=None, generator=None, device=config.DEFAULT_DEVICE):
     """NNDSVD initialization: ``(W (p, k), H (k, n))``.

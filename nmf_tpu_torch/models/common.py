@@ -262,6 +262,7 @@ def unrenumber(W, H, perms):
     return W.index_select(0, perms[1].long()), H.index_select(1, perms[3].long())
 
 
+@config.precision_scope()
 def nmf_skeleton(upd, X, W, H, maxiter, verbose, tol, trace: bool = False) -> Result:
     """Run the shared iteration skeleton and wrap the outcome in a Result.
     ``upd`` is an options object hooked up via :func:`register_solver`."""
@@ -320,6 +321,7 @@ def _nmf_skeleton_inner(upd, X, W, H, maxiter, verbose, tol, trace) -> Result:
     return Result(W, H, t, converged, objv)
 
 
+@config.precision_scope()
 def solve(alg, X, W, H, trace: bool = False, *,
           device=config.DEFAULT_DEVICE) -> Result:
     """Solve NMF with a configured algorithm object.  Returns a new Result;

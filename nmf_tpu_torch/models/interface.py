@@ -43,6 +43,7 @@ def _check_nonneg(A, name):
         raise ValueError(f"The elements of {name} must be non-negative.")
 
 
+@config.precision_scope()
 def nnmf(
     X,
     k: int,
@@ -145,6 +146,7 @@ def nnmf(
     )
 
 
+@config.precision_scope()
 def solve_replicates(
     alginst, X, W, H, *, replicates: int, initH: bool, generator=None,
     trace: bool = False, device=config.DEFAULT_DEVICE,

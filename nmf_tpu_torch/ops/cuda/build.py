@@ -80,8 +80,8 @@ _ARGTYPES = {
     "nmf_dense_objective": [_P] * 5 + [_I] * 6 + [_P],
     # A, out, count, vec, stream
     "nmf_projectnn": [_P, _P, _S, _I, _P],
-    # A, partial, out, m, n, stream
-    "nmf_colsum": [_P] * 3 + [_I] * 2 + [_P],
+    # A, scratch, out, m, n, blocks, rows, vec, stream
+    "nmf_colsum": [_P] * 3 + [_I] * 5 + [_P],
     # A, sums, out, count, n, vec, stream
     "nmf_scale_cols": [_P] * 3 + [_S, _I, _I, _P],
 }

@@ -2,7 +2,8 @@
 
 * ``projectnn``  — ``max(A, 0)``, NaN kept, the bits of ``A.clamp_min(0)``;
 * ``colsum``     — the column sums of an ``(m, n)`` matrix, summed in double
-  in a fixed order and rounded once;
+  in a fixed order and rounded once, in one launch whose grid
+  ``colsum_plan`` sizes to the card;
 * ``scale_cols`` — ``A / sums``, column ``j`` divided by ``sums[j]``.
 
 ``utils.numeric.projectnn`` and ``normalize1_cols`` call them.  Each wrapper
@@ -13,14 +14,47 @@ are float32 only).  ``build.launch_counts()`` counts kernel launches.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .build import launch
 
 __all__ = ["projectnn", "projectnn_plain", "colsum", "colsum_plain",
-           "scale_cols", "scale_cols_plain", "COLSUM_ROWS"]
+           "colsum_plan", "ColsumPlan", "scale_cols", "scale_cols_plain",
+           "COLSUM_THREADS", "COLSUM_BLOCKS_PER_SM", "COLSUM_MIN_ROWS"]
 
-COLSUM_ROWS = 256  # rows a thread block of the column sums takes (csrc)
+# the column sums (csrc/elementwise.cu): threads a block (``COLSUM_NT``),
+# blocks a multiprocessor keeps resident at that size (``COLSUM_BPS``, also
+# the launch bounds'), and the fewest rows a block takes where the matrix is
+# too short to give every multiprocessor one
+COLSUM_THREADS = 1024
+COLSUM_BLOCKS_PER_SM = 1
+COLSUM_MIN_ROWS = 64
+
+
+class ColsumPlan(NamedTuple):
+    """One launch of the column sums: ``blocks`` thread blocks, block ``b``
+    taking rows ``[b * rows, min(m, (b + 1) * rows))``; ``scratch`` float64
+    words: ``blocks * n`` partial sums, then one holding the ticket."""
+    blocks: int
+    rows: int
+    scratch: int
+
+
+def colsum_plan(m, n, sms) -> ColsumPlan:
+    """The grid of the column sums of an ``(m, n)`` matrix on a card with
+    ``sms`` multiprocessors: as many blocks as the card keeps resident
+    (``COLSUM_BLOCKS_PER_SM`` an SM), fewer where that would give a block
+    under ``COLSUM_MIN_ROWS`` rows, each block a contiguous run of rows and
+    no block empty.  The order of every addition follows from the plan and
+    ``n``, so the same shapes on the same card give the same bits."""
+    if m < 1 or n < 1 or sms < 1:
+        raise ValueError(f"no column sums to plan for m={m}, n={n}, sms={sms}")
+    blocks = max(1, min(COLSUM_BLOCKS_PER_SM * sms, m // COLSUM_MIN_ROWS))
+    rows = -(-m // blocks)
+    blocks = -(-m // rows)
+    return ColsumPlan(blocks, rows, blocks * n + 1)
 
 
 def _plain(A) -> bool:
@@ -71,7 +105,8 @@ def colsum_plain(A):
 
 
 def colsum(A):
-    """Column sums ``(n,)`` of ``A (m, n)``."""
+    """Column sums ``(n,)`` of ``A (m, n)``: one launch, its partial sums
+    and ticket in scratch of the call's own."""
     if _plain(A):
         return colsum_plain(A)
     _check_f32("colsum", A)
@@ -81,9 +116,11 @@ def colsum(A):
     if m == 0:
         return out.zero_()
     if n:
-        partial = torch.empty((-(-m // COLSUM_ROWS), n), dtype=torch.float64,
-                              device=A.device)
-        launch("colsum", A, partial, out, m, n)
+        sms = torch.cuda.get_device_properties(A.device).multi_processor_count
+        plan = colsum_plan(m, n, sms)
+        scratch = torch.empty(plan.scratch, dtype=torch.float64, device=A.device)
+        launch("colsum", A, scratch, out, m, n, plan.blocks, plan.rows,
+               int(n % 4 == 0 and _vec(A)))
     return out
 
 

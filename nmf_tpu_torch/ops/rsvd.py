@@ -34,6 +34,7 @@ def _rsvd_from_sketch(X, omega, k: int, n_iter: int):
     return U[:, :k], s[:k], Vt[:k, :].T
 
 
+@config.precision_scope()
 def rsvd(X, k: int, *, oversample: int = 10, n_iter: int = 2, generator=None,
          device=config.DEFAULT_DEVICE):
     """Rank-k randomized SVD of X.  Returns ``(U, s, V)`` with U ``(p, k)``,

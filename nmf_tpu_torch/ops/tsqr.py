@@ -3,8 +3,8 @@
 An orthonormal basis of the columns of a ``(p, l)`` panel from three passes
 of
 
-* ``G = Y'Y``        — the ``(l, l)`` Gram, exact float32 or float64 (TF32
-                       is off, ``config.py``);
+* ``G = Y'Y``        — the ``(l, l)`` Gram, exact float32 or float64 (no
+                       TF32: ``rsvd`` runs in ``config.precision_scope``);
 * ``R = chol(G)``    — upper Cholesky factor of the Gram plus a small shift;
 * ``Q = Y @ R^-1``   — one ``(p, l) @ (l, l)`` product.
 

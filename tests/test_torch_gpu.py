@@ -817,6 +817,94 @@ def test_numeric_utils_route_to_the_kernels_on_the_card(card):
     assert not any(build.launch_counts().values())
 
 
+def _ulps_off(got, want):
+    """Largest distance in float32 ulps of ``got`` from ``want`` (float64)
+    rounded to float32; both of one sign."""
+    a = got.contiguous().view(torch.int32).to(torch.int64)
+    b = want.to(torch.float32).contiguous().view(torch.int32).to(torch.int64)
+    return int((a - b).abs().max())
+
+
+def _colsum_held(A):
+    """Kernel 11 on A: one launch, every column within 1 ulp of the float64
+    sum, the same bits twice and from two streams at once."""
+    from nmf_tpu_torch.ops.cuda import elementwise as ew
+
+    build.reset_launch_counts()
+    got = ew.colsum(A)
+    assert build.launch_counts()["colsum"] == 1
+    assert got.shape == (A.shape[1],)
+    assert _ulps_off(got, A.double().sum(0)) <= 1
+    assert torch.equal(got, ew.colsum(A))
+    streams = [torch.cuda.Stream(), torch.cuda.Stream()]
+    torch.cuda.synchronize()
+    outs = []
+    for st in streams:
+        with torch.cuda.stream(st):
+            outs.append(ew.colsum(A))
+    torch.cuda.synchronize()
+    assert all(torch.equal(o, got) for o in outs)
+
+
+@pytest.mark.parametrize("n", [1, 3, 4, 127, 128, 450, 512])
+@pytest.mark.parametrize("m", [1, 1000, 9973, 163_001])
+def test_colsum_kernel_at_its_edges(card, m, n):
+    g = torch.Generator(device=card).manual_seed(m + n)
+    _colsum_held(torch.rand((m, n), device=card, generator=g))
+
+
+def test_colsum_kernel_on_a_misaligned_matrix(card):
+    g = torch.Generator(device=card).manual_seed(5)
+    base = torch.rand(9973 * 128 + 1, device=card, generator=g)
+    A = base[1:].view(9973, 128)  # 4 bytes off: the one-column loads
+    assert A.is_contiguous() and A.data_ptr() % 16
+    _colsum_held(A)
+
+
+@pytest.mark.parametrize("store", ["chunk", "quad"])
+def test_store_sums_on_the_card_repeat_bit_for_bit(card, store):
+    from nmf_tpu_torch.ops import matops
+
+    Xd = three_class_matrix() if store == "chunk" else four_class_matrix()
+    r, c, v = coo_of(Xd)
+    Xt = build_tiled(r, c, v, Xd.shape, device=card,
+                     **(BUILD if store == "chunk" else QUAD_BUILD))
+    build.reset_launch_counts()
+    cs, rs = matops.colsums(Xt), matops.rowsums(Xt)
+    assert build.launch_counts()["chunk_matmul"] == 2
+    close(cs, torch.from_numpy(Xd.sum(0, dtype=np.float64)))
+    close(rs, torch.from_numpy(Xd.sum(1, dtype=np.float64)))
+    assert torch.equal(cs, matops.colsums(Xt)) and torch.equal(rs, matops.rowsums(Xt))
+    assert torch.equal(cs, matops.colsums(Xt.slim()))
+
+
+def test_a_caller_with_tf32_on_gets_the_ieee_solve(card):
+    """The caller sets ``torch.set_float32_matmul_precision("high")``: a
+    dense HALS and a default ``nnmf`` solve give the bits they give under
+    ``"highest"``, and the caller's setting reads ``"high"`` afterwards; a
+    bare product outside the solves does run in TF32."""
+    rng = np.random.default_rng(12)
+    X = torch.from_numpy((rng.random((600, 12)) @ rng.random((12, 500))).astype(
+        np.float32)).to(card)
+    H = torch.rand(500, 12, device=card)
+    runs = {"hals": lambda: nt.nnmf(X, 12, alg="cd", init="random", maxiter=3),
+            "defaults": lambda: nt.nnmf(X, 12, maxiter=3)}
+    got = {}
+    try:
+        for setting in ("highest", "high"):
+            torch.set_float32_matmul_precision(setting)
+            got[setting] = {name: run() for name, run in runs.items()}
+            got[setting]["bare"] = X @ H
+            assert torch.get_float32_matmul_precision() == setting
+    finally:
+        torch.set_float32_matmul_precision("highest")
+        torch.backends.cuda.matmul.fp32_precision = "none"
+    for name in runs:
+        a, b = got["highest"][name], got["high"][name]
+        assert torch.equal(a.W, b.W) and torch.equal(a.H, b.H), name
+    assert not torch.equal(got["highest"]["bare"], got["high"]["bare"])
+
+
 def test_nnmf_with_every_default_runs_the_kernels(card):
     Xd = three_class_matrix()
     r, c, v = coo_of(Xd)

@@ -49,6 +49,13 @@ MODULES = [
 
 
 def test_import_pulls_in_neither_jax_nor_the_jax_package():
+    # torch's precision settings, read the same way with and without the import
+    settings = (
+        "import torch\n"
+        "print('SETTINGS', torch.backends.cuda.matmul.fp32_precision,\n"
+        "      torch.get_float32_matmul_precision(),\n"
+        "      torch.backends.cudnn.allow_tf32)\n"
+    )
     code = (
         "import importlib, sys\n"
         f"for m in {MODULES!r}:\n"
@@ -58,19 +65,20 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "print('BAD', bad)\n"
         "from nmf_tpu_torch.ops.cuda import build\n"
         "print('BUILT', build._lib is not None or build.build_seconds is not None)\n"
-        "import torch\n"
-        "print('TF32', torch.backends.cuda.matmul.allow_tf32,\n"
-        "      torch.backends.cudnn.allow_tf32)\n"
-    )
-    out = subprocess.run(
-        [sys.executable, "-c", code], cwd=ROOT, capture_output=True, text=True,
-        timeout=300,
-    )
+    ) + settings
+    out, alone = (
+        subprocess.run([sys.executable, "-c", c], cwd=ROOT, capture_output=True,
+                       text=True, timeout=300)
+        for c in (code, settings))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
     # importing the package builds and loads no kernel
     assert "BUILT False" in out.stdout, out.stdout
-    assert "TF32 False False" in out.stdout, out.stdout
+    # the import leaves the caller's settings as they were
+    assert alone.returncode == 0, alone.stderr
+    assert "SETTINGS" in alone.stdout
+    assert alone.stdout.splitlines()[-1] == out.stdout.splitlines()[-1], (
+        out.stdout, alone.stdout)
 
 
 @pytest.mark.parametrize("path", PORT_SOURCES, ids=lambda p: str(p.relative_to(ROOT)))
@@ -115,8 +123,17 @@ def test_build_lists_every_source_and_entry_point():
 
 
 def test_tf32_is_off():
-    assert torch.backends.cuda.matmul.allow_tf32 is False
-    assert torch.backends.cudnn.allow_tf32 is False
+    """TF32 is off inside ``config.precision_scope`` (cuBLAS at IEEE float32)
+    and the caller's setting is back after it."""
+    matmul = torch.backends.cuda.matmul
+    saved = matmul.fp32_precision
+    try:
+        matmul.fp32_precision = "tf32"
+        with config.precision_scope():
+            assert matmul.fp32_precision == "ieee"
+        assert matmul.fp32_precision == "tf32"
+    finally:
+        matmul.fp32_precision = saved
 
 
 def _entry_points():
