@@ -19,10 +19,15 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
   error, and the literal ``nnmf(X, 128)``; a normalised random start with a
   second replicate;
 * multiplicative updates (KL divergence and MSE) on the first tiled store;
+* projected ALS and ALS projected gradient for ten traced iterations each on
+  the first tiled store, then SPA on it at rank 128 (spa4): the anchors, the
+  exact anchor columns, the batched FNNLS by cascade level with its KKT
+  conditions in every column, and ``nnmf(X, 128, init="spa", alg="spa")``;
 * multiplicative updates on a dense 100,000 x 10,000 low-rank problem at rank
   64, and on the two small dense problems (500 x 500 rank 8 to relative
   error 0.010, 2000 x 1000 rank 32 to 0.020); ``nnmf`` with its defaults on
-  the dense problem.
+  the dense problem; projected ALS and ALS projected gradient on the dense
+  problem to relative error 0.0125 (ttt3), and ``nnmf`` with each.
 
 Kernels 8, 9 and 6 are also held at ragged shapes, unaligned rows and k on
 both sides of a slab (phase ``kernels_dense_edges``), kernels 4 and 5 at k
@@ -89,6 +94,10 @@ MONOTONE_TOL = 1e-4  # an objective may rise by this much, relative, per step
 # column sums added in double and rounded once; the scaling divides once
 EW_REL_TOL = 1e-6
 TARGET_RELERR = 0.84
+TTT3_TARGET = 0.0125  # benchmarks/run.py's ttt3 target for both ALS solvers
+# FNNLS's residual on the passive set, relative to |AtA| |x| + |AtB|: a
+# float64 LU solve is backward stable to about k * eps = 3e-14 at k 128
+KKT_REL = 1e-9
 P, N, K = 163_000, 59_000, 128
 DP, DN, DK = 100_000, 10_000, 64  # the dense multiplicative-update problem
 
@@ -1467,9 +1476,10 @@ def _monotone(label, start, history):
             fail(f"{label}: objective rose {prev} -> {cur}")
 
 
-def _traced_run(label, X, k, alg, W0, H0, iters, xsq):
+def _traced_run(label, X, k, alg, W0, H0, iters, xsq, monotone=True):
     """``iters`` traced iterations of one solver through the front door, with
-    the launch counts of just this run."""
+    the launch counts of just this run; ``monotone`` holds its objective to
+    ``_monotone`` (else the history is recorded and its values held finite)."""
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.ops.cuda import build
     from nmf_tpu_torch.ops.objectives import kl_objective, mse_objective
@@ -1492,7 +1502,10 @@ def _traced_run(label, X, k, alg, W0, H0, iters, xsq):
             and bool(torch.isfinite(res.W).all()) and bool(torch.isfinite(res.H).all())
             and bool((res.W >= 0).all()) and bool((res.H >= 0).all())):
         fail(f"{label}: nnmf returned a bad result: {res}")
-    _monotone(label, start, hist)
+    if monotone:
+        _monotone(label, start, hist)
+    elif not all(math.isfinite(o) for o in hist):
+        fail(f"{label}: non-finite objective in {hist}")
     if not abs(hist[-1] - res.objvalue) <= 1e-5 * abs(res.objvalue):
         fail(f"{label}: last traced objective differs from objvalue")
     relerr = math.sqrt(max(2.0 * float(mse_objective(X, res.W, res.H)), 0.0) / xsq)
@@ -1789,6 +1802,275 @@ def time_to_target(label, X, upd, W0, H0, target, chunk, max_iters=5000):
     return {"target": target, "iterations": iters, "seconds": seconds, "relerr": r}
 
 
+@contextlib.contextmanager
+def counted_pg_bodies():
+    """Counts ALSPGrad's flat-loop bodies while the block runs: yields a list
+    that gets one ``(bodies, pg_iterations)`` pair a half-step (inner
+    solve)."""
+    from nmf_tpu_torch.models import alspgrad
+
+    log = []
+    body, subsolve = alspgrad._flat_body, alspgrad._pg_subsolve
+    count = [0]
+
+    def counted_body(*a):
+        count[0] += 1
+        return body(*a)
+
+    def counted_subsolve(*a, **kw):
+        count[0] = 0
+        Y, t = subsolve(*a, **kw)
+        log.append((count[0], t))
+        return Y, t
+
+    alspgrad._flat_body, alspgrad._pg_subsolve = counted_body, counted_subsolve
+    try:
+        yield log
+    finally:
+        alspgrad._flat_body, alspgrad._pg_subsolve = body, subsolve
+
+
+@contextlib.contextmanager
+def counted_fnnls_levels():
+    """Records FNNLS's cascade levels while the block runs: yields a list
+    that gets one dict a buffer: its width (the columns active as it
+    starts), its steps, their seconds on the host's clock (the last step
+    ends in the host's read of the active count) and the columns still
+    active after them."""
+    from nmf_tpu_torch.ops import fnnls
+
+    log = []
+    run, step = fnnls._run, fnnls._masked_step
+    count = [0]
+
+    def counted_step(*a):
+        count[0] += 1
+        return step(*a)
+
+    def counted_run(AtA, c, *a):
+        count[0] = 0
+        t0 = time.perf_counter()
+        out = run(AtA, c, *a)
+        log.append({"width": int(c.x.shape[0]), "steps": count[0],
+                    "seconds": time.perf_counter() - t0, "active_after": out[2]})
+        return out
+
+    fnnls._run, fnnls._masked_step = counted_run, counted_step
+    try:
+        yield log
+    finally:
+        fnnls._run, fnnls._masked_step = run, step
+
+
+def _bodies_summary(log):
+    bodies = [b for b, _ in log]
+    return {"half_steps": len(log), "bodies": sum(bodies),
+            "bodies_per_half_step_mean": sum(bodies) / max(len(log), 1),
+            "bodies_per_half_step_max": max(bodies, default=0),
+            "pg_iterations_per_half_step_mean": sum(t for _, t in log) / max(len(log), 1)}
+
+
+def solve_projals_alspgrad_dense(X, W0, H0):
+    """ttt3 (``benchmarks/run.py:278-305``): ProjectedALS to relative error
+    0.0125 within 300 iterations (chunks of 5) and ALSPGrad (``maxsubiter=20``)
+    within 100 (chunks of 2) from the same start, each with the launches,
+    peak memory and (ALSPGrad) flat-loop bodies of its run; 10 traced
+    iterations of each through ``nnmf`` (ALSPGrad's objective held to
+    ``MONOTONE_TOL``, ProjectedALS's, not monotone by nature, recorded);
+    then ``nnmf(X, DK, alg=..., maxiter=20)`` with every
+    other default, recording that ProjectedALS's NNDSVD-ar start hands it
+    an H of zeros."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import alspgrad, interface
+    from nmf_tpu_torch.models.projals import ProjectedALS
+    from nmf_tpu_torch.ops.cuda import build
+
+    xsq = float((X * X).sum(dtype=torch.float64))
+    out = {}
+    for alg, upd, chunk, max_iters, names in (
+        ("projals", ProjectedALS(maxiter=100)._resolved(torch.float32)[0], 5, 300,
+         ("projectnn", "dense_objective")),
+        ("alspgrad", alspgrad.ALSPGrad(maxiter=100, maxsubiter=20)._resolved(
+            torch.float32)[0], 2, 100, ("dense_objective",)),
+    ):
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launch_counts()
+        with counted_pg_bodies() as log:
+            r = time_to_target(f"ttt3 {alg}", X, upd, W0, H0, TTT3_TARGET, chunk,
+                               max_iters)
+        r["launches"] = build.launch_counts()
+        _need_launches(f"ttt3 {alg}", r["launches"], names)
+        r.update(seconds_per_iteration=r["seconds"] / max(r["iterations"], 1),
+                 max_iterations=max_iters, chunk=chunk,
+                 peak_device_memory_bytes=torch.cuda.max_memory_allocated())
+        if log:
+            r["pg_bodies"] = _bodies_summary(log)
+        traced = _traced_run(f"ttt3 {alg} traced", X, DK, alg, W0, H0, 10, xsq,
+                             monotone=alg == "alspgrad")
+        out[alg] = {"to_target": r, "traced": traced}
+    out["jax_records_iterations"] = {"projals": 285, "alspgrad": 38}
+
+    nndsvd = interface.nndsvd
+    for alg in ("projals", "alspgrad"):
+        starts = []
+
+        def recording_nndsvd(*a, **kw):
+            W, H = nndsvd(*a, **kw)
+            starts.append(int((H == 0).sum()))
+            return W, H
+
+        interface.nndsvd = recording_nndsvd
+        build.reset_launch_counts()
+        torch.cuda.reset_peak_memory_stats()
+        rec = {}
+        try:
+            res = _timed(rec, "seconds", lambda: nt.nnmf(X, DK, alg=alg, maxiter=20))
+        finally:
+            interface.nndsvd = nndsvd
+        rec["launches"] = build.launch_counts()
+        _result_ok(f"nnmf(Xd, 64, alg={alg!r})", res, (DP, DK), (DK, DN))
+        _need_launches(f"nnmf(Xd, 64, alg={alg!r})", rec["launches"],
+                       ("projectnn", "dense_objective") if alg == "projals"
+                       else ("dense_objective",))
+        zeros = starts[0]
+        if alg == "projals" and zeros != DK * DN:
+            fail(f"nnmf projals: H of the start has {zeros} zeros of {DK * DN}")
+        rec.update(niters=res.niters, converged=res.converged, objvalue=res.objvalue,
+                   relerr=relerr_of(X, res.W, res.H, xsq)[1], start_H_zeros=zeros,
+                   start_H_entries=DK * DN,
+                   peak_device_memory_bytes=torch.cuda.max_memory_allocated())
+        out[f"nnmf_{alg}"] = rec
+    return out
+
+
+def solve_projals_alspgrad_sparse(X, W0, H0, iters=10):
+    """ProjectedALS and ALSPGrad (every default) for ``iters`` traced
+    iterations each on the ttt4 chunk store through ``nnmf``: a finite
+    objective (ALSPGrad's also held to ``MONOTONE_TOL``), the launches of
+    each run, ALSPGrad's flat-loop bodies."""
+    xsq = float(X.stats[1])
+    products = ("chunk_matmul", "dense_matmul", "coo_matmul")
+    out = {}
+    for alg, names in (("projals", products + ("projectnn",)), ("alspgrad", products)):
+        with counted_pg_bodies() as log:
+            r = _traced_run(f"sparse {alg}", X, K, alg, W0, H0, iters, xsq,
+                            monotone=alg == "alspgrad")
+        _need_launches(f"sparse {alg}", r["launches"], names)
+        if log:
+            r["pg_bodies"] = _bodies_summary(log)
+        out[alg] = r
+    return out
+
+
+def spa_store(X, rows, cols, vals):
+    """spa4 (``benchmarks/run.py:656-700``): ``spa(X, 128)`` on the ttt4
+    chunk store, whole (the launches of its run) and in its parts (anchors,
+    W, the Grams, FNNLS by cascade level, the projection); the same bits
+    both ways.  W's columns are X's anchor columns exactly (held against the
+    host's COO arrays) and the anchors are distinct; FNNLS meets its KKT
+    conditions in every column; on 4,096 columns the cascade gives the plain
+    driver's bits; ``nnmf(X, 128, init="spa", alg="spa")`` gives the same
+    anchors and bits; the relative error ``sqrt(2 mse) / ||X||``."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import spa as S
+    from nmf_tpu_torch.ops import fnnls as F, matops
+    from nmf_tpu_torch.ops.cuda import build
+    from nmf_tpu_torch.utils.numeric import projectnn
+
+    xsq = float(X.stats[1])
+    out = {}
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    with counted_fnnls_levels() as levels:
+        W, H = _timed(out, "seconds", lambda: nt.spa(X, K))
+    out["launches"] = build.launch_counts()
+    out["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    _need_launches("spa", out["launches"],
+                   ("chunk_matmul", "dense_matmul", "coo_matmul", "projectnn"))
+    out["fnnls_levels"] = levels
+    out["fnnls_cascade"] = dict(nt.config.fnnls_cascade)
+    parts = {}
+    ai = _timed(parts, "anchors_s", lambda: S._spa_anchors_sparse(X, K))
+    Wp = _timed(parts, "W_s", lambda: S._store_columns(X, ai))
+    AtA = _timed(parts, "AtA_s", lambda: Wp.double().T @ Wp.double())
+    AtB = _timed(parts, "AtB_s", lambda: matops.mtm(Wp.T, X).double())
+    with counted_fnnls_levels() as lv:
+        x = _timed(parts, "fnnls_s", lambda: F.nnls_gram(AtA, AtB))
+    Hp = _timed(parts, "project_s", lambda: projectnn(x.float()))
+    out["parts"] = parts
+    out["parts_fnnls_levels"] = lv
+    if not (torch.equal(W, Wp) and torch.equal(H, Hp)):
+        fail("spa: the whole call and its parts gave other bits")
+
+    # W is X's anchor columns, exactly; the anchors are distinct
+    anchors = ai.cpu().numpy()
+    out["anchors_head"] = anchors[:8].tolist()
+    if len(set(anchors.tolist())) != K:
+        fail(f"spa: anchors repeat: {anchors.tolist()}")
+    sel = np.isin(cols, anchors)
+    slot = np.full(N, -1, np.int64)
+    slot[anchors] = np.arange(K)
+    want = np.zeros((P, K), np.float32)
+    want[rows[sel], slot[cols[sel]]] = vals[sel]
+    if not np.array_equal(W.cpu().numpy(), want):
+        fail("spa: W's columns differ from X's anchor columns")
+    out["anchor_column_nnz"] = int(sel.sum())
+
+    # KKT: x >= 0; w = AtB - AtA x at most tol where x == 0, and on the
+    # passive set within KKT_REL of the terms it is the difference of
+    eps = torch.finfo(torch.float64).eps
+    tol = 10 * eps * float(AtA.abs().sum(dim=0).max()) * K
+    w = AtB - AtA @ x
+    scale = AtA.abs() @ x.abs() + AtB.abs()
+    passive = x > 0
+    kkt = {"tol": tol, "min_x": float(x.min()),
+           "max_w_inactive": float(torch.where(passive, -math.inf, w).max()),
+           "max_w_passive_rel": float(torch.where(passive, w.abs() / scale, 0).max()),
+           "passive_per_column_mean": float(passive.sum(0).double().mean()),
+           "passive_per_column_max": int(passive.sum(0).max()),
+           "rel_bound": KKT_REL}
+    out["kkt"] = kkt
+    if not (kkt["min_x"] >= 0 and kkt["max_w_inactive"] <= tol
+            and kkt["max_w_passive_rel"] <= KKT_REL):
+        fail(f"spa: FNNLS misses its KKT conditions: {kkt}")
+    del w, scale, passive
+
+    # the cascade against the plain driver on 4,096 columns
+    sub = AtB[:, :4096].contiguous()
+    cas = F.nnls_gram(AtA, sub, cascade=True)
+    plain = F.nnls_gram(AtA, sub, cascade=False)
+    if not torch.equal(cas, plain):
+        fail("spa: FNNLS's cascade gave other bits than the plain driver")
+    out["cascade_vs_plain_4096"] = {"same_bits": True,
+                                    "same_bits_as_all_columns": torch.equal(plain, x[:, :4096])}
+    del AtA, AtB, x, cas, plain, sub
+
+    # through the front door
+    seen = []
+    anchors_of = S._spa_anchors_sparse
+
+    def recording_anchors(*a):
+        seen.append(anchors_of(*a))
+        return seen[-1]
+
+    S._spa_anchors_sparse = recording_anchors
+    build.reset_launch_counts()
+    rec = {}
+    try:
+        res = _timed(rec, "seconds", lambda: nt.nnmf(X, K, init="spa", alg="spa"))
+    finally:
+        S._spa_anchors_sparse = anchors_of
+    rec["launches"] = build.launch_counts()
+    if not (torch.equal(seen[0], ai) and torch.equal(res.W, W) and torch.equal(res.H, H)
+            and res.niters == 0 and res.converged):
+        fail(f"nnmf(X, 128, init='spa', alg='spa') differs from spa(X, 128): {res}")
+    rec.update(objvalue=res.objvalue, same_anchors_and_bits=True)
+    out["nnmf_spa"] = rec
+    out["relerr"] = math.sqrt(max(2.0 * res.objvalue, 0.0) / xsq)
+    out["H_nonzeros"] = int((H > 0).sum())
+    return out
+
+
 def solve_mu_dense(X, W0, H0, iters=10):
     """Dense multiplicative updates at full width, both objectives, and the
     two small problems to their targets."""
@@ -2014,7 +2296,6 @@ def main():
         quad_store={s: classes(side) for s, side in (("fwd", Xq.fwd), ("bwd", Xq.bwd))})
     # the store's row and column sums in a fixed order
     say("sparse_sums", card=smi, tolerance=REL_TOL, **sparse_sums(X, rows, cols, vals))
-    del rows, cols
 
     full = check_kernels(X, K, "full store", timed=True)
     say("kernels", tolerance=REL_TOL, card=smi, **full)
@@ -2092,7 +2373,20 @@ def main():
     mu_sparse = solve_mu_sparse(X, W0, H0)
     say("solve_mu_sparse", shape=[P, N], k=K, card=smi, **mu_sparse)
     say("iteration_parts_mu", card=smi, **time_iteration_parts_mu(X, W0, H0))
-    del X, W0, H0
+    torch.cuda.empty_cache()
+
+    # 5b. projected ALS and ALS projected gradient on the same store, then
+    # SPA with its batched FNNLS (spa4)
+    t0 = time.perf_counter()
+    als_sparse = solve_projals_alspgrad_sparse(X, W0, H0)
+    say("solve_projals_alspgrad_sparse", shape=[P, N], k=K, card=smi,
+        seconds=time.perf_counter() - t0, **als_sparse)
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    spa4 = spa_store(X, rows, cols, vals)
+    say("spa", shape=[P, N], k=K, nnz=len(vals), card=smi,
+        phase_seconds=time.perf_counter() - t0, **spa4)
+    del X, W0, H0, rows, cols
     torch.cuda.empty_cache()
 
     # 6. the third path: multiplicative updates on dense X
@@ -2132,6 +2426,12 @@ def main():
     say("solve_mu_dense", shape=[DP, DN], k=DK, card=smi, **mu_dense)
     dense_defaults = solve_defaults_dense(Xd)
     say("solve_defaults_dense", shape=[DP, DN], k=DK, card=smi, **dense_defaults)
+    # ttt3: projected ALS and ALS projected gradient to relative error 0.0125
+    t0 = time.perf_counter()
+    als_dense = solve_projals_alspgrad_dense(Xd, Wd0, Hd0)
+    say("solve_projals_alspgrad_dense", shape=[DP, DN], k=DK, card=smi,
+        target=TTT3_TARGET, seconds=time.perf_counter() - t0, **als_dense)
+    torch.cuda.empty_cache()
     # the caller's TF32 setting neither reaches a solve nor is lost by one
     say("precision", shape=[DP, DN], k=DK, card=smi, **precision(Xd))
     del Xd
@@ -2155,7 +2455,21 @@ def main():
         "nnmf_defaults": defaults["nnmf_defaults"]["launches"],
         "solve_random_replicates": replicates["launches"],
         "nnmf_defaults_dense": dense_defaults["launches"],
+        "solve_projals_sparse": als_sparse["projals"]["launches"],
+        "solve_alspgrad_sparse": als_sparse["alspgrad"]["launches"],
+        "spa": spa4["launches"],
+        "nnmf_spa": spa4["nnmf_spa"]["launches"],
+        "ttt3_projals": als_dense["projals"]["to_target"]["launches"],
+        "ttt3_alspgrad": als_dense["alspgrad"]["to_target"]["launches"],
+        "ttt3_projals_traced": als_dense["projals"]["traced"]["launches"],
+        "ttt3_alspgrad_traced": als_dense["alspgrad"]["traced"]["launches"],
+        "nnmf_projals_dense": als_dense["nnmf_projals"]["launches"],
+        "nnmf_alspgrad_dense": als_dense["nnmf_alspgrad"]["launches"],
     }
+    # the paths on the dense problem (kernel 10 at its factors' shapes)
+    dense_paths = ["nnmf_defaults_dense", "ttt3_projals", "ttt3_alspgrad",
+                   "ttt3_projals_traced", "ttt3_alspgrad_traced",
+                   "nnmf_projals_dense", "nnmf_alspgrad_dense"]
     csrc = "nmf_tpu_torch/csrc/"
     pallas = "nmf_tpu/ops/pallas/"
     # name: (source, TPU kernel, the records that make up one use of the kernel)
@@ -2194,10 +2508,10 @@ def main():
         "projectnn": {
             f"ttt4_{P}x{K}_{N}x{K}": ({"W": ew[f"{P}x{K}"]["projectnn"],
                                       "H": ew[f"{N}x{K}"]["projectnn"]},
-                                     not_in("nnmf_defaults_dense")),
+                                     not_in(*dense_paths)),
             f"dense_{DP}x{DK}_{DN}x{DK}": ({"W": ew[f"{DP}x{DK}"]["projectnn"],
                                            "H": ew[f"{DN}x{DK}"]["projectnn"]},
-                                          ["nnmf_defaults_dense"]),
+                                          dense_paths),
         },
     }
 

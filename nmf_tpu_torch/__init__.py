@@ -6,22 +6,26 @@ code is PyTorch, and the sparse products, the multiplicative updates' fused
 steps and the dense objectives run hand-written CUDA kernels (``csrc/``).  It
 imports ``torch`` and ``numpy`` only.
 
-Ported so far: the ``nnmf`` front door for Fast-HALS coordinate descent
-(``alg="cd"``), greedy coordinate descent (``alg="greedycd"``, the default)
-and the multiplicative updates (``alg="multmse"``, ``alg="multdiv"``) with
-random, custom or NNDSVD initialization (``init="nndsvdar"``, the default,
-over a randomized SVD), on dense tensors and on the tiled sparse store
-(``ops.sparse_format.build_tiled``): ``nnmf(X, k)`` runs with every default.
-Entry points run on the card unless the caller passes ``device="cpu"``.
+Ported so far: the ``nnmf`` front door with all seven algorithms
+(multiplicative updates for MSE and KL, projected ALS, ALS projected
+gradient, Fast-HALS coordinate descent, greedy coordinate descent, SPA with
+batched FNNLS) and every initializer (random, NNDSVD, NNDSVDa, NNDSVDar over
+a randomized SVD, SPA, custom), on dense tensors and on the tiled sparse
+store (``ops.sparse_format.build_tiled``).  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 """
 
 from . import config
 from .init.initialization import nndsvd, randinit
+from .models.alspgrad import ALSPGrad, alspgrad_updateh, alspgrad_updatew
 from .models.common import Result, Trace, nmf_checksize, solve, stop_condition
 from .models.coorddesc import CoordinateDescent
 from .models.greedycd import GreedyCD
 from .models.interface import nnmf, solve_replicates
 from .models.multupd import MultUpdate
+from .models.projals import ProjectedALS
+from .models.spa import SPA, separable_data, spa
+from .ops.fnnls import fnnls, nnls_gram
 from .ops.linalg import pdrsolve, pdsolve
 from .ops.objectives import gkldiv, kl_objective, mse_objective, sqL2dist
 from .ops.rsvd import rsvd
@@ -37,9 +41,18 @@ __all__ = [
     "solve_replicates",
     "stop_condition",
     "nmf_checksize",
+    "MultUpdate",
+    "ProjectedALS",
+    "ALSPGrad",
     "CoordinateDescent",
     "GreedyCD",
-    "MultUpdate",
+    "SPA",
+    "alspgrad_updateh",
+    "alspgrad_updatew",
+    "spa",
+    "separable_data",
+    "fnnls",
+    "nnls_gram",
     "randinit",
     "nndsvd",
     "rsvd",

@@ -1,5 +1,5 @@
-"""Device choice, matmul precision and the GreedyCD cascade schedule for the
-PyTorch/CUDA build.
+"""Device choice, matmul precision and the GreedyCD and FNNLS cascade
+schedules for the PyTorch/CUDA build.
 
 The build targets one NVIDIA Hopper card.  Every entry point takes an
 explicit ``device=`` whose default is ``"cuda"``; when no card is present the
@@ -22,7 +22,8 @@ import contextlib
 import torch
 
 __all__ = ["DEFAULT_DEVICE", "resolve_device", "same_device", "check_on_device",
-           "precision_scope", "greedycd_cascade", "set_greedycd_cascade"]
+           "precision_scope", "greedycd_cascade", "set_greedycd_cascade",
+           "fnnls_cascade", "set_fnnls_cascade"]
 
 DEFAULT_DEVICE = "cuda"
 
@@ -95,16 +96,40 @@ greedycd_cascade: dict[str, int] = {
 }
 
 
-def set_greedycd_cascade(shrink: int | None = None, min: int | None = None,
-                         off_rows: int | None = None,
-                         slab_rows: int | None = None) -> None:
-    """Override the GreedyCD cascade schedule (None = keep current).  The
-    schedule changes how the rows are batched, never a row's result."""
-    new = dict(shrink=shrink, min=min, off_rows=off_rows, slab_rows=slab_rows)
+def _set_cascade(knobs: dict, new: dict) -> None:
+    """Validate every given value (``shrink`` an int >= 2, the rest ints
+    >= 1), then write them into ``knobs``; None keeps the current value."""
     for key, val in new.items():
         lo = 2 if key == "shrink" else 1
         if val is not None and (
             isinstance(val, bool) or not isinstance(val, int) or val < lo
         ):
             raise ValueError(f"cascade {key} must be an int >= {lo}")
-    greedycd_cascade.update({k: v for k, v in new.items() if v is not None})
+    knobs.update({k: v for k, v in new.items() if v is not None})
+
+
+def set_greedycd_cascade(shrink: int | None = None, min: int | None = None,
+                         off_rows: int | None = None,
+                         slab_rows: int | None = None) -> None:
+    """Override the GreedyCD cascade schedule (None = keep current).  The
+    schedule changes how the rows are batched, never a row's result."""
+    _set_cascade(greedycd_cascade, dict(shrink=shrink, min=min,
+                                        off_rows=off_rows, slab_rows=slab_rows))
+
+
+# FNNLS's compaction cascade (``ops/fnnls.py``): the same machinery over the
+# right-hand-side columns of the batched solve.  Below ``off_cols`` columns
+# one buffer of all of them runs uncompacted.  Read at call time; change
+# them through ``set_fnnls_cascade``.
+fnnls_cascade: dict[str, int] = {
+    "shrink": 4,
+    "min": 256,
+    "off_cols": 2048,
+}
+
+
+def set_fnnls_cascade(shrink: int | None = None, min: int | None = None,
+                      off_cols: int | None = None) -> None:
+    """Override the FNNLS cascade schedule (None = keep current).  The
+    schedule changes how the columns are batched, never a column's result."""
+    _set_cascade(fnnls_cascade, dict(shrink=shrink, min=min, off_cols=off_cols))

@@ -13,10 +13,13 @@ import dataclasses
 import numpy as np
 
 from . import config
+from .models.alspgrad import ALSPGrad
 from .models.common import Result, Trace
 from .models.coorddesc import CoordinateDescent
 from .models.greedycd import GreedyCD
 from .models.multupd import MultUpdate
+from .models.projals import ProjectedALS
+from .models.spa import SPA
 from .ops.sparse_format import (
     INDEX_FIELDS,
     TiledCSR,
@@ -29,8 +32,8 @@ from .ops.sparse_format import (
 __all__ = ["tiled_from_numpy", "factors_from_numpy", "solver_from_fields",
            "result_from_numpy"]
 
-_SOLVERS = {"CoordinateDescent": CoordinateDescent, "GreedyCD": GreedyCD,
-            "MultUpdate": MultUpdate}
+_SOLVERS = {cls.__name__: cls for cls in (
+    CoordinateDescent, GreedyCD, MultUpdate, ProjectedALS, ALSPGrad, SPA)}
 
 _SIDE_FIELDS = tuple(
     f for f in TiledSideC.__dataclass_fields__ if f not in INDEX_FIELDS
@@ -81,14 +84,12 @@ def factors_from_numpy(W, H, device=config.DEFAULT_DEVICE):
 
 def solver_from_fields(name, fields):
     """The port's options object from the name of an ``nmf_tpu`` options
-    dataclass (``"CoordinateDescent"``, ``"GreedyCD"``, ``"MultUpdate"``) and
-    its fields as a dict of plain Python values.  Fields the port's class
+    dataclass (``"CoordinateDescent"``, ``"GreedyCD"``, ``"MultUpdate"``,
+    ``"ProjectedALS"``, ``"ALSPGrad"``, ``"SPA"``) and its fields as a dict of plain Python values.  Fields the port's class
     does not have (the JAX random ``key``: the port draws from a
     ``torch.Generator``) are left out; the port's own validation runs."""
     if name not in _SOLVERS:
-        raise NotImplementedError(
-            f"solver {name!r} is not ported yet; ported: {sorted(_SOLVERS)}"
-        )
+        raise ValueError(f"unknown solver {name!r}; known: {sorted(_SOLVERS)}")
     cls = _SOLVERS[name]
     known = {f.name for f in dataclasses.fields(cls)}
     return cls(**{k: v for k, v in fields.items() if k in known})

@@ -5,10 +5,10 @@ Same validation rules, init and algorithm dispatch, replicate policy and
 ``init="nndsvdar"``, ``alg="greedycd"``, ``maxiter=100``,
 ``tol=cbrt(eps(T)/100)``, ``replicates=1``.
 
-Ported so far: ``alg`` in ``("cd", "greedycd", "multmse", "multdiv")`` with
-``init`` in ``("random", "nndsvd", "nndsvda", "nndsvdar", "custom")``, so
-``nnmf(X, k)`` runs with every default.  Every other documented value
-raises ``NotImplementedError`` naming the value.
+Every ``alg`` (``"projals"``, ``"alspgrad"``, ``"multmse"``, ``"multdiv"``,
+``"cd"``, ``"greedycd"``, ``"spa"``) and every ``init`` (``"random"``,
+``"nndsvd"``, ``"nndsvda"``, ``"nndsvdar"``, ``"spa"``, ``"custom"``) of the JAX
+package is dispatched as there.
 """
 
 from __future__ import annotations
@@ -21,17 +21,18 @@ from .. import config
 from ..init.initialization import child_generators, nndsvd, randinit
 from ..ops import matops
 from ..utils.dtypes import default_tol
+from .alspgrad import ALSPGrad
 from .common import Result, solve
 from .coorddesc import CoordinateDescent
 from .greedycd import GreedyCD
 from .multupd import MultUpdate
+from .projals import ProjectedALS
+from .spa import SPA, spa
 
 __all__ = ["nnmf", "solve_replicates"]
 
 _ALGS = ("projals", "alspgrad", "multmse", "multdiv", "cd", "greedycd", "spa")
 _INITS = ("random", "nndsvd", "nndsvda", "nndsvdar", "spa", "custom")
-_PORTED_ALGS = ("cd", "greedycd", "multmse", "multdiv")
-_PORTED_INITS = ("random", "nndsvd", "nndsvda", "nndsvdar", "custom")
 
 
 def _check_nonneg(A, name):
@@ -107,14 +108,6 @@ def nnmf(
         raise ValueError("Invalid algorithm.")
     if alg == "spa" and init != "spa":
         raise ValueError("Invalid value for init, use :spa instead.")
-    if init not in _PORTED_INITS:
-        raise NotImplementedError(
-            f"init={init!r} is not ported yet; ported: {_PORTED_INITS}"
-        )
-    if alg not in _PORTED_ALGS:
-        raise NotImplementedError(
-            f"alg={alg!r} is not ported yet; ported: {_PORTED_ALGS}"
-        )
 
     if tol is None:
         tol = default_tol(T)
@@ -122,26 +115,38 @@ def nnmf(
         generator = torch.Generator().manual_seed(seed)
     ginit, grep, gshuf = child_generators(generator, 3)
 
+    # ProjectedALS overwrites H before reading it, so H needn't be initialized
+    initH = alg != "projals"
+
     if init == "random":
-        W, H = randinit(X, k, normalize=True, generator=ginit, device=dev)
+        W, H = randinit(X, k, zeroh=not initH, normalize=True, generator=ginit,
+                        device=dev)
     elif init in ("nndsvd", "nndsvda", "nndsvdar"):
         variant = {"nndsvd": "std", "nndsvda": "a", "nndsvdar": "ar"}[init]
-        W, H = nndsvd(X, k, variant=variant, initdata=initdata, generator=ginit,
-                      device=dev)
+        W, H = nndsvd(X, k, variant=variant, zeroh=not initH, initdata=initdata,
+                      generator=ginit, device=dev)
+    elif init == "spa":
+        W, H = spa(X, k, device=dev)
     else:
         W, H = W0, H0
 
     opts = dict(maxiter=maxiter, tol=float(tol), verbose=verbose, update_H=update_H)
-    if alg == "multmse":
+    if alg == "projals":
+        alginst = ProjectedALS(**opts)
+    elif alg == "alspgrad":
+        alginst = ALSPGrad(**opts)
+    elif alg == "multmse":
         alginst = MultUpdate(obj="mse", **opts)
     elif alg == "multdiv":
         alginst = MultUpdate(obj="div", **opts)
     elif alg == "greedycd":
         alginst = GreedyCD(**opts)
+    elif alg == "spa":
+        alginst = SPA(obj="mse")
     else:
         alginst = CoordinateDescent(generator=gshuf, **opts)
     return solve_replicates(
-        alginst, X, W, H, replicates=replicates, initH=True, generator=grep,
+        alginst, X, W, H, replicates=replicates, initH=initH, generator=grep,
         trace=trace, device=dev,
     )
 

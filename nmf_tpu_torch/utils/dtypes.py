@@ -12,7 +12,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-__all__ = ["eps", "sqrt_eps", "cbrt_eps", "default_tol", "canonical_dtype"]
+__all__ = ["eps", "sqrt_eps", "cbrt_eps", "quartic_root_eps", "default_tol",
+           "canonical_dtype"]
 
 _NP_OF_TORCH = {
     torch.float16: np.float16,
@@ -46,6 +47,11 @@ def sqrt_eps(dtype) -> float:
 def cbrt_eps(dtype) -> float:
     """``cbrt(eps(T))`` — the per-solver default tolerance."""
     return float(np.cbrt(eps(dtype)))
+
+
+def quartic_root_eps(dtype) -> float:
+    """``eps(T)^(1/4)`` — ALSPGrad's default inner gradient tolerance."""
+    return float(eps(dtype) ** 0.25)
 
 
 def default_tol(dtype) -> float:

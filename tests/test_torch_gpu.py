@@ -936,3 +936,52 @@ def test_rsvd_on_the_card_agrees_with_the_cpu_in_float64(card):
     # l * eps * trace(G) to a Gram close to I, about l^2 eps (1.1e-4 here)
     shift = (k + 10) ** 2 * torch.finfo(torch.float32).eps
     assert float((U.T @ U - torch.eye(k, device=card)).abs().max()) <= 2 * shift
+
+
+def test_fnnls_columns_keep_their_bits_in_any_buffer_on_the_card(card):
+    """The batched solve's library routine depends on the batch's size;
+    FNNLS solves in batches of ``SOLVE_BATCH``, so the cascade, a plain run
+    and a run of a few of the columns give the same bits."""
+    from nmf_tpu_torch.ops import fnnls
+
+    g = torch.Generator(device=card).manual_seed(4)
+    A = torch.rand((300, 32), generator=g, device=card, dtype=torch.float64)
+    B = torch.rand((300, 3000), generator=g, device=card, dtype=torch.float64) - 0.3
+    AtA, AtB = A.T @ A, A.T @ B
+    plain = nt.nnls_gram(AtA, AtB, cascade=False)
+    cas = nt.nnls_gram(AtA, AtB, cascade=True)
+    few = nt.nnls_gram(AtA, AtB[:, 7:50].contiguous(), cascade=False)
+    assert torch.equal(plain, cas) and torch.equal(plain[:, 7:50], few)
+    want = nt.nnls_gram(AtA.cpu(), AtB.cpu(), cascade=False, device="cpu")
+    np.testing.assert_allclose(plain.cpu().numpy(), want.numpy(), rtol=0, atol=1e-10)
+    assert fnnls.SOLVE_BATCH > 43
+
+
+def test_spa_on_the_card_picks_the_cpus_anchors_and_exact_columns(card):
+    Xd = three_class_matrix(3)
+    r, c, v = coo_of(Xd)
+    k = 6
+    W, H = nt.spa(build_tiled(r, c, v, Xd.shape, **BUILD), k)
+    Wc, Hc = nt.spa(build_tiled(r, c, v, Xd.shape, device="cpu", **BUILD), k,
+                    device="cpu")
+    assert W.is_cuda and torch.equal(W.cpu(), Wc)
+    close(H, Hc, rtol=1e-4)
+
+
+@pytest.mark.parametrize("alg", ["projals", "alspgrad"])
+def test_als_solvers_on_the_card_follow_the_cpu(card, alg):
+    Xd = three_class_matrix(2)
+    r, c, v = coo_of(Xd)
+    rng = np.random.default_rng(4)
+    W0 = rng.random((Xd.shape[0], 5), dtype=np.float32)
+    H0 = rng.random((5, Xd.shape[1]), dtype=np.float32)
+    kw = dict(alg=alg, init="custom", W0=W0, H0=H0, maxiter=2, tol=1e-30)
+    build.reset_launch_counts()
+    res = nt.nnmf(build_tiled(r, c, v, Xd.shape, **BUILD), 5, **kw)
+    counts = build.launch_counts()
+    ref = nt.nnmf(build_tiled(r, c, v, Xd.shape, device="cpu", **BUILD), 5,
+                  device="cpu", **kw)
+    assert all(counts[n] > 0 for n in ("chunk_matmul", "dense_matmul")), counts
+    assert (counts["projectnn"] > 0) == (alg == "projals"), counts
+    close(res.W, ref.W, rtol=1e-3, scale=1e-4)
+    close(res.H, ref.H, rtol=1e-3, scale=1e-4)

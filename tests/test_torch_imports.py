@@ -27,11 +27,15 @@ MODULES = [
     "nmf_tpu_torch.convert",
     "nmf_tpu_torch.init.initialization",
     "nmf_tpu_torch.io.loader",
+    "nmf_tpu_torch.models.alspgrad",
     "nmf_tpu_torch.models.common",
     "nmf_tpu_torch.models.coorddesc",
     "nmf_tpu_torch.models.greedycd",
     "nmf_tpu_torch.models.interface",
     "nmf_tpu_torch.models.multupd",
+    "nmf_tpu_torch.models.projals",
+    "nmf_tpu_torch.models.spa",
+    "nmf_tpu_torch.ops.fnnls",
     "nmf_tpu_torch.ops.linalg",
     "nmf_tpu_torch.ops.matops",
     "nmf_tpu_torch.ops.objectives",
@@ -96,7 +100,8 @@ def test_every_source_of_the_port_is_checked():
             "quotient_tile.cuh", "mu.py", "objectives.py", "multupd.py",
             "greedycd.py", "quad_matmul.cu", "quad_sddmm.cu",
             "sddmm_piece.cuh", "elementwise.cu", "elementwise.py", "rsvd.py",
-            "tsqr.py", "linalg.py", "initialization.py"} <= names
+            "tsqr.py", "linalg.py", "initialization.py", "projals.py",
+            "alspgrad.py", "spa.py", "fnnls.py"} <= names
 
 
 def test_every_module_of_the_port_is_imported_by_the_check():
@@ -165,6 +170,17 @@ def _entry_points():
         "build_tiled": lambda **kw: build_tiled(r, c, X[r, c], X.shape, **kw),
         "factors_from_numpy": lambda **kw: convert.factors_from_numpy(
             W.numpy(), H.numpy(), **kw),
+        "nnmf_projals": lambda **kw: nt.nnmf(X, 3, alg="projals", maxiter=2, **kw),
+        "nnmf_alspgrad": lambda **kw: nt.nnmf(Xt, 3, alg="alspgrad", init="random",
+                                              maxiter=2, **kw),
+        "nnmf_spa": lambda **kw: nt.nnmf(Xt, 3, alg="spa", init="spa", **kw),
+        "alspgrad_updateh": lambda **kw: nt.alspgrad_updateh(Xt, W, H, maxiter=5, **kw),
+        "alspgrad_updatew": lambda **kw: nt.alspgrad_updatew(
+            torch.from_numpy(X), W, H, maxiter=5, **kw),
+        "spa": lambda **kw: nt.spa(torch.from_numpy(X), 3, **kw),
+        "fnnls": lambda **kw: nt.fnnls(W, Xt, **kw),
+        "nnls_gram": lambda **kw: nt.nnls_gram(W.T @ W, W.T @ torch.from_numpy(X), **kw),
+        "separable_data": lambda **kw: nt.separable_data(8, 6, 2, **kw),
     }
 
 

@@ -293,8 +293,13 @@ def test_options_and_result_carried_over_from_jax():
     assert upd == nt.MultUpdate(obj="div", maxiter=4, tol=1e-30, lambda_w=0.01)
     cd = convert.solver_from_fields("CoordinateDescent", dict(maxiter=7, alpha=0.5, key=None))
     assert (cd.maxiter, cd.alpha, cd.generator) == (7, 0.5, None)
-    with pytest.raises(NotImplementedError, match="ProjectedALS"):
-        convert.solver_from_fields("ProjectedALS", {})
+    for cls in (nmf_tpu.ProjectedALS(maxiter=7, lambda_w=0.5),
+                nmf_tpu.ALSPGrad(maxiter=7, maxsubiter=20, tolg=1e-3)):
+        name = type(cls).__name__
+        got = convert.solver_from_fields(
+            name, {f.name: getattr(cls, f.name) for f in dataclasses.fields(cls)})
+        assert dataclasses.asdict(got) == dataclasses.asdict(cls)
+        assert type(got) is getattr(nt, name)
     with pytest.raises(ValueError, match="Invalid value for obj"):
         convert.solver_from_fields("MultUpdate", dict(obj="bogus"))
 

@@ -109,6 +109,51 @@ def test_entry_points_compute_at_ieee_and_give_the_setting_back(
     _caller_is_back(caller)
 
 
+def _solver_entry_points():
+    """The entry points of projected ALS, ALS projected gradient, SPA and
+    FNNLS, on dense X and on the store."""
+    X, Xt, W, H = _problem()
+    Xd = torch.from_numpy(X)
+    return {
+        "nnmf_projals": lambda: nt.nnmf(X, 3, alg="projals", maxiter=2, device="cpu"),
+        "nnmf_alspgrad_store": lambda: nt.nnmf(Xt, 3, alg="alspgrad", init="random",
+                                               maxiter=2, device="cpu"),
+        "nnmf_spa_store": lambda: nt.nnmf(Xt, 3, alg="spa", init="spa", device="cpu"),
+        "alspgrad_updateh": lambda: nt.alspgrad_updateh(Xd, W, H, maxiter=5, device="cpu"),
+        "alspgrad_updatew_store": lambda: nt.alspgrad_updatew(Xt, W, H, maxiter=5,
+                                                              device="cpu"),
+        "spa": lambda: nt.spa(Xd, 3, device="cpu"),
+        "fnnls": lambda: nt.fnnls(W, Xd, device="cpu"),
+        "nnls_gram": lambda: nt.nnls_gram(W.T @ W, W.T @ Xd, device="cpu"),
+    }
+
+
+@pytest.mark.parametrize("caller", sorted(CALLERS))
+@pytest.mark.parametrize("name", sorted(_solver_entry_points()))
+def test_solver_entry_points_compute_at_ieee_and_give_the_setting_back(
+        name, caller, monkeypatch):
+    """As above, with the setting also recorded at ``matops.mtm`` and at
+    FNNLS's batched solve, which some of these reach instead of
+    ``matops.mm``."""
+    from nmf_tpu_torch.ops import fnnls
+
+    seen = []
+
+    def recording(f):
+        def call(*a):
+            seen.append(MATMUL.fp32_precision)
+            return f(*a)
+        return call
+
+    for mod, attr in ((matops, "mm"), (matops, "mtm"), (fnnls, "_masked_solve")):
+        monkeypatch.setattr(mod, attr, recording(getattr(mod, attr)))
+    call = _solver_entry_points()[name]
+    CALLERS[caller][0]()
+    call()
+    assert seen and set(seen) == {"ieee"}, seen
+    _caller_is_back(caller)
+
+
 @pytest.mark.parametrize("caller", sorted(CALLERS))
 def test_the_setting_comes_back_when_a_solve_raises(caller, monkeypatch):
     def failing_mm(X, D):

@@ -7,6 +7,7 @@ objective — the float32 products are summed in another order on each side and
 the difference is fed back through five sweeps of k sequential column
 updates."""
 
+import dataclasses
 import warnings
 
 import jax.numpy as jnp
@@ -238,20 +239,51 @@ def test_nnmf_warnings_match_jax():
 
 
 @pytest.mark.parametrize("alg", ["projals", "alspgrad"])
-def test_unported_alg_says_so(alg):
-    with pytest.raises(NotImplementedError, match=f"alg='{alg}' is not ported yet"):
-        nt.nnmf(_small(), 3, alg=alg, init="random", device="cpu")
+def test_unported_alg_says_so(alg, monkeypatch):
+    """Formerly refused, now dispatched as in the JAX package: the options
+    object carries the JAX package's option values, and ProjectedALS (which
+    overwrites H before reading it) gets ``initH=False``."""
+    import nmf_tpu.models.interface as jax_interface
+    from nmf_tpu_torch.models import interface
+
+    seen = {}
+    for mod, key in ((interface, "torch"), (jax_interface, "jax")):
+        real = mod.solve_replicates
+
+        def spy(alginst, X, W, H, _real=real, _key=key, **kw):
+            seen[_key] = (alginst, kw["initH"], np.asarray(H))
+            return _real(alginst, X, W, H, **kw)
+
+        monkeypatch.setattr(mod, "solve_replicates", spy)
+    kw = dict(alg=alg, init="random", maxiter=3, tol=1e-5)
+    res = nt.nnmf(_small(), 3, device="cpu", **kw)
+    nmf_tpu.nnmf(jnp.asarray(_small()), 3, **kw)
+    (ti, t_initH, t_H), (ji, j_initH, j_H) = seen["torch"], seen["jax"]
+    assert type(ti).__name__ == type(ji).__name__
+    assert dataclasses.asdict(ti) == {f.name: getattr(ji, f.name)
+                                      for f in dataclasses.fields(ji)}
+    assert t_initH == j_initH == (alg != "projals")
+    assert (not t_H.any()) == (not j_H.any()) == (alg == "projals")
+    assert res.niters == 3 and bool((res.W >= 0).all())
 
 
 @pytest.mark.parametrize("init", ["nndsvd", "nndsvda", "nndsvdar", "spa"])
 def test_unported_init_says_so(init, monkeypatch):
-    """``spa`` is not ported and says so; the NNDSVD inits are, and dispatch
-    to ``nndsvd`` with the JAX package's variant and ``initdata``."""
+    """Every init is dispatched: ``spa`` (with ``alg="spa"``) to ``spa``,
+    with the ``SPA(obj="mse")`` statistics pass after it, as in the JAX
+    package; the NNDSVD inits to ``nndsvd`` with the JAX package's variant
+    and ``initdata``."""
     from nmf_tpu_torch.models import interface
 
     if init == "spa":
-        with pytest.raises(NotImplementedError, match=f"init='{init}' is not ported yet"):
-            nt.nnmf(_small(), 3, alg="spa", init=init, device="cpu")
+        X = _small().astype(np.float64)
+        res = nt.nnmf(X, 3, alg="spa", init=init, device="cpu")
+        ref = nmf_tpu.nnmf(jnp.asarray(X), 3, alg="spa", init=init)
+        W, H = nt.spa(torch.from_numpy(X), 3, device="cpu")
+        assert torch.equal(res.W, W) and torch.equal(res.H, H)
+        np.testing.assert_array_equal(res.W.numpy(), np.asarray(ref.W))
+        assert (res.niters, res.converged) == (0, True)
+        np.testing.assert_allclose(res.objvalue, ref.objvalue, rtol=1e-9)
         return
     seen = {}
     real = interface.nndsvd
