@@ -23,6 +23,19 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
   the first tiled store, then SPA on it at rank 128 (spa4): the anchors, the
   exact anchor columns, the batched FNNLS by cascade level with its KKT
   conditions in every column, and ``nnmf(X, 128, init="spa", alg="spa")``;
+* the same matrix as a ``torch.sparse_csr_tensor`` on the card (the port's
+  general sparse X): its products against the store's, the same bits twice,
+  HALS to relative error 0.84, five KL sweeps and ``nnmf(Xs, 128,
+  maxiter=5)`` against the store's runs from the same starts (phase
+  ``sparse_general``), the band kernel over all of it (phase
+  ``kernels_general_csr``);
+* ``solve_checkpointed`` against ``solve``, the same bits: shuffled HALS (25
+  iterations, a snapshot every 7; also cut at 14 and resumed) and GreedyCD
+  (10, every 4) on the store, ALSPGrad on the dense problem below (12, every
+  5), with a snapshot's bytes and the seconds of a save and a load (phase
+  ``checkpoint``);
+* the matrix written as a Matrix Market file and read back through the
+  port's loader, then ``nnmf`` on it (phase ``loader``);
 * multiplicative updates on a dense 100,000 x 10,000 low-rank problem at rank
   64, and on the two small dense problems (500 x 500 rank 8 to relative
   error 0.010, 2000 x 1000 rank 32 to 0.020); ``nnmf`` with its defaults on
@@ -69,6 +82,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
@@ -2160,6 +2174,285 @@ def time_iteration_parts_mu(X, W0, H0):
     return parts
 
 
+# ---------------------------------------------------------------------------
+# a general sparse X, checkpointing, the Matrix Market loader
+
+
+def _row_ptr(rows):
+    """The CSR row pointer of row-sorted entries of a P-row matrix."""
+    crow = np.zeros(P + 1, np.int64)
+    crow[1:] = np.cumsum(np.bincount(rows, minlength=P))
+    return crow
+
+
+def general_csr(rows, cols, vals):
+    """The ttt4 matrix as a ``torch.sparse_csr_tensor`` on the card and the
+    port's container of it (``SparseCSR``), with the seconds the container
+    took to build."""
+    from nmf_tpu_torch.ops import matops
+
+    crow = _row_ptr(rows)
+    Xs = torch.sparse_csr_tensor(
+        torch.from_numpy(crow).cuda(), torch.from_numpy(cols.astype(np.int64)).cuda(),
+        torch.from_numpy(vals).cuda(), (P, N))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    A = matops.as_operand(Xs)
+    torch.cuda.synchronize()
+    return Xs, A, time.perf_counter() - t0
+
+
+def check_general_csr(A):
+    """The band kernel over a whole general X (``csr_matmul``), each
+    orientation at k = 128: against its plain version run in float64 within
+    ``REL_TOL``, the same bits twice, and timed beside the plain version and
+    ``torch.sparse.mm`` on a torch CSR tensor of the same arrays.  The bound:
+    the row pointer, a column and a value an entry, the rows of D the entries
+    read and the output, each once."""
+    from nmf_tpu_torch.ops.cuda import sparse as S
+
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    rec = {}
+    for sname, side in (("fwd", A.fwd), ("bwd", A.bwd)):
+        D = torch.rand((side.cols, K), generator=gen, device="cuda")
+        got = S.csr_matmul(side, D)
+        torch.cuda.synchronize()
+        want = S.csr_matmul_plain(side, D.double())
+        r = _held(f"general csr coo_matmul {sname}", got, want, REL_TOL, (side.rows, K))
+        r["same_bits"] = _same_bits(f"general csr coo_matmul {sname}",
+                                    lambda: S.csr_matmul(side, D))
+        lib_x = torch.sparse_csr_tensor(side.crow, side.col, side.val,
+                                        (side.rows, side.cols))
+        lerr = float((torch.sparse.mm(lib_x, D) - want).abs().max())
+        if not lerr <= 1e-4 * r["scale"]:
+            fail(f"general csr {sname}: yardstick disagrees ({lerr})")
+        nnz = side.val.numel()
+        d_rows = int(torch.unique(side.col).numel())
+        nbytes = 4 * (side.rows + 1) + 8 * nnz + 4 * K * (d_rows + side.rows)
+        bound_ms, by = bound_of(nbytes, 2 * nnz * K)
+        r.update(ms=time_ms(lambda: S.csr_matmul(side, D)),
+                 plain_ms=time_ms(lambda: S.csr_matmul_plain(side, D), reps=3),
+                 library_ms=time_ms(lambda: torch.sparse.mm(lib_x, D), reps=3),
+                 bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=2 * nnz * K,
+                 nnz=nnz, rows=side.rows, longest_row=int(side.crow.diff().max()))
+        r["mnnz_per_s"] = nnz / r["ms"] / 1e3
+        rec[f"general_{sname}"] = r
+        del got, want, lib_x
+    return rec
+
+
+def _hals_to_target(X, W0, H0, upd, max_iters=60):
+    """The resumable loop from ``(W0, H0)`` in chunks of 5, one relative-error
+    read a chunk, to ``TARGET_RELERR``; exits when the target is missed."""
+    from nmf_tpu_torch.models import common
+
+    xsq = float(X.stats[1])
+    w, h = (torch.from_numpy(a).cuda() for a in (W0, H0))
+    state = common._prepare(upd, X, w, h)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    iters, r = 0, relerr_of(X, w, h, xsq)[1]
+    while not r <= TARGET_RELERR and iters < max_iters:
+        w, h, state, t, _, _ = common._solve_while_from(
+            upd, state, X, w, h, 0, 5, 1e-30, with_objective=False)
+        iters += t
+        r = relerr_of(X, w, h, xsq)[1]
+    torch.cuda.synchronize()
+    if not r <= TARGET_RELERR:
+        fail(f"HALS on the general X: relative error {r} after {iters} iterations")
+    return {"iterations": iters, "seconds_to_target": time.perf_counter() - t0,
+            "final_relerr": r}
+
+
+def sparse_general(X, Xs, A, W0, H0, store_hals):
+    """The ttt4 matrix as a torch CSR tensor on the card (``Xs``, held as
+    ``A``) beside the chunk store ``X`` of the same matrix: the products at
+    k = 128 against the store's, the same bits twice; HALS from the store
+    phases' random start to the target; five sweeps of the KL updates and
+    ``nnmf(Xs, 128, maxiter=5)`` with every other default, each against the
+    store's run from the same start."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models.coorddesc import CoordinateDescent
+    from nmf_tpu_torch.ops import matops
+    from nmf_tpu_torch.ops.cuda import build
+
+    out = {"nnz": A.nnz, "container_bytes": sum(
+        t.numel() * t.element_size() for side in (A.fwd, A.bwd)
+        for t in (side.crow, side.row, side.col, side.val, side.src))}
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    for name, fn, rows in (("mm", lambda d: matops.mm(A, d), N),
+                           ("mtm", lambda d: matops.mtm(d.T, A).T, P)):
+        D = torch.rand((rows, K), generator=gen, device="cuda")
+        want = (matops.mm(X, D) if name == "mm" else matops.mtm(D.T, X).T)
+        out[name] = _held(f"sparse_general {name}", fn(D), want, REL_TOL)
+        out[name]["same_bits"] = _same_bits(f"sparse_general {name}", lambda: fn(D))
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    hals = _hals_to_target(A, W0, H0,
+                           CoordinateDescent(maxiter=100)._resolved(torch.float32)[0])
+    hals["launches"] = build.launch_counts()
+    hals["store_iterations"] = store_hals["iterations"]
+    hals["store_seconds_to_target"] = store_hals["seconds_to_target"]
+    _need_launches("sparse_general hals", hals["launches"], ("coo_matmul",))
+    out["hals"] = hals
+    runs = {}
+    for tag, kw in (("multdiv", dict(alg="multdiv", init="custom", W0=W0, H0=H0,
+                                     tol=1e-30, maxiter=5)),
+                    ("nnmf_defaults", dict(maxiter=5))):
+        build.reset_launch_counts()
+        r = {}
+        res = _timed(r, "seconds", lambda: nt.nnmf(Xs, K, **kw))
+        r["launches"] = build.launch_counts()
+        store = _timed(r, "store_seconds", lambda: nt.nnmf(X, K, **kw))
+        _result_ok(f"sparse_general {tag}", res, (P, K), (K, N))
+        if not res.W.is_cuda:
+            fail(f"sparse_general {tag}: the result is not on the card")
+        r.update(niters=res.niters, objvalue=res.objvalue,
+                 store_objvalue=store.objvalue,
+                 rel_diff=abs(res.objvalue - store.objvalue) / abs(store.objvalue))
+        if not (math.isfinite(res.objvalue) and r["rel_diff"] <= 1e-4):
+            fail(f"sparse_general {tag}: objective {res.objvalue} on the general X, "
+                 f"{store.objvalue} on the store")
+        _need_launches(f"sparse_general {tag}", r["launches"], ("coo_matmul",))
+        runs[tag] = r
+        del res, store
+    out.update(runs)
+    out["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    return out
+
+
+def _equal_results(label, a, b):
+    if not (torch.equal(a.W, b.W) and torch.equal(a.H, b.H) and a.niters == b.niters
+            and a.converged == b.converged and a.objvalue == b.objvalue):
+        fail(f"{label}: {a} against {b}")
+
+
+def _checkpointed_against_plain(label, X, alg, W, H, every, tmp, cut=None):
+    """``solve`` and ``solve_checkpointed`` from one start, timed, with the
+    checkpointed run's launch counts; the same bits or the run fails.  With
+    ``cut``, a run stopped at ``cut`` iterations and resumed must give them
+    too."""
+    import dataclasses
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.cuda import build
+
+    out = {}
+    plain = _timed(out, "plain_seconds", lambda: nt.solve(alg, X, W, H))
+    build.reset_launch_counts()
+    ck = _timed(out, "checkpointed_seconds", lambda: nt.solve_checkpointed(
+        alg, X, W, H, checkpoint_dir=f"{tmp}/{label}", checkpoint_every=every))
+    out["launches"] = build.launch_counts()
+    _equal_results(f"checkpoint {label}", ck, plain)
+    out.update(niters=plain.niters, converged=plain.converged, objvalue=plain.objvalue,
+               checkpoint_every=every, snapshots=-(-plain.niters // every),
+               same_bits=True)
+    if cut is not None:
+        d = f"{tmp}/{label}_cut"
+        nt.solve_checkpointed(dataclasses.replace(alg, maxiter=cut), X, W, H,
+                              checkpoint_dir=d, checkpoint_every=every)
+        resumed = _timed(out, "resumed_seconds", lambda: nt.solve_checkpointed(
+            alg, X, W, H, checkpoint_dir=d, checkpoint_every=every))
+        _equal_results(f"checkpoint {label} cut at {cut}", resumed, plain)
+        out["cut_at"] = cut
+    return out, plain
+
+
+def checkpoint_store(X, W0, H0, tmp):
+    """``solve_checkpointed`` on the chunk store: shuffled HALS (25
+    iterations, a snapshot every 7) against ``solve``, also cut at 14 and
+    resumed; GreedyCD (10, every 4) where two plain runs repeat bit for bit;
+    a snapshot's bytes and the seconds of one save and one load of the ttt4
+    factors."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models import checkpoint as C
+
+    W, H = (torch.from_numpy(a).cuda() for a in (W0, H0))
+    out = {}
+    hals = nt.CoordinateDescent(maxiter=25, shuffle=True,
+                                generator=torch.Generator().manual_seed(21))
+    out["hals"], res = _checkpointed_against_plain("hals", X, hals, W, H, 7, tmp, cut=14)
+    _need_launches("checkpoint hals", out["hals"]["launches"],
+                   ("chunk_matmul", "dense_matmul", "coo_matmul"))
+    greedy = nt.GreedyCD(maxiter=10)
+    a, b = nt.solve(greedy, X, W, H), nt.solve(greedy, X, W, H)
+    repeats = bool(torch.equal(a.W, b.W) and torch.equal(a.H, b.H)
+                   and a.objvalue == b.objvalue)
+    out["greedycd_plain_runs_repeat"] = repeats
+    del a, b
+    if repeats:
+        out["greedycd"], _ = _checkpointed_against_plain("greedycd", X, greedy, W, H, 4, tmp)
+        _need_launches("checkpoint greedycd", out["greedycd"]["launches"],
+                       ("chunk_matmul", "dense_matmul", "coo_matmul", "projectnn"))
+    # one snapshot of the ttt4 factors: its bytes, one save, one load
+    tree = (res.W, res.H, (torch.Generator().manual_seed(1),),
+            torch.tensor(25, dtype=torch.int32))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    path = C.save_state(f"{tmp}/one", 25, tree)
+    out["save_seconds"] = time.perf_counter() - t0
+    out["snapshot_bytes"] = pathlib.Path(path).stat().st_size
+    t0 = time.perf_counter()
+    back = C.load_state(path, tree)
+    torch.cuda.synchronize()
+    out["load_seconds"] = time.perf_counter() - t0
+    if not (torch.equal(back[0], res.W) and torch.equal(back[1], res.H)
+            and back[0].is_cuda):
+        fail("checkpoint: a saved snapshot did not load back to the same bits")
+    return out
+
+
+def checkpoint_dense(Xd, Wd0, Hd0, tmp):
+    """ALSPGrad (its ``tolg`` the state) on ttt3, 12 iterations
+    (``maxsubiter=20``, as the ttt3 cell), a snapshot every 5."""
+    import nmf_tpu_torch as nt
+
+    W, H = (torch.from_numpy(a).cuda() for a in (Wd0, Hd0))
+    out, _ = _checkpointed_against_plain(
+        "alspgrad_ttt3", Xd, nt.ALSPGrad(maxiter=12, maxsubiter=20), W, H, 5, tmp)
+    _need_launches("checkpoint alspgrad", out["launches"], ("dense_objective",))
+    return out
+
+
+def loader_phase(rows, cols, vals, tmp):
+    """The ttt4 matrix written as a Matrix Market file (``scipy.io.mmwrite``)
+    and read back through the port's loader: ``load_mtx``, ``coo_to_csr``,
+    ``to_bcoo`` onto the card, each timed; the entries must be the
+    generator's; then ``nnmf(..., alg="cd", init="random", maxiter=5)`` on
+    it, with the launch counts of its run."""
+    import scipy.io
+    import scipy.sparse
+
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.io import loader
+    from nmf_tpu_torch.ops.cuda import build
+
+    out = {}
+    path = f"{tmp}/ttt4.mtx"
+    m = scipy.sparse.coo_matrix((vals, (rows, cols)), shape=(P, N))
+    _timed(out, "mmwrite_seconds", lambda: scipy.io.mmwrite(path, m, precision=9))
+    out["file_bytes"] = pathlib.Path(path).stat().st_size
+    coo = _timed(out, "load_mtx_seconds", lambda: loader.load_mtx(path))
+    csr = _timed(out, "coo_to_csr_seconds", lambda: loader.coo_to_csr(coo))
+    Xl = _timed(out, "to_bcoo_seconds", lambda: loader.to_bcoo(csr))
+    crow = _row_ptr(rows)
+    if not (np.array_equal(csr.indptr, crow) and np.array_equal(csr.indices, cols)
+            and np.array_equal(csr.data, vals) and Xl.is_cuda
+            and torch.equal(Xl.values().cpu(), torch.from_numpy(vals))):
+        fail("loader: the entries read back are not the generator's")
+    del coo, csr, m
+    build.reset_launch_counts()
+    res = _timed(out, "nnmf_seconds", lambda: nt.nnmf(
+        Xl, K, alg="cd", init="random", maxiter=5))
+    out["launches"] = build.launch_counts()
+    _result_ok("loader nnmf", res, (P, K), (K, N))
+    if not math.isfinite(res.objvalue):
+        fail(f"loader nnmf: objective {res.objvalue}")
+    _need_launches("loader nnmf", out["launches"], ("coo_matmul", "colsum"))
+    out.update(nnz=int(Xl.values().numel()), niters=res.niters, objvalue=res.objvalue)
+    return out
+
+
 def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
@@ -2315,6 +2608,13 @@ def main():
         quad_matmul=check_split(Xq, K, "quad store", "quad", 64, timed=True))
     # no atomics: the products and five HALS iterations give the same bits
     say("same_bits_products", card=smi, **same_bits_products(X, W0, H0))
+    # the band kernel over a whole general X: the matrix as a torch CSR tensor
+    # on the card, held as the port's container
+    Xs, A, t_container = general_csr(rows, cols, vals)
+    general = check_general_csr(A)
+    full["coo_matmul"].update(general)
+    say("kernels_general_csr", tolerance=REL_TOL, card=smi,
+        container_build_seconds=t_container, **general)
 
     # 4. the first path: sparse Fast-HALS
     from nmf_tpu_torch.models import common
@@ -2367,6 +2667,24 @@ def main():
     say("solve_defaults", target=TARGET_RELERR, card=smi, **defaults)
     replicates = solve_random_replicates(X)
     say("solve_random_replicates", card=smi, **replicates)
+    torch.cuda.empty_cache()
+
+    # 4e. the same matrix as a torch CSR tensor through every seam; snapshots
+    # of solves on the store; the matrix through a Matrix Market file
+    tmp_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_")
+    t0 = time.perf_counter()
+    general_paths = sparse_general(X, Xs, A, W0, H0, solved)
+    say("sparse_general", shape=[P, N], k=K, card=smi,
+        seconds=time.perf_counter() - t0, **general_paths)
+    del Xs, A
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ckpt = checkpoint_store(X, W0, H0, tmp_dir.name)
+    ckpt["store_seconds"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded = loader_phase(rows, cols, vals, tmp_dir.name)
+    say("loader", shape=[P, N], k=K, card=smi, seconds=time.perf_counter() - t0,
+        **loaded)
     torch.cuda.empty_cache()
 
     # 5. the second path: multiplicative updates on the same store
@@ -2432,6 +2750,13 @@ def main():
     say("solve_projals_alspgrad_dense", shape=[DP, DN], k=DK, card=smi,
         target=TTT3_TARGET, seconds=time.perf_counter() - t0, **als_dense)
     torch.cuda.empty_cache()
+    # the snapshots' phase: the store's parts (4e) and ALSPGrad at ttt3
+    t0 = time.perf_counter()
+    ckpt["alspgrad_ttt3"] = checkpoint_dense(Xd, Wd0, Hd0, tmp_dir.name)
+    ckpt["dense_seconds"] = time.perf_counter() - t0
+    tmp_dir.cleanup()
+    say("checkpoint", shape=[P, N], k=K, dense_shape=[DP, DN], dense_k=DK, card=smi,
+        **ckpt)
     # the caller's TF32 setting neither reaches a solve nor is lost by one
     say("precision", shape=[DP, DN], k=DK, card=smi, **precision(Xd))
     del Xd
@@ -2465,11 +2790,20 @@ def main():
         "ttt3_alspgrad_traced": als_dense["alspgrad"]["traced"]["launches"],
         "nnmf_projals_dense": als_dense["nnmf_projals"]["launches"],
         "nnmf_alspgrad_dense": als_dense["nnmf_alspgrad"]["launches"],
+        "sparse_general_hals": general_paths["hals"]["launches"],
+        "sparse_general_multdiv": general_paths["multdiv"]["launches"],
+        "sparse_general_nnmf_defaults": general_paths["nnmf_defaults"]["launches"],
+        "checkpoint_hals": ckpt["hals"]["launches"],
+        **({"checkpoint_greedycd": ckpt["greedycd"]["launches"]}
+           if "greedycd" in ckpt else {}),
+        "checkpoint_alspgrad_ttt3": ckpt["alspgrad_ttt3"]["launches"],
+        "loader_nnmf": loaded["launches"],
     }
     # the paths on the dense problem (kernel 10 at its factors' shapes)
     dense_paths = ["nnmf_defaults_dense", "ttt3_projals", "ttt3_alspgrad",
                    "ttt3_projals_traced", "ttt3_alspgrad_traced",
-                   "nnmf_projals_dense", "nnmf_alspgrad_dense"]
+                   "nnmf_projals_dense", "nnmf_alspgrad_dense",
+                   "checkpoint_alspgrad_ttt3"]
     csrc = "nmf_tpu_torch/csrc/"
     pallas = "nmf_tpu/ops/pallas/"
     # name: (source, TPU kernel, the records that make up one use of the kernel)

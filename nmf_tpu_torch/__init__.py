@@ -4,20 +4,25 @@ A second package beside the JAX package ``nmf_tpu``, with the same module
 layout and public names, written for one NVIDIA Hopper card: plain tensor
 code is PyTorch, and the sparse products, the multiplicative updates' fused
 steps and the dense objectives run hand-written CUDA kernels (``csrc/``).  It
-imports ``torch`` and ``numpy`` only.
+imports ``torch`` and ``numpy`` (and ``scipy`` to read Matrix Market files)
+only.
 
 Ported so far: the ``nnmf`` front door with all seven algorithms
 (multiplicative updates for MSE and KL, projected ALS, ALS projected
 gradient, Fast-HALS coordinate descent, greedy coordinate descent, SPA with
 batched FNNLS) and every initializer (random, NNDSVD, NNDSVDa, NNDSVDar over
-a randomized SVD, SPA, custom), on dense tensors and on the tiled sparse
-store (``ops.sparse_format.build_tiled``).  Entry points run on the card
-unless the caller passes ``device="cpu"``.
+a randomized SVD, SPA, custom), on dense tensors, on the tiled sparse store
+(``ops.sparse_format.build_tiled``) and on a torch sparse tensor of any
+layout (``ops.sparse_format.SparseCSR``; ``io.loader.load_mtx`` reads Matrix
+Market files); ``solve_checkpointed`` snapshots a solve and resumes it bit
+for bit.  Entry points run on the card unless the caller passes
+``device="cpu"``.
 """
 
 from . import config
 from .init.initialization import nndsvd, randinit
 from .models.alspgrad import ALSPGrad, alspgrad_updateh, alspgrad_updatew
+from .models.checkpoint import solve_checkpointed
 from .models.common import Result, Trace, nmf_checksize, solve, stop_condition
 from .models.coorddesc import CoordinateDescent
 from .models.greedycd import GreedyCD
@@ -38,6 +43,7 @@ __all__ = [
     "Result",
     "Trace",
     "solve",
+    "solve_checkpointed",
     "solve_replicates",
     "stop_condition",
     "nmf_checksize",

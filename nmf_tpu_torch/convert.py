@@ -3,7 +3,15 @@
 A tiled store, a pair of factors, a solver's options or a solve's ``Result``
 made by ``nmf_tpu`` crosses over as plain numpy and plain Python values: the
 caller turns each array field into ``np.ndarray`` (``np.asarray``) and hands
-the dicts to these functions, which never see a JAX object.
+the dicts to these functions, which never see a JAX object.  A BCOO X
+crosses as its ``indices`` and ``data`` (``sparse_from_numpy``).
+
+A checkpoint directory written by the JAX package's ``solve_checkpointed``
+needs no conversion: its files are plain ``.npz`` arrays, and
+``models.checkpoint.load_state`` (and so ``solve_checkpointed``) resumes
+from one directly for the solvers whose state is arrays only (MU, GreedyCD,
+ProjectedALS, ALSPGrad).  A Fast-HALS file holds a JAX random key where the
+port keeps a ``torch.Generator``'s state, and is refused.
 """
 
 from __future__ import annotations
@@ -11,6 +19,7 @@ from __future__ import annotations
 import dataclasses
 
 import numpy as np
+import torch
 
 from . import config
 from .models.alspgrad import ALSPGrad
@@ -22,6 +31,7 @@ from .models.projals import ProjectedALS
 from .models.spa import SPA
 from .ops.sparse_format import (
     INDEX_FIELDS,
+    SparseCSR,
     TiledCSR,
     TiledSideC,
     row_panel_index,
@@ -29,8 +39,8 @@ from .ops.sparse_format import (
     to_tensor,
 )
 
-__all__ = ["tiled_from_numpy", "factors_from_numpy", "solver_from_fields",
-           "result_from_numpy"]
+__all__ = ["tiled_from_numpy", "sparse_from_numpy", "factors_from_numpy",
+           "solver_from_fields", "result_from_numpy"]
 
 _SOLVERS = {cls.__name__: cls for cls in (
     CoordinateDescent, GreedyCD, MultUpdate, ProjectedALS, ALSPGrad, SPA)}
@@ -74,6 +84,18 @@ def tiled_from_numpy(d, device=config.DEFAULT_DEVICE) -> TiledCSR:
         build_opts=None if d.get("build_opts") is None else tuple(d["build_opts"]),
         **top,
     )
+
+
+def sparse_from_numpy(indices, data, shape, device=config.DEFAULT_DEVICE) -> SparseCSR:
+    """The port's general sparse X (``SparseCSR``) on ``device`` from a
+    BCOO's arrays as numpy: ``indices`` ``(nnz, 2)`` (row, column) pairs,
+    ``data`` ``(nnz,)`` values of any float type, kept; duplicates are
+    summed."""
+    dev = config.resolve_device(device)
+    idx = to_tensor(np.asarray(indices, np.int64).reshape(-1, 2).T, dev)
+    X = torch.sparse_coo_tensor(idx, to_tensor(np.asarray(data), dev),
+                                tuple(int(s) for s in shape), check_invariants=False)
+    return SparseCSR.from_torch_sparse(X)
 
 
 def factors_from_numpy(W, H, device=config.DEFAULT_DEVICE):

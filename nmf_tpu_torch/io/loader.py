@@ -1,18 +1,102 @@
-"""Host binner helpers of ``build_tiled``, in numpy.
+"""Matrix Market loading and the host binner helpers of ``build_tiled``, in
+numpy.
+
+``load_mtx`` parses a Matrix Market coordinate file into COO arrays through
+scipy, ``coo_to_csr`` sorts and sums duplicates, and ``to_bcoo`` hands the
+result to the solvers as a coalesced torch sparse tensor on the device (the
+JAX package's function of the same name makes a BCOO).  There is one route,
+scipy's: no native library is built or loaded.
 
 ``ops/sparse_format.py`` bins a COO matrix into its tiled store on the host;
-these are the array passes it is written in terms of.  Each is a handful of
-vectorised numpy operations over the nonzeros.
+the other helpers are the array passes it is written in terms of.  Each is a
+handful of vectorised numpy operations over the nonzeros.
 """
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import numpy as np
+import torch
+
+from .. import config
 
 __all__ = [
+    "COO", "CSR", "load_mtx", "coo_to_csr", "to_bcoo",
     "stable_argsort", "gather3", "gather3k", "dense_scatter",
     "tile_key", "chunk_fill", "class_extract",
 ]
+
+
+class COO(NamedTuple):
+    rows: int
+    cols: int
+    row_idx: np.ndarray
+    col_idx: np.ndarray
+    values: np.ndarray
+
+
+class CSR(NamedTuple):
+    rows: int
+    cols: int
+    indptr: np.ndarray
+    indices: np.ndarray
+    data: np.ndarray
+
+
+def load_mtx(path: str) -> COO:
+    """Parse a Matrix Market coordinate file into COO arrays (int32
+    indices, float32 values; duplicates are kept)."""
+    return _load_mtx_numpy(path)
+
+
+def _load_mtx_numpy(path: str) -> COO:
+    import scipy.io
+
+    m = scipy.io.mmread(str(path))
+    if not hasattr(m, "tocoo"):
+        raise ValueError(f"Unsupported MatrixMarket format (not coordinate): {path}")
+    m = m.tocoo()
+    return COO(
+        m.shape[0],
+        m.shape[1],
+        m.row.astype(np.int32),
+        m.col.astype(np.int32),
+        m.data.astype(np.float32),
+    )
+
+
+def coo_to_csr(coo: COO) -> CSR:
+    """COO -> CSR, each row's columns sorted and duplicates summed."""
+    import scipy.sparse
+
+    m = scipy.sparse.coo_matrix(
+        (coo.values, (coo.row_idx, coo.col_idx)), shape=(coo.rows, coo.cols)
+    ).tocsr()
+    m.sum_duplicates()
+    return CSR(
+        coo.rows,
+        coo.cols,
+        m.indptr.astype(np.int64),
+        m.indices.astype(np.int32),
+        m.data.astype(np.float32),
+    )
+
+
+def to_bcoo(x, dtype=torch.float32, device=config.DEFAULT_DEVICE):
+    """COO or CSR arrays -> a coalesced ``torch.sparse_coo_tensor`` of
+    ``dtype`` on ``device`` (sorted row-major, duplicates summed), as
+    ``nnmf`` and the solvers take it."""
+    dev = config.resolve_device(device)
+    if not isinstance(x, CSR):
+        x = coo_to_csr(x)
+    rows = np.repeat(np.arange(x.rows, dtype=np.int64),
+                     np.diff(x.indptr).astype(np.int64))
+    idx = torch.from_numpy(np.stack([rows, x.indices.astype(np.int64)]))
+    vals = torch.from_numpy(np.ascontiguousarray(x.data)).to(dtype)
+    X = torch.sparse_coo_tensor(idx, vals, (x.rows, x.cols),
+                                is_coalesced=True, check_invariants=False)
+    return X.to(dev)
 
 
 def stable_argsort(keys: np.ndarray) -> np.ndarray:

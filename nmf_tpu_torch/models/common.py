@@ -327,10 +327,12 @@ def solve(alg, X, W, H, trace: bool = False, *,
     """Solve NMF with a configured algorithm object.  Returns a new Result;
     the caller's factors are not modified.  ``trace=True`` attaches
     per-iteration history (Result.trace).  ``X``, ``W`` and ``H`` must
-    already live on ``device``."""
+    already live on ``device``; a torch sparse X of any layout is taken as a
+    ``SparseCSR``."""
     from ..ops import matops
 
     dev = config.resolve_device(device)
+    X = matops.as_operand(X)
     config.check_on_device(
         dev, X=matops.device_probe(X), W=W, H=H
     )

@@ -34,7 +34,8 @@ class CoordinateDescent:
     ``regularization`` selects whether it hits H ("components"),
     W ("transformation"), "both" or "none".  ``shuffle`` randomizes the
     component order each sweep; pass ``generator`` (a CPU
-    ``torch.Generator``) for a deterministic stream."""
+    ``torch.Generator``) for a deterministic stream.  Each solve draws from
+    a copy of its state and leaves the generator as it was."""
 
     maxiter: int = 100
     verbose: bool = False
@@ -95,8 +96,13 @@ def _halfstep(X, W, H, l1, l2, perm):
 
 
 def _prepare(upd: CoordinateDescent, X, W, H):
-    gen = upd.generator
-    return (gen if gen is not None else torch.Generator().manual_seed(0),)
+    """The solve's own shuffle stream: a new generator that starts where the
+    options' generator stands, which is never advanced, so one options
+    object solved twice gives one result (as the JAX package's key does)."""
+    gen = torch.Generator()
+    if upd.generator is None:
+        return (gen.manual_seed(0),)
+    return (gen.set_state(upd.generator.get_state()),)
 
 
 def _update(upd: CoordinateDescent, state, X, W, H):

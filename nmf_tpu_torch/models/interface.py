@@ -66,12 +66,14 @@ def nnmf(
 ) -> Result:
     """Non-negative matrix factorization: ``X (p x n) ~ W (p x k) @ H (k x n)``.
 
-    ``X`` is a dense array or tensor (moved to ``device``) or a ``TiledCSR``
-    built on ``device``.  ``generator`` (a CPU ``torch.Generator``; seeded
+    ``X`` is a dense array or tensor or a torch sparse tensor of any layout
+    (moved to ``device``; a sparse one becomes a ``SparseCSR`` once), or a
+    ``TiledCSR`` or ``SparseCSR`` built on ``device``.  ``generator`` (a CPU ``torch.Generator``; seeded
     from ``seed`` when not given) drives every random draw.  ``initdata``
     hands the NNDSVD inits their singular triplets (see ``nndsvd``).
     """
     dev = config.resolve_device(device)
+    X = matops.as_operand(X, dev)
     if matops.is_sparse(X):
         config.check_on_device(dev, X=matops.device_probe(X))
     else:
@@ -160,6 +162,7 @@ def solve_replicates(
     ``replicates - 1`` solves, one after the other, from fresh normalized
     random inits, keeping the minimum-objective Result."""
     dev = config.resolve_device(device)
+    X = matops.as_operand(X)
     k = W.shape[1]
     ret = solve(alginst, X, W, H, trace, device=dev)
     if replicates == 1:

@@ -6,12 +6,12 @@ batched FNNLS (``ops/fnnls.py``).  The ``SPA`` "solver" is a statistics
 pass returning ``Result(W, H, 0, True, objv)``.
 
 Dense X: the k anchor rounds each take one column-norm reduction, an argmax
-and a rank-1 deflation of the residual.  Sparse X (a tiled store) keeps no
-dense residual: deflating ``j`` times leaves ``R = (I - proj span{x_a1 ..
-x_aj}) Xn``, so an orthonormal basis of the chosen columns and the
-residual column norms ``||r_c||^2 = ||x_c||^2 - sum_i (q_i' x_c)^2`` are
-enough, at one store product with a one-hot column and one with ``q'`` a
-round.  The argmax stays on the card (``torch.argmax`` gives the first
+and a rank-1 deflation of the residual.  Sparse X (a tiled store or a
+general one) keeps no dense residual: deflating ``j`` times leaves
+``R = (I - proj span{x_a1 .. x_aj}) Xn``, so an orthonormal basis of the
+chosen columns and the residual column norms
+``||r_c||^2 = ||x_c||^2 - sum_i (q_i' x_c)^2`` are enough, at one product
+of X with a one-hot column and one with ``q'`` a round.  The argmax stays on the card (``torch.argmax`` gives the first
 maximum, as ``jnp.argmax`` does), so the rounds need no host read.
 """
 
@@ -46,7 +46,7 @@ def _spa_anchors_k(X, k: int):
 
 
 def _spa_anchors_sparse(X, k: int):
-    """Anchor selection on a tiled store without a dense residual (see the
+    """Anchor selection on a sparse X without a dense residual (see the
     module docstring): O(k * nnz) in all.  The column sums and the column
     sums of squares are the store's products with a ones column, so they add
     in a fixed order.  Returns (k,) int64 on the store's device."""
@@ -77,7 +77,7 @@ def _spa_anchors_sparse(X, k: int):
 
 
 def _store_columns(X, ai):
-    """Columns ``ai`` of a tiled store as a dense (p, len(ai)) tensor, their
+    """Columns ``ai`` of a sparse X as a dense (p, len(ai)) tensor, their
     values copied from the CSR-order arrays.  The JAX package takes them as
     the product of X with one-hot columns, exact in float32 there; on the
     card the dense blocks' product (kernel 2) splits each value into two
@@ -99,9 +99,10 @@ def _store_columns(X, ai):
 def spa(X, k: int, *, device=config.DEFAULT_DEVICE):
     """SPA initialization: returns ``(W, H)`` with ``W = X[:, anchors]`` and
     ``H = argmin_{H >= 0} ||X - W H||`` by batched FNNLS (in float64, see
-    ``fnnls``).  A tiled store takes the basis-tracking anchor selection (no
-    dense residual).  ``X`` must live on ``device``."""
+    ``fnnls``).  A sparse X (a tiled store, a ``SparseCSR`` or a torch sparse
+    tensor) takes the basis-tracking anchor selection (no dense residual).  ``X`` must live on ``device``."""
     dev = config.resolve_device(device)
+    X = matops.as_operand(X)
     config.check_on_device(dev, X=matops.device_probe(X))
     k = int(k)
     if matops.is_sparse(X):

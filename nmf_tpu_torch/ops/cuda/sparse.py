@@ -17,13 +17,18 @@ product per piece of the dense store), ``quad_sddmm``
 (``csrc/quad_sddmm.cu``) and ``coo_sample`` (gather, gather, reduce over
 pieces of the band).
 
+A general sparse X (``SparseCSR``) is one band over all of its rows:
+``csr_matmul`` runs the band kernel on its CSR arrays (each orientation's)
+and ``csr_sample`` the band's gather, gather, reduce.
+
 Each kernel has a plain PyTorch version beside it that does the same
 arithmetic over the same store arrays.  A wrapper takes the plain version
 only for tensors that live on the CPU; for CUDA tensors it launches its
 kernel or raises.  ``build.launch_counts()`` counts kernel launches, and
 nothing else.
 
-Everything is float32 with D row-major ``(n, k)``: one gathered row of D is
+On the card everything is float32 (a general X on the CPU keeps its dtype),
+with D row-major ``(n, k)``: one gathered row of D is
 ``4k`` contiguous bytes.  The chunk, dense and quad kernels give one thread
 block a *piece* of a 128-row output panel (the store's pieces,
 ``sparse_format``): a panel of one piece is written straight to the output,
@@ -37,7 +42,14 @@ from __future__ import annotations
 
 import torch
 
-from ..sparse_format import DENSE_GROUP, QUAD_GROUP, TILE, TiledCSR, TiledSideC
+from ..sparse_format import (
+    DENSE_GROUP,
+    QUAD_GROUP,
+    TILE,
+    CSRSide,
+    TiledCSR,
+    TiledSideC,
+)
 from .build import SMEM_PER_BLOCK, launch
 
 __all__ = [
@@ -46,7 +58,8 @@ __all__ = [
     "coo_matmul_plain",
     "tiled_matmul_t", "tiled_mm", "tiled_mtm", "chunk_sddmm", "chunk_sddmm_plain",
     "dense_sample", "quad_sddmm", "quad_sddmm_plain", "coo_sample",
-    "tiled_sddmm", "sddmm_lanes",
+    "tiled_sddmm", "sddmm_lanes", "csr_matmul", "csr_matmul_plain", "csr_mm",
+    "csr_sample",
 ]
 
 # the chunk and quad kernels keep a (128, k) float panel in shared memory
@@ -281,17 +294,22 @@ def quad_matmul(side: TiledSideC, D, out=None):
 # COO band and the whole product
 
 
+def _rows_summed(rows, cols, vals, D, acc):
+    """``acc[rows[e]] += vals[e] * D[cols[e]]`` over the entries in their
+    order (gather, scale, ``index_add_``, one piece of the entries at a time,
+    so the ``(entries, k)`` products never exist whole).  Returns ``acc``."""
+    for e0 in range(0, rows.numel(), _PIECE):
+        sl = slice(e0, e0 + _PIECE)
+        acc.index_add_(0, rows[sl].long(), vals[sl, None] * D[cols[sl].long()])
+    return acc
+
+
 def coo_matmul_plain(side: TiledSideC, D, out):
     """Plain version of ``coo_matmul``, the reference's order: the band
-    summed into zeros row by row in band order (gather, scale,
-    ``index_add_``, one piece of the band at a time, so the ``(n_coo, k)``
-    products never exist whole), then added onto ``out`` once."""
-    band = torch.zeros_like(out)
-    for e0 in range(0, side.n_coo, _PIECE):
-        sl = slice(e0, min(e0 + _PIECE, side.n_coo))
-        contrib = side.coo_vals[sl, None] * D[side.coo_cols[sl].long()]
-        band.index_add_(0, side.coo_rows[sl].long(), contrib)
-    return out.add_(band)
+    summed into zeros row by row in band order, then added onto ``out``
+    once."""
+    return out.add_(_rows_summed(side.coo_rows, side.coo_cols, side.coo_vals, D,
+                                 torch.zeros_like(out)))
 
 
 def coo_matmul(side: TiledSideC, D, out):
@@ -328,14 +346,18 @@ def tiled_matmul_t(side: TiledSideC, D):
     output column on its own (a thread owns its columns, and the pieces of a
     split panel are added element by element), so the slabs give the bits
     one launch over all of D would give."""
-    D = D.to(torch.float32).contiguous()
+    return _in_slabs(lambda d: _tiled_matmul_slab(side, d),
+                     D.to(torch.float32).contiguous())
+
+
+def _in_slabs(product, D):
+    """``product(D)``, with a D wider than ``MAX_K`` cut into column slabs of
+    at most ``MAX_K`` and the results set side by side."""
     k = D.shape[1]
     if k <= MAX_K:
-        return _tiled_matmul_slab(side, D)
-    return torch.cat([
-        _tiled_matmul_slab(side, D[:, c0 : c0 + MAX_K].contiguous())
-        for c0 in range(0, k, MAX_K)
-    ], dim=1)
+        return product(D)
+    return torch.cat([product(D[:, c0 : c0 + MAX_K].contiguous())
+                      for c0 in range(0, k, MAX_K)], dim=1)
 
 
 def tiled_mm(X: TiledCSR, D):
@@ -546,11 +568,15 @@ def coo_sample(side: TiledSideC, W, Ht, out=None):
     one piece of the band at a time."""
     if out is None:
         out = W.new_empty(side.n_coo)
-    for e0 in range(0, side.n_coo, _PIECE):
-        sl = slice(e0, min(e0 + _PIECE, side.n_coo))
-        out[sl] = (
-            W[side.coo_rows[sl].long()] * Ht[side.coo_cols[sl].long()]
-        ).sum(dim=1)
+    return _sampled(side.coo_rows, side.coo_cols, W, Ht, out)
+
+
+def _sampled(rows, cols, W, Ht, out):
+    """``out[e] = W[rows[e]] . Ht[cols[e]]``: gather, gather, reduce, one
+    piece of the entries at a time.  Returns ``out``."""
+    for e0 in range(0, rows.numel(), _PIECE):
+        sl = slice(e0, e0 + _PIECE)
+        out[sl] = (W[rows[sl].long()] * Ht[cols[sl].long()]).sum(dim=1)
     return out
 
 
@@ -579,3 +605,64 @@ def tiled_sddmm(X: TiledCSR, W, H):
     if side.n_coo:
         coo_sample(side, W32, Ht, flat[c0:])
     return flat[side.perm.long()].to(W.dtype)
+
+
+# ---------------------------------------------------------------------------
+# a general sparse X (``SparseCSR``): the band kernel over all of it
+
+
+def _check_csr(side: CSRSide, D, name="D") -> int:
+    if D.dim() != 2 or D.shape[0] != side.cols:
+        raise ValueError(f"{name} must be ({side.cols}, k), got {tuple(D.shape)}")
+    if D.device != side.val.device:
+        raise ValueError(f"{name} lives on {D.device}, X on {side.val.device}")
+    if D.is_cuda and not (side.val.dtype == D.dtype == torch.float32):
+        raise TypeError(
+            "the card's sparse products are float32: X holds "
+            f"{side.val.dtype} and {name} {D.dtype}; convert X with "
+            ".to(torch.float32) (or run on the CPU)")
+    return D.shape[1]
+
+
+def csr_matmul_plain(side: CSRSide, D):
+    """Plain version of ``csr_matmul``, in the band's order: each row's
+    entries summed into zeros in CSR order."""
+    return _rows_summed(side.row, side.col, side.val, D,
+                        D.new_zeros((side.rows, D.shape[1])))
+
+
+def csr_matmul(side: CSRSide, D):
+    """``X @ D`` (rows, k) for one orientation of a general sparse X, in
+    X's dtype.  On the card this is the band kernel (``csrc/coo_matmul.cu``)
+    over every row: a warp a row, the row's entries in CSR order, so the
+    sums repeat bit for bit; it takes float32 only."""
+    k = _check_csr(side, D)
+    if not D.is_cuda:
+        return csr_matmul_plain(side, D)
+    if not D.is_contiguous():
+        raise ValueError("D must be contiguous (row-major)")
+    out = torch.zeros((side.rows, k), dtype=torch.float32, device=D.device)
+    if side.val.numel():
+        launch("coo_matmul", side.crow, side.col, side.val, D, out, side.rows, k)
+    return out
+
+
+def csr_mm(side: CSRSide, D):
+    """``X @ D`` for any k: D in X's dtype, cut into column slabs of at most
+    ``MAX_K`` as ``tiled_matmul_t`` cuts it; the result in D's dtype."""
+    return _in_slabs(lambda d: csr_matmul(side, d),
+                     D.to(side.val.dtype).contiguous()).to(D.dtype)
+
+
+def csr_sample(side: CSRSide, W, H):
+    """Values of ``W @ H`` at X's entries, ``(nnz,)`` in CSR order: the
+    band's gather, gather, reduce (``coo_sample``) over all of X, one piece
+    at a time.  On the card float32 only, as the products."""
+    Ht = H.T.contiguous()
+    _check_csr(side, Ht, "H'")
+    if W.dim() != 2 or W.shape != (side.rows, Ht.shape[1]) or W.dtype != Ht.dtype \
+            or W.device != Ht.device:
+        raise ValueError(
+            f"W must be ({side.rows}, {Ht.shape[1]}) of H's dtype and device, "
+            f"got {tuple(W.shape)} {W.dtype} on {W.device}")
+    return _sampled(side.row, side.col, W, Ht, W.new_empty(side.val.numel()))

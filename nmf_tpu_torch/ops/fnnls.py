@@ -223,7 +223,8 @@ def _nnls_gram(AtA, AtB, max_outer, cascade):
 def fnnls(A, B, *, precise: bool = True, cascade: bool | None = None,
           device=config.DEFAULT_DEVICE):
     """minimize ``||A X - B||_F`` subject to ``X >= 0``, column by column.
-    ``B`` is dense or a tiled store.
+    ``B`` is dense or sparse (a tiled store, a ``SparseCSR`` or a torch sparse
+    tensor).
 
     ``precise=True`` runs the k x k active-set iteration in float64 on
     either device and casts the result back to A's type (the JAX package
@@ -233,6 +234,7 @@ def fnnls(A, B, *, precise: bool = True, cascade: bool | None = None,
     ``cascade`` as for :func:`nnls_gram`.  ``A`` and ``B`` must live on
     ``device``."""
     dev = config.resolve_device(device)
+    B = matops.as_operand(B)
     config.check_on_device(dev, A=A, B=matops.device_probe(B))
     with config.precision_scope():
         dt = A.dtype

@@ -1,19 +1,24 @@
-"""Matrix-product seam over dense tensors and the tiled sparse store.
+"""Matrix-product seam over dense tensors, the tiled sparse store and a
+general sparse X.
 
 Every solver routes its X-products and X-reductions through these functions,
-so any X supported here works in every solver: a dense ``torch.Tensor`` or a
-``TiledCSR`` (``ops/sparse_format.py``), whose products and sampled product
-run the hand-written kernels of ``ops/cuda/sparse.py`` on the card.
+so any X supported here works in every solver: a dense ``torch.Tensor``, a
+``TiledCSR`` or a ``SparseCSR`` (``ops/sparse_format.py``), whose products
+and sampled product run the hand-written kernels of ``ops/cuda/sparse.py``
+on the card.  A torch sparse tensor of any layout becomes a ``SparseCSR`` at
+the front door (``as_operand``), once.
 """
 
 from __future__ import annotations
 
 import torch
 
-from .sparse_format import TiledCSR
+from .sparse_format import SparseCSR, TiledCSR
 
 __all__ = [
+    "as_operand",
     "is_sparse",
+    "is_general",
     "is_tiled",
     "col_indices",
     "mm",
@@ -37,19 +42,37 @@ def is_tiled(X) -> bool:
     return isinstance(X, TiledCSR)
 
 
+def is_general(X) -> bool:
+    """True for a general sparse X (``SparseCSR``)."""
+    return isinstance(X, SparseCSR)
+
+
 def is_sparse(X) -> bool:
-    return is_tiled(X)
+    return is_tiled(X) or is_general(X)
+
+
+def as_operand(X, device=None):
+    """X as the solvers take it: a torch sparse tensor of any layout becomes
+    a ``SparseCSR`` (moved to ``device`` first when one is given); anything
+    else comes back as it is."""
+    if isinstance(X, torch.Tensor) and X.layout != torch.strided:
+        if device is not None:
+            X = X.to(device)
+        return SparseCSR.from_torch_sparse(X)
+    return X
 
 
 def device_probe(X):
     """A tensor that lives where X lives (X itself when dense)."""
-    return X.fwd.vals if is_tiled(X) else X
+    if is_tiled(X):
+        return X.fwd.vals
+    return X.fwd.val if is_general(X) else X
 
 
 def is_dense_f32_on_card(X) -> bool:
     """True for the X the dense kernels (``ops/cuda/mu.py``,
     ``ops/cuda/objectives.py``) take: a dense float32 tensor on the card."""
-    return not is_tiled(X) and X.is_cuda and X.dtype == torch.float32
+    return not is_sparse(X) and X.is_cuda and X.dtype == torch.float32
 
 
 def mm(X, D):
@@ -58,6 +81,10 @@ def mm(X, D):
         from .cuda.sparse import tiled_mm
 
         return tiled_mm(X, D).to(D.dtype)
+    if is_general(X):
+        from .cuda.sparse import csr_mm
+
+        return csr_mm(X.fwd, D)
     return X @ D
 
 
@@ -67,6 +94,11 @@ def mtm(D, X):
         from .cuda.sparse import tiled_mtm
 
         return tiled_mtm(X, D.T).T.to(D.dtype)
+    if is_general(X):
+        from .cuda.sparse import csr_mm
+
+        # (X' D')' on X's transposed orientation: no transpose of X
+        return csr_mm(X.bwd, D.T).T
     return D @ X
 
 
@@ -85,8 +117,12 @@ def _slim_guard(X, attr, op):
 def sddmm(W, H, X):
     """Values of ``(W @ H)`` sampled at X's nonzero positions, aligned with
     ``nnz_values(X)`` (sparse X only).  A store on the card goes through
-    ``tiled_sddmm`` and its chunk kernel; a store on the CPU takes the
-    gather-gather-reduce form."""
+    ``tiled_sddmm`` and its chunk kernel; a store on the CPU and a general X
+    take the gather-gather-reduce form."""
+    if is_general(X):
+        from .cuda.sparse import csr_sample
+
+        return csr_sample(X.fwd, W, H)
     if not is_tiled(X):
         raise TypeError("sddmm needs a sparse X")
     ri = _slim_guard(X, "row_idx", "sddmm").long()
@@ -99,20 +135,20 @@ def sddmm(W, H, X):
 
 def scale_values(X, new_values):
     """Sparse X with the same pattern but new values."""
-    if not is_tiled(X):
+    if not is_sparse(X):
         raise TypeError("scale_values needs a sparse X")
     return X.with_values(new_values)
 
 
 def nnz_values(X):
-    if not is_tiled(X):
+    if not is_sparse(X):
         raise TypeError("nnz_values needs a sparse X")
     return _slim_guard(X, "values", "nnz_values")
 
 
 def sq_norm(X):
     """``sum(X**2)``."""
-    if is_tiled(X):
+    if is_sparse(X):
         if X.stats is not None:
             return X.stats[1]
         v = nnz_values(X)
@@ -121,7 +157,7 @@ def sq_norm(X):
 
 
 def total_sum(X):
-    if is_tiled(X):
+    if is_sparse(X):
         return X.stats[0] if X.stats is not None else nnz_values(X).sum()
     return X.sum()
 
@@ -131,9 +167,9 @@ def mean(X):
 
 
 def _row_sums_of_store(X):
-    """(p,) row sums of a TiledCSR as its product with a ones column: the
-    store's products (kernels 1-3 and the band on the card) add in a fixed
-    order, so the sums repeat bit for bit, and a slimmed store sums too."""
+    """(p,) row sums of a sparse X as its product with a ones column: the
+    products (kernels 1-3 and the band on the card) add in a fixed order, so
+    the sums repeat bit for bit, and a slimmed store sums too."""
     probe = device_probe(X)
     ones = torch.ones((X.shape[1], 1), dtype=probe.dtype, device=probe.device)
     return mm(X, ones)[:, 0]
@@ -141,20 +177,20 @@ def _row_sums_of_store(X):
 
 def colsums(X):
     """(n,) column sums."""
-    if is_tiled(X):
+    if is_sparse(X):
         return _row_sums_of_store(X.transpose())
     return X.sum(dim=0)
 
 
 def rowsums(X):
     """(p,) row sums."""
-    if is_tiled(X):
+    if is_sparse(X):
         return _row_sums_of_store(X)
     return X.sum(dim=1)
 
 
 def all_nonneg(X):
-    if is_tiled(X):
+    if is_sparse(X):
         if X.stats is not None:
             return X.stats[2] >= 0
         return (nnz_values(X) >= 0).all()
@@ -162,7 +198,7 @@ def all_nonneg(X):
 
 
 def transpose(X):
-    if is_tiled(X):
+    if is_sparse(X):
         return X.transpose()
     return X.T
 
@@ -170,6 +206,6 @@ def transpose(X):
 def col_indices(X):
     """Column index of each stored value, aligned with ``nnz_values(X)``
     (sparse only)."""
-    if not is_tiled(X):
+    if not is_sparse(X):
         raise TypeError("col_indices needs a sparse X")
     return _slim_guard(X, "col_idx", "col_indices")

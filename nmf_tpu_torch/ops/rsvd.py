@@ -38,12 +38,14 @@ def _rsvd_from_sketch(X, omega, k: int, n_iter: int):
 def rsvd(X, k: int, *, oversample: int = 10, n_iter: int = 2, generator=None,
          device=config.DEFAULT_DEVICE):
     """Rank-k randomized SVD of X.  Returns ``(U, s, V)`` with U ``(p, k)``,
-    s ``(k,)``, V ``(n, k)``.  ``X`` is a dense array or tensor (moved to
-    ``device``) or a ``TiledCSR`` built on ``device``.  The test matrix is
+    s ``(k,)``, V ``(n, k)``.  ``X`` is a dense array or tensor or a torch
+    sparse tensor of any layout (moved to ``device``), or a ``TiledCSR`` or
+    ``SparseCSR`` built on ``device``.  The test matrix is
     drawn from ``generator`` (a CPU ``torch.Generator``; seed 0 when not
     given) on the host in float64, cast to X's type and moved to the device,
     so one seed gives one sketch whatever the device and the type."""
     dev = config.resolve_device(device)
+    X = matops.as_operand(X, dev)
     if matops.is_sparse(X):
         config.check_on_device(dev, X=matops.device_probe(X))
         dt = matops.device_probe(X).dtype

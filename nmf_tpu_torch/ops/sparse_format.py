@@ -34,6 +34,11 @@ the band (``coo_ptr``), so that each row's band entries are summed in band
 order.
 
 The binning is numpy on the host; the built arrays are tensors on ``device``.
+
+A general sparse X (a torch sparse tensor of any layout) needs no binning:
+``SparseCSR`` keeps it as row-major CSR in both orientations on its device,
+with a map between the two orders of the entries, and its products run the
+band kernel over all of it (``ops/cuda/sparse.py``, ``csr_matmul``).
 """
 
 from __future__ import annotations
@@ -65,6 +70,9 @@ __all__ = [
     "TiledSideC",
     "TiledCSR",
     "build_tiled",
+    "from_bcoo",
+    "CSRSide",
+    "SparseCSR",
 ]
 
 _REFRESH_MAPS = ("perm", "inv", "qinv", "dense_nnz", "dense_slot", "coo_nnz")
@@ -908,3 +916,152 @@ def build_tiled(
          coo_tail_nnz),
         stats=dv(stats),
     )
+
+
+def from_bcoo(X, *, stripe_tiles: int = 32, layout: str = "compact",
+              group: int = 16, order: str = "degree",
+              dense_tile_nnz: int | None = None, tail_span: int = 1,
+              quad_tail_nnz: int | None = None, quad_seg: int = 32,
+              coo_tail_nnz: int | None = None,
+              device=config.DEFAULT_DEVICE) -> TiledCSR:
+    """``build_tiled`` of a torch sparse tensor of any layout (the JAX
+    package's builder of the same name takes a BCOO): duplicates are summed,
+    then the entries are binned as ``build_tiled`` bins them."""
+    coo = _coalesced(X)
+    idx = coo.indices().cpu().numpy()
+    return build_tiled(
+        idx[0], idx[1], coo.values().cpu().numpy(), tuple(coo.shape),
+        stripe_tiles=stripe_tiles, layout=layout, group=group, order=order,
+        dense_tile_nnz=dense_tile_nnz, tail_span=tail_span,
+        quad_tail_nnz=quad_tail_nnz, quad_seg=quad_seg,
+        coo_tail_nnz=coo_tail_nnz, device=device,
+    )
+
+
+# ---------------------------------------------------------------------------
+# General sparse X: row-major CSR in both orientations
+
+
+@dataclasses.dataclass(frozen=True)
+class CSRSide:
+    """One orientation of a general sparse matrix as row-major CSR: row r's
+    entries are ``crow[r]:crow[r+1]``, their columns ascending.  ``src``
+    gives each entry's position in the other orientation, so that
+    ``other.val[src]`` is this side's values."""
+
+    crow: torch.Tensor  # (rows + 1,) int32
+    row: torch.Tensor  # (nnz,) int32: the row of each entry
+    col: torch.Tensor  # (nnz,) int32
+    val: torch.Tensor  # (nnz,)
+    src: torch.Tensor  # (nnz,) int64
+    rows: int
+    cols: int
+
+
+def _coalesced(X):
+    """A 2-d torch sparse tensor of any layout as a coalesced COO tensor:
+    entries sorted row-major, duplicates summed."""
+    if not isinstance(X, torch.Tensor) or X.layout == torch.strided:
+        raise TypeError("expected a torch sparse tensor")
+    if X.dim() != 2 or X.dense_dim() or X.sparse_dim() != 2:
+        raise ValueError(
+            f"a sparse X must be 2-d with scalar entries, got shape "
+            f"{tuple(X.shape)} ({X.sparse_dim()} sparse, {X.dense_dim()} dense dims)")
+    if X.layout == torch.sparse_csr:
+        crow = X.crow_indices()
+        row = torch.repeat_interleave(
+            torch.arange(X.shape[0], device=crow.device), crow.diff())
+        X = torch.sparse_coo_tensor(
+            torch.stack([row, X.col_indices().long()]), X.values(), X.shape,
+            check_invariants=False)
+    elif X.layout != torch.sparse_coo:
+        X = X.to_sparse_coo()
+    return X.coalesce()
+
+
+def _stats(val):
+    """(sum, sum of squares, min) of the values, summed in float64."""
+    v = val.to(torch.float64)
+    low = v.min() if v.numel() else v.new_zeros(())
+    return torch.stack([v.sum(), (v * v).sum(), low]).to(val.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class SparseCSR:
+    """A general sparse X on its device: X (``fwd``) and X' (``bwd``), each
+    row-major CSR, so that ``X @ D`` and ``X' @ D`` both walk rows and no
+    product transposes.  The entries keep the caller's dtype.  ``row_idx``,
+    ``col_idx`` and ``values`` are X's entries in CSR order, the order of
+    ``matops.nnz_values`` and ``matops.sddmm``; ``stats`` is (sum, sum of
+    squares, min) of the values, as a ``TiledCSR``'s."""
+
+    fwd: CSRSide
+    bwd: CSRSide
+    shape: tuple[int, int]
+    stats: torch.Tensor
+
+    @classmethod
+    def from_torch_sparse(cls, X) -> "SparseCSR":
+        """Build from a 2-d torch sparse tensor of any layout, on its device.
+        A COO tensor is coalesced (entries sorted row-major, duplicates
+        summed); a CSR tensor is taken with each row's columns sorted."""
+        coo = _coalesced(X)
+        p, n = (int(s) for s in coo.shape)
+        row, col = coo.indices()
+        val = coo.values()
+        if val.numel() >= 2**31:
+            raise ValueError("a sparse X holds at most 2**31 - 1 entries")
+        # X' in row-major order: sorted by (col, row); keys are unique
+        order = torch.sort(col * p + row, stable=True).indices
+        back = torch.empty_like(order)
+        back[order] = torch.arange(order.numel(), device=order.device)
+
+        def side(r, c, v, src, rows, cols):
+            crow = torch.zeros(rows + 1, dtype=torch.int64, device=r.device)
+            crow[1:] = torch.bincount(r, minlength=rows).cumsum(0)
+            return CSRSide(crow.to(torch.int32), r.to(torch.int32),
+                           c.to(torch.int32), v.contiguous(), src, rows, cols)
+
+        return cls(side(row, col, val, back, p, n),
+                   side(col[order], row[order], val[order], order, n, p),
+                   (p, n), _stats(val))
+
+    @property
+    def dtype(self):
+        return self.fwd.val.dtype
+
+    @property
+    def device(self):
+        return self.fwd.val.device
+
+    @property
+    def nnz(self):
+        return self.fwd.val.shape[0]
+
+    @property
+    def row_idx(self):
+        return self.fwd.row
+
+    @property
+    def col_idx(self):
+        return self.fwd.col
+
+    @property
+    def values(self):
+        return self.fwd.val
+
+    def with_values(self, new_values):
+        """Same pattern, new values (CSR order): both orientations and the
+        stats are refreshed."""
+        new_values = new_values.contiguous()
+        return dataclasses.replace(
+            self,
+            fwd=dataclasses.replace(self.fwd, val=new_values),
+            bwd=dataclasses.replace(self.bwd, val=new_values[self.bwd.src]),
+            stats=_stats(new_values),
+        )
+
+    def transpose(self):
+        """X' without a copy: the two orientations swap."""
+        return dataclasses.replace(self, fwd=self.bwd, bwd=self.fwd,
+                                   shape=(self.shape[1], self.shape[0]))

@@ -1,6 +1,8 @@
 """Fast-HALS of the PyTorch build against the JAX package's: one half-step
 and one whole update, on dense X in float64 and on the tiled X in float32."""
 
+import dataclasses
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -155,6 +157,27 @@ def test_shuffle_is_a_permutation_of_the_sweep_and_repeats_with_its_seed():
     # still a descent step from the same start
     f = lambda W, H: float(mse_objective(args[0], W, H))
     assert f(a[0], a[1]) < f(args[1], args[2])
+
+
+def test_one_shuffled_options_object_solved_twice_gives_one_result():
+    """Each solve draws from a copy of the generator's state: the caller's
+    generator is not advanced, and a second solve repeats the first, as the
+    JAX package's key does."""
+    import nmf_tpu_torch as nt
+
+    Xd, W, H = _problem(np.float64)
+    args = (torch.from_numpy(Xd), torch.from_numpy(W), torch.from_numpy(H))
+    gen = torch.Generator().manual_seed(1)
+    before = gen.get_state().clone()
+    upd = tcd.CoordinateDescent(maxiter=5, shuffle=True, generator=gen)
+    a = nt.solve(upd, *args, device="cpu")
+    b = nt.solve(upd, *args, device="cpu")
+    assert a == b and torch.equal(a.W, b.W) and a.objvalue == b.objvalue
+    assert torch.equal(gen.get_state(), before)
+    # the stream is the generator's: another seed gives another solve
+    c = nt.solve(dataclasses.replace(upd, generator=torch.Generator().manual_seed(2)),
+                 *args, device="cpu")
+    assert not torch.equal(a.W, c.W)
 
 
 @pytest.mark.parametrize("dtype", [np.float32, np.float64])

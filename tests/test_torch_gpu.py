@@ -985,3 +985,53 @@ def test_als_solvers_on_the_card_follow_the_cpu(card, alg):
     assert (counts["projectnn"] > 0) == (alg == "projals"), counts
     close(res.W, ref.W, rtol=1e-3, scale=1e-4)
     close(res.H, ref.H, rtol=1e-3, scale=1e-4)
+
+
+@pytest.mark.parametrize("k", [1, 9, 128, 460])
+def test_general_sparse_products_run_the_band_kernel(card, k):
+    """A torch CSR X on the card: ``mm`` / ``mtm`` through the band kernel
+    over every row (one launch a slab), against the plain version, the same
+    bits twice."""
+    from nmf_tpu_torch.ops import matops
+
+    Xd = three_class_matrix(5)
+    X = matops.as_operand(torch.from_numpy(Xd).to(card).to_sparse_csr())
+    Xc = matops.as_operand(torch.from_numpy(Xd).to_sparse_csr())
+    D = torch.rand(Xd.shape[1], k, device=card)
+    D2 = torch.rand(k, Xd.shape[0], device=card)
+    build.reset_launch_counts()
+    got, got_t = matops.mm(X, D), matops.mtm(D2, X)
+    slabs = -(-k // tsp.MAX_K)
+    assert build.launch_counts()["coo_matmul"] == 2 * slabs
+    assert sum(build.launch_counts().values()) == 2 * slabs
+    close(got, matops.mm(Xc, D.cpu()))
+    close(got_t, matops.mtm(D2.cpu(), Xc))
+    assert torch.equal(got, matops.mm(X, D)) and torch.equal(got_t, matops.mtm(D2, X))
+    W, H = torch.rand(Xd.shape[0], 4, device=card), torch.rand(4, Xd.shape[1], device=card)
+    close(matops.sddmm(W, H, X), matops.sddmm(W.cpu(), H.cpu(), Xc))
+    close(matops.colsums(X), torch.from_numpy(Xd.sum(0)))
+
+
+def test_float64_sparse_x_on_the_card_raises(card):
+    from nmf_tpu_torch.ops import matops
+
+    X = matops.as_operand(torch.from_numpy(three_class_matrix(5)).double().to(card)
+                          .to_sparse_coo())
+    with pytest.raises(TypeError, match="float32"):
+        matops.mm(X, torch.rand(X.shape[1], 3, device=card, dtype=torch.float64))
+    with pytest.raises(TypeError, match="float32"):
+        nt.nnmf(X, 3, alg="cd", init="random", maxiter=1)
+
+
+def test_checkpointed_solve_on_the_card_keeps_the_bits(card, tmp_path):
+    Xd = three_class_matrix(2)
+    r, c, v = coo_of(Xd)
+    X = build_tiled(r, c, v, Xd.shape, **BUILD)
+    rng = np.random.default_rng(4)
+    W = torch.from_numpy(rng.random((Xd.shape[0], 5), dtype=np.float32)).to(card)
+    H = torch.from_numpy(rng.random((5, Xd.shape[1]), dtype=np.float32)).to(card)
+    alg = nt.CoordinateDescent(maxiter=9, tol=1e-30, shuffle=True,
+                               generator=torch.Generator().manual_seed(3))
+    plain = nt.solve(alg, X, W, H)
+    ck = nt.solve_checkpointed(alg, X, W, H, checkpoint_dir=str(tmp_path), checkpoint_every=4)
+    assert ck == plain and torch.equal(ck.W, plain.W)

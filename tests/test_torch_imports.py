@@ -28,6 +28,7 @@ MODULES = [
     "nmf_tpu_torch.init.initialization",
     "nmf_tpu_torch.io.loader",
     "nmf_tpu_torch.models.alspgrad",
+    "nmf_tpu_torch.models.checkpoint",
     "nmf_tpu_torch.models.common",
     "nmf_tpu_torch.models.coorddesc",
     "nmf_tpu_torch.models.greedycd",
@@ -101,7 +102,8 @@ def test_every_source_of_the_port_is_checked():
             "greedycd.py", "quad_matmul.cu", "quad_sddmm.cu",
             "sddmm_piece.cuh", "elementwise.cu", "elementwise.py", "rsvd.py",
             "tsqr.py", "linalg.py", "initialization.py", "projals.py",
-            "alspgrad.py", "spa.py", "fnnls.py"} <= names
+            "alspgrad.py", "spa.py", "fnnls.py", "checkpoint.py",
+            "loader.py"} <= names
 
 
 def test_every_module_of_the_port_is_imported_by_the_check():
@@ -141,11 +143,17 @@ def test_tf32_is_off():
         matmul.fp32_precision = saved
 
 
-def _entry_points():
+def _entry_points(tmp):
+    from nmf_tpu_torch.io import loader
+    from nmf_tpu_torch.ops.sparse_format import from_bcoo
+
     rng = np.random.default_rng(0)
     X = rng.random((12, 9)).astype(np.float32)
     r, c = np.nonzero(X)
     W, H = torch.rand(12, 3), torch.rand(3, 9)
+    Xs = torch.from_numpy(X).to_sparse_csr()
+    coo = loader.COO(12, 9, r.astype(np.int32), c.astype(np.int32), X[r, c])
+    steps = iter(range(1000))
     Xt = build_tiled(r, c, X[r, c], X.shape, device="cpu")
     Xq = build_tiled(r, c, X[r, c], X.shape, device="cpu", quad_tail_nnz=32)
     return {
@@ -181,12 +189,21 @@ def _entry_points():
         "fnnls": lambda **kw: nt.fnnls(W, Xt, **kw),
         "nnls_gram": lambda **kw: nt.nnls_gram(W.T @ W, W.T @ torch.from_numpy(X), **kw),
         "separable_data": lambda **kw: nt.separable_data(8, 6, 2, **kw),
+        "solve_checkpointed": lambda **kw: nt.solve_checkpointed(
+            nt.CoordinateDescent(maxiter=2), Xt, W, H,
+            checkpoint_dir=f"{tmp}/ck{next(steps)}", **kw),
+        "nnmf_sparse_csr": lambda **kw: nt.nnmf(Xs, 3, alg="cd", init="random",
+                                                maxiter=1, **kw),
+        "to_bcoo": lambda **kw: loader.to_bcoo(coo, **kw),
+        "from_bcoo": lambda **kw: from_bcoo(Xs, **kw),
+        "sparse_from_numpy": lambda **kw: convert.sparse_from_numpy(
+            np.stack([r, c], 1), X[r, c], X.shape, **kw),
     }
 
 
-@pytest.mark.parametrize("name", sorted(_entry_points()))
-def test_entry_point_defaults_to_the_card_and_raises_without_one(name):
-    call = _entry_points()[name]
+@pytest.mark.parametrize("name", sorted(_entry_points(None)))
+def test_entry_point_defaults_to_the_card_and_raises_without_one(name, tmp_path):
+    call = _entry_points(tmp_path)[name]
     call(device="cpu")  # runs on the CPU when asked to
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present: the default device runs")

@@ -70,11 +70,15 @@ def _problem():
     return X, Xt, W, H
 
 
-def _entry_points():
+def _entry_points(tmp=None):
     X, Xt, W, H = _problem()
     Xd = torch.from_numpy(X)
     cd = nt.CoordinateDescent(maxiter=2)
     return {
+        "solve_checkpointed": lambda: nt.solve_checkpointed(
+            cd, Xt, W, H, checkpoint_dir=str(tmp), checkpoint_every=1, device="cpu"),
+        "nnmf_sparse_coo": lambda: nt.nnmf(Xd.to_sparse_coo(), 3, maxiter=2,
+                                           device="cpu"),
         "solve": lambda: nt.solve(cd, Xt, W, H, device="cpu"),
         "solve_dense_greedycd": lambda: nt.solve(nt.GreedyCD(maxiter=2), Xd, W, H,
                                                  device="cpu"),
@@ -93,7 +97,7 @@ def _entry_points():
 @pytest.mark.parametrize("caller", sorted(CALLERS))
 @pytest.mark.parametrize("name", sorted(_entry_points()))
 def test_entry_points_compute_at_ieee_and_give_the_setting_back(
-        name, caller, monkeypatch):
+        name, caller, monkeypatch, tmp_path):
     seen = []
     mm = matops.mm
 
@@ -102,7 +106,7 @@ def test_entry_points_compute_at_ieee_and_give_the_setting_back(
         return mm(X, D)
 
     monkeypatch.setattr(matops, "mm", recording_mm)
-    call = _entry_points()[name]
+    call = _entry_points(tmp_path)[name]
     CALLERS[caller][0]()
     call()
     assert seen and set(seen) == {"ieee"}, seen
