@@ -2,8 +2,8 @@
 """On-card smoke run of the PyTorch/CUDA build: ``python3 chip_smoke.py``.
 
 Needs one NVIDIA Hopper card, ``nvcc`` and no network.  It builds the
-thirteen CUDA kernels from ``nmf_tpu_torch/csrc/`` (the twelve that replace
-the TPU kernels and the COO band's), holds each kernel against its plain
+fourteen CUDA kernels from ``nmf_tpu_torch/csrc/`` (the twelve that replace
+the TPU kernels, the COO band's and the general-CSR product's), holds each kernel against its plain
 PyTorch version on the card (the product and multiplicative-update kernels
 also at every ``k`` they refused before they summed over ``k`` in slabs), and
 drives the ported paths through ``nnmf`` and the resumable solver loop:
@@ -26,8 +26,13 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
 * the same matrix as a ``torch.sparse_csr_tensor`` on the card (the port's
   general sparse X): its products against the store's, the same bits twice,
   HALS to relative error 0.84, five KL sweeps and ``nnmf(Xs, 128,
-  maxiter=5)`` against the store's runs from the same starts (phase
-  ``sparse_general``), the band kernel over all of it (phase
+  maxiter=5)`` against the store's runs from the same starts, each through
+  the general-CSR kernel and never the band kernel (phase
+  ``sparse_general``); the general-CSR kernel over all of it against
+  float64, the same bits twice, its rows of one piece against the band
+  kernel over the rows bit for bit, timed beside ``torch.sparse.mm``, and
+  swept over its piece caps, column slabs and loads; the sampled product
+  over X beside ``torch.sparse.sampled_addmm`` (phase
   ``kernels_general_csr``);
 * ``solve_checkpointed`` against ``solve``, the same bits: shuffled HALS (25
   iterations, a snapshot every 7; also cut at 14 and resumed) and GreedyCD
@@ -1538,6 +1543,12 @@ def _need_launches(label, launches, names):
         fail(f"{label}: kernels of this path never launched: {missing} in {launches}")
 
 
+def _no_launches(label, launches, names):
+    launched = [n for n in names if launches[n]]
+    if launched:
+        fail(f"{label}: kernels of another path launched: {launched} in {launches}")
+
+
 def _seconds_per_iteration(X, upd, W0, H0, iters):
     """Seconds per iteration of the bare resumable loop (no objective reads)."""
     from nmf_tpu_torch.models import common
@@ -2202,25 +2213,60 @@ def general_csr(rows, cols, vals):
     return Xs, A, time.perf_counter() - t0
 
 
+# the general-CSR kernel's sweep: caps of a piece, column slabs at k = 128
+CSR_CAPS = (256, 512, 1024, 2048)
+CSR_SLABS = (128, 64, 32)
+
+
+def _band_over_rows(side, D):
+    """The general product before the general-CSR kernel: the band kernel
+    (``coo_matmul``) over every row, ``crow`` as its row pointer, into
+    zeros."""
+    from nmf_tpu_torch.ops.cuda import build
+
+    out = torch.zeros((side.rows, D.shape[1]), dtype=torch.float32, device=D.device)
+    build.launch("coo_matmul", side.crow, side.col, side.val, D, out, side.rows,
+                 D.shape[1])
+    return out
+
+
 def check_general_csr(A):
-    """The band kernel over a whole general X (``csr_matmul``), each
+    """The general-CSR kernel (``csr_matmul``) over a whole general X, each
     orientation at k = 128: against its plain version run in float64 within
-    ``REL_TOL``, the same bits twice, and timed beside the plain version and
-    ``torch.sparse.mm`` on a torch CSR tensor of the same arrays.  The bound:
-    the row pointer, a column and a value an entry, the rows of D the entries
-    read and the output, each once."""
+    ``REL_TOL``, the same bits twice, every row of at most
+    ``CSR_PIECE_ENTRIES`` entries equal bit for bit to the band kernel over
+    the rows (``_band_over_rows``), and timed (median of 9) beside
+    ``torch.sparse.mm`` on a torch CSR tensor of the same arrays (median of
+    9), the plain version and the band kernel over the rows.  The sweep:
+    each cap of ``CSR_CAPS`` at each slab of ``CSR_SLABS``, the pairs read
+    through the read-only path or evict-first; each result within
+    ``REL_TOL``, and one cap's results the same bits at every slab and load.
+    The bound: the row pointer, a column and a value an entry, the rows of D
+    the entries read and the output, each once.  Then the sampled product
+    over X (``csr_sample``, no kernel of its own) beside
+    ``torch.sparse.sampled_addmm`` and its own bound."""
+    import dataclasses
+
     from nmf_tpu_torch.ops.cuda import sparse as S
+    from nmf_tpu_torch.ops.sparse_format import CSR_PIECE_ENTRIES, csr_piece_index
 
     gen = torch.Generator(device="cuda").manual_seed(12)
-    rec = {}
+    l2 = torch.cuda.get_device_properties(0).L2_cache_size
+    rec = {"l2_bytes": l2, "cap": CSR_PIECE_ENTRIES}
     for sname, side in (("fwd", A.fwd), ("bwd", A.bwd)):
         D = torch.rand((side.cols, K), generator=gen, device="cuda")
         got = S.csr_matmul(side, D)
         torch.cuda.synchronize()
         want = S.csr_matmul_plain(side, D.double())
-        r = _held(f"general csr coo_matmul {sname}", got, want, REL_TOL, (side.rows, K))
-        r["same_bits"] = _same_bits(f"general csr coo_matmul {sname}",
+        r = _held(f"general csr csr_matmul {sname}", got, want, REL_TOL, (side.rows, K))
+        r["same_bits"] = _same_bits(f"general csr csr_matmul {sname}",
                                     lambda: S.csr_matmul(side, D))
+        band = _band_over_rows(side, D)
+        lengths = side.crow.diff()
+        short = lengths <= CSR_PIECE_ENTRIES
+        if not torch.equal(got[short], band[short]):
+            fail(f"general csr {sname}: a row of one piece differs from the band kernel's")
+        r["band_rows_rel_err"] = _rel_err(band, want)[0] / r["scale"]
         lib_x = torch.sparse_csr_tensor(side.crow, side.col, side.val,
                                         (side.rows, side.cols))
         lerr = float((torch.sparse.mm(lib_x, D) - want).abs().max())
@@ -2230,14 +2276,62 @@ def check_general_csr(A):
         d_rows = int(torch.unique(side.col).numel())
         nbytes = 4 * (side.rows + 1) + 8 * nnz + 4 * K * (d_rows + side.rows)
         bound_ms, by = bound_of(nbytes, 2 * nnz * K)
-        r.update(ms=time_ms(lambda: S.csr_matmul(side, D)),
+        r.update(ms=time_ms(lambda: S.csr_matmul(side, D), reps=9),
                  plain_ms=time_ms(lambda: S.csr_matmul_plain(side, D), reps=3),
-                 library_ms=time_ms(lambda: torch.sparse.mm(lib_x, D), reps=3),
+                 library_ms=time_ms(lambda: torch.sparse.mm(lib_x, D), reps=9),
+                 band_rows_ms=time_ms(lambda: _band_over_rows(side, D), reps=3),
                  bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=2 * nnz * K,
-                 nnz=nnz, rows=side.rows, longest_row=int(side.crow.diff().max()))
+                 gathered_bytes=4 * K * nnz, operand_bytes=4 * K * side.cols,
+                 stream_loads=S.CSR_STREAM_LOADS,
+                 nnz=nnz, rows=side.rows, longest_row=int(lengths.max()),
+                 rows_of_one_piece=int(short.sum()), pieces=side.piece_row.numel(),
+                 split_rows=side.split_row.numel(), parts=side.n_parts)
         r["mnnz_per_s"] = nnz / r["ms"] / 1e3
-        rec[f"general_{sname}"] = r
-        del got, want, lib_x
+        r["speedup_over_band_rows"] = r["band_rows_ms"] / r["ms"]
+        sweep = {}
+        for cap in CSR_CAPS:
+            cut = dataclasses.replace(side, **csr_piece_index(side.crow, cap))
+            first = None
+            for slab in CSR_SLABS:
+                for stream in (0, 1):
+                    run = lambda: S.csr_launch(cut, D, slab, stream)  # noqa: E731
+                    out = run()
+                    torch.cuda.synchronize()
+                    label = f"general csr {sname} cap={cap} slab={slab} stream={stream}"
+                    if first is None:
+                        first = out
+                        _held(label, out, want, REL_TOL)
+                    elif not torch.equal(out, first):
+                        fail(f"{label}: other bits than the same cap's first run")
+                    sweep[f"cap{cap}_slab{slab}_{'evict_first' if stream else 'ldg'}"] = \
+                        time_ms(run)
+                    del out
+            del cut, first
+        r["sweep_ms"] = sweep
+        rec[sname] = r
+        del got, want, lib_x, band
+    # the sampled product over all of X: gather, gather, reduce in torch
+    W = torch.rand((P, K), generator=gen, device="cuda")
+    H = torch.rand((K, N), generator=gen, device="cuda")
+    side = A.fwd
+    got = S.csr_sample(side, W, H)
+    pattern = torch.sparse_csr_tensor(side.crow, side.col, torch.zeros_like(side.val),
+                                      (P, N))
+    lib = torch.sparse.sampled_addmm(pattern, W, H, beta=0.0).values()
+    want = S._sampled(side.row, side.col, W.double(), H.double().T.contiguous(),
+                      torch.empty(side.val.numel(), dtype=torch.float64, device="cuda"))
+    r = _held("general csr csr_sample", got, want, REL_TOL, (side.val.numel(),))
+    if not float((lib - want).abs().max()) <= 1e-4 * r["scale"]:
+        fail("general csr csr_sample: yardstick disagrees")
+    nnz = side.val.numel()
+    # the pattern (row pointer, columns), W and H once, a value an entry out
+    nbytes = 4 * (P + 1) + 4 * nnz + 4 * K * (P + N) + 4 * nnz
+    bound_ms, by = bound_of(nbytes, 2 * nnz * K)
+    r.update(ms=time_ms(lambda: S.csr_sample(side, W, H), reps=3),
+             library_ms=time_ms(lambda: torch.sparse.sampled_addmm(pattern, W, H, beta=0.0),
+                                reps=3),
+             bound_ms=bound_ms, bound_by=by, bytes=nbytes, flops=2 * nnz * K)
+    rec["csr_sample"] = r
     return rec
 
 
@@ -2278,7 +2372,8 @@ def sparse_general(X, Xs, A, W0, H0, store_hals):
 
     out = {"nnz": A.nnz, "container_bytes": sum(
         t.numel() * t.element_size() for side in (A.fwd, A.bwd)
-        for t in (side.crow, side.row, side.col, side.val, side.src))}
+        for t in (side.crow, side.row, side.col, side.val, side.src, side.piece_ptr,
+                  side.piece_row, side.piece_part, side.split_ptr, side.split_row))}
     gen = torch.Generator(device="cuda").manual_seed(13)
     for name, fn, rows in (("mm", lambda d: matops.mm(A, d), N),
                            ("mtm", lambda d: matops.mtm(d.T, A).T, P)):
@@ -2293,7 +2388,8 @@ def sparse_general(X, Xs, A, W0, H0, store_hals):
     hals["launches"] = build.launch_counts()
     hals["store_iterations"] = store_hals["iterations"]
     hals["store_seconds_to_target"] = store_hals["seconds_to_target"]
-    _need_launches("sparse_general hals", hals["launches"], ("coo_matmul",))
+    _need_launches("sparse_general hals", hals["launches"], ("csr_matmul",))
+    _no_launches("sparse_general hals", hals["launches"], ("coo_matmul",))
     out["hals"] = hals
     runs = {}
     for tag, kw in (("multdiv", dict(alg="multdiv", init="custom", W0=W0, H0=H0,
@@ -2313,7 +2409,8 @@ def sparse_general(X, Xs, A, W0, H0, store_hals):
         if not (math.isfinite(res.objvalue) and r["rel_diff"] <= 1e-4):
             fail(f"sparse_general {tag}: objective {res.objvalue} on the general X, "
                  f"{store.objvalue} on the store")
-        _need_launches(f"sparse_general {tag}", r["launches"], ("coo_matmul",))
+        _need_launches(f"sparse_general {tag}", r["launches"], ("csr_matmul",))
+        _no_launches(f"sparse_general {tag}", r["launches"], ("coo_matmul",))
         runs[tag] = r
         del res, store
     out.update(runs)
@@ -2448,7 +2545,8 @@ def loader_phase(rows, cols, vals, tmp):
     _result_ok("loader nnmf", res, (P, K), (K, N))
     if not math.isfinite(res.objvalue):
         fail(f"loader nnmf: objective {res.objvalue}")
-    _need_launches("loader nnmf", out["launches"], ("coo_matmul", "colsum"))
+    _need_launches("loader nnmf", out["launches"], ("csr_matmul", "colsum"))
+    _no_launches("loader nnmf", out["launches"], ("coo_matmul",))
     out.update(nnz=int(Xl.values().numel()), niters=res.niters, objvalue=res.objvalue)
     return out
 
@@ -2608,11 +2706,10 @@ def main():
         quad_matmul=check_split(Xq, K, "quad store", "quad", 64, timed=True))
     # no atomics: the products and five HALS iterations give the same bits
     say("same_bits_products", card=smi, **same_bits_products(X, W0, H0))
-    # the band kernel over a whole general X: the matrix as a torch CSR tensor
-    # on the card, held as the port's container
+    # the general-CSR kernel over a whole general X: the matrix as a torch
+    # CSR tensor on the card, held as the port's container
     Xs, A, t_container = general_csr(rows, cols, vals)
     general = check_general_csr(A)
-    full["coo_matmul"].update(general)
     say("kernels_general_csr", tolerance=REL_TOL, card=smi,
         container_build_seconds=t_container, **general)
 
@@ -2813,6 +2910,9 @@ def main():
         "quad_matmul": (csrc + "quad_matmul.cu", pallas + "sparse.py:537", quad["quad_matmul"]),
         # the band is no pallas_call in the reference: XLA's segment_sum
         "coo_matmul": (csrc + "coo_matmul.cu", pallas + "sparse.py:412", full["coo_matmul"]),
+        # nor is the general product: XLA's bcoo_dot_general on a BCOO X
+        "csr_matmul": (csrc + "csr_matmul.cu", "nmf_tpu/ops/matops.py:87",
+                       {"fwd": general["fwd"], "bwd": general["bwd"]}),
         "chunk_sddmm": (csrc + "chunk_sddmm.cu", pallas + "sparse.py:738", {"fwd": sddmm}),
         "quad_sddmm": (csrc + "quad_sddmm.cu", pallas + "sparse.py:825", {"fwd": quad_sddmm}),
         "dense_objective": (csrc + "objectives.cu", pallas + "objectives.py:75", dense["dense_objective"]),

@@ -28,7 +28,7 @@ CSRC = _PKG / "csrc"
 BUILD = _PKG / "build"
 SOURCES = (
     "chunk_matmul.cu", "dense_matmul.cu", "quad_matmul.cu", "coo_matmul.cu",
-    "chunk_sddmm.cu", "quad_sddmm.cu", "mu.cu", "objectives.cu",
+    "csr_matmul.cu", "chunk_sddmm.cu", "quad_sddmm.cu", "mu.cu", "objectives.cu",
     "elementwise.cu",
 )
 # quotient_tile.cuh: mu.cu and objectives.cu; sddmm_piece.cuh: the two
@@ -63,6 +63,9 @@ _ARGTYPES = {
     "nmf_quad_matmul": [_P] * 14 + [_I] * 6 + [_P],
     # coo_ptr, coo_cols, coo_vals, D, out, rows, k, stream
     "nmf_coo_matmul": [_P] * 5 + [_I] * 2 + [_P],
+    # piece_ptr, piece_row, piece_part, split_ptr, split_row, cols, vals, D,
+    # out, parts, n_pieces, n_split, k, slab, stream_loads, stream
+    "nmf_csr_matmul": [_P] * 10 + [_I] * 5 + [_P],
     # piece_ptr, piece_panel, panel_chunks, chunk_nreal, win_panel, coords,
     # inv, W, Ht, out, n_pieces, n_chunks, group, span, rows, cols, k, nnz,
     # lanes, stream

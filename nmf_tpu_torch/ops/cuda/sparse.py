@@ -17,9 +17,10 @@ product per piece of the dense store), ``quad_sddmm``
 (``csrc/quad_sddmm.cu``) and ``coo_sample`` (gather, gather, reduce over
 pieces of the band).
 
-A general sparse X (``SparseCSR``) is one band over all of its rows:
-``csr_matmul`` runs the band kernel on its CSR arrays (each orientation's)
-and ``csr_sample`` the band's gather, gather, reduce.
+A general sparse X (``SparseCSR``): ``csr_matmul`` runs the general-CSR
+kernel (``csrc/csr_matmul.cu``) over each orientation's rows cut into pieces,
+a split row's partial sums added in piece order by a second pass, and
+``csr_sample`` the band's gather, gather, reduce over all of X.
 
 Each kernel has a plain PyTorch version beside it that does the same
 arithmetic over the same store arrays.  A wrapper takes the plain version
@@ -34,7 +35,8 @@ block a *piece* of a 128-row output panel (the store's pieces,
 ``sparse_format``): a panel of one piece is written straight to the output,
 the pieces of a split panel write partial panels to a scratch tensor that
 the wrapper allocates and a second pass adds them in piece order.  The band
-kernel gives one warp a row.  All four sum in an order fixed by the store and
+kernel gives one warp a row, the general-CSR kernel one warp a piece of a
+row.  All of them sum in an order fixed by the store and
 use no atomics, so their results are the same from run to run.
 """
 
@@ -58,8 +60,8 @@ __all__ = [
     "coo_matmul_plain",
     "tiled_matmul_t", "tiled_mm", "tiled_mtm", "chunk_sddmm", "chunk_sddmm_plain",
     "dense_sample", "quad_sddmm", "quad_sddmm_plain", "coo_sample",
-    "tiled_sddmm", "sddmm_lanes", "csr_matmul", "csr_matmul_plain", "csr_mm",
-    "csr_sample",
+    "tiled_sddmm", "sddmm_lanes", "csr_matmul", "csr_matmul_plain", "csr_launch",
+    "csr_mm", "csr_sample",
 ]
 
 # the chunk and quad kernels keep a (128, k) float panel in shared memory
@@ -608,7 +610,7 @@ def tiled_sddmm(X: TiledCSR, W, H):
 
 
 # ---------------------------------------------------------------------------
-# a general sparse X (``SparseCSR``): the band kernel over all of it
+# a general sparse X (``SparseCSR``): the general-CSR kernel over its pieces
 
 
 def _check_csr(side: CSRSide, D, name="D") -> int:
@@ -625,26 +627,73 @@ def _check_csr(side: CSRSide, D, name="D") -> int:
 
 
 def csr_matmul_plain(side: CSRSide, D):
-    """Plain version of ``csr_matmul``, in the band's order: each row's
-    entries summed into zeros in CSR order."""
-    return _rows_summed(side.row, side.col, side.val, D,
-                        D.new_zeros((side.rows, D.shape[1])))
+    """Plain version of ``csr_matmul``, in the kernel's order: each piece's
+    entries summed into zeros in CSR order (``_rows_summed`` over the
+    pieces); a row of one piece is its piece's sum (an empty row zeros); a
+    row of several is ``((p0 + p1) + p2) + ...`` over its pieces' sums in
+    piece order."""
+    k = D.shape[1]
+    n_pieces = side.piece_row.numel()
+    piece_of = torch.repeat_interleave(
+        torch.arange(n_pieces, device=D.device), side.piece_ptr.diff().long(),
+        output_size=side.val.numel())
+    sums = _rows_summed(piece_of, side.col, side.val, D, D.new_zeros((n_pieces, k)))
+    first = torch.ones(n_pieces, dtype=torch.bool, device=D.device)
+    first[1:] = side.piece_row[1:] != side.piece_row[:-1]
+    out = sums[first]  # every row has a piece: one a row, in row order
+    if side.split_row.numel():
+        parts = sums[side.piece_part >= 0]  # in slot order, the pieces' order
+        start = side.split_ptr[:-1].long()
+        count = side.split_ptr.diff().long()
+        acc = parts[start]
+        for q in range(1, int(count.max())):
+            live = count > q
+            acc[live] += parts[start[live] + q]
+        out[side.split_row.long()] = acc
+    return out
+
+
+# the general-CSR kernel reads the pieces' columns and values with
+# evict-first loads (faster at ttt4 in 13 of 16 readings, by up to 7 %) and
+# gathers all of D's columns in one pass (slabs that fit the L2 lost 5-94 %;
+# PERF.md, ``chip_smoke.py`` phase kernels_general_csr)
+CSR_STREAM_LOADS = True
+
+
+def csr_launch(side: CSRSide, D, slab, stream_loads):
+    """One launch of the general-CSR kernel (``csrc/csr_matmul.cu``) over
+    the pieces of ``side``: ``X @ D`` (rows, k) float32, every row written
+    once (``torch.empty``); the split rows' partial sums in a scratch of
+    ``n_parts`` rows.  ``slab``: columns of D a pass gathers (k, or a
+    multiple of 4); ``stream_loads``: evict-first loads of the pieces'
+    columns and values.  Neither changes a bit; ``csr_matmul`` passes k and
+    ``CSR_STREAM_LOADS``, a measurement may pass others."""
+    k = D.shape[1]
+    for name, t in (("piece_ptr", side.piece_ptr), ("col", side.col)):
+        if t.dtype != torch.int32 or t.device != D.device:
+            raise TypeError(f"the general-CSR kernel takes int32 {name} on {D.device}")
+    out = torch.empty((side.rows, k), dtype=torch.float32, device=D.device)
+    parts = torch.empty((side.n_parts, k), dtype=torch.float32, device=D.device)
+    if side.rows:
+        launch("csr_matmul", side.piece_ptr, side.piece_row, side.piece_part,
+               side.split_ptr, side.split_row, side.col, side.val, D, out, parts,
+               side.piece_row.numel(), side.split_row.numel(), k, slab,
+               int(stream_loads))
+    return out
 
 
 def csr_matmul(side: CSRSide, D):
     """``X @ D`` (rows, k) for one orientation of a general sparse X, in
-    X's dtype.  On the card this is the band kernel (``csrc/coo_matmul.cu``)
-    over every row: a warp a row, the row's entries in CSR order, so the
-    sums repeat bit for bit; it takes float32 only."""
+    X's dtype.  On the card this is the general-CSR kernel
+    (``csrc/csr_matmul.cu``): a warp a piece of a row, each piece summed in
+    CSR order and a split row's pieces added in piece order, so the sums
+    repeat bit for bit; it takes float32 only."""
     k = _check_csr(side, D)
     if not D.is_cuda:
         return csr_matmul_plain(side, D)
     if not D.is_contiguous():
         raise ValueError("D must be contiguous (row-major)")
-    out = torch.zeros((side.rows, k), dtype=torch.float32, device=D.device)
-    if side.val.numel():
-        launch("coo_matmul", side.crow, side.col, side.val, D, out, side.rows, k)
-    return out
+    return csr_launch(side, D, k, CSR_STREAM_LOADS)
 
 
 def csr_mm(side: CSRSide, D):

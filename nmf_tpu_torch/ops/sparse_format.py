@@ -37,8 +37,10 @@ The binning is numpy on the host; the built arrays are tensors on ``device``.
 
 A general sparse X (a torch sparse tensor of any layout) needs no binning:
 ``SparseCSR`` keeps it as row-major CSR in both orientations on its device,
-with a map between the two orders of the entries, and its products run the
-band kernel over all of it (``ops/cuda/sparse.py``, ``csr_matmul``).
+with a map between the two orders of the entries and each row cut into
+pieces of at most ``CSR_PIECE_ENTRIES`` entries, so that its products
+(``ops/cuda/sparse.py``, ``csr_matmul``) share a long row among several warps
+and add the row's partial sums in a fixed order.
 """
 
 from __future__ import annotations
@@ -73,6 +75,8 @@ __all__ = [
     "from_bcoo",
     "CSRSide",
     "SparseCSR",
+    "CSR_PIECE_ENTRIES",
+    "csr_piece_index",
 ]
 
 _REFRESH_MAPS = ("perm", "inv", "qinv", "dense_nnz", "dense_slot", "coo_nnz")
@@ -88,6 +92,11 @@ _QPIECES = ("qpiece_ptr", "qpiece_panel", "qpiece_part", "qsplit_ptr",
 DENSE_PIECE_BLOCKS = 16
 _DPIECES = ("dpiece_ptr", "dpiece_panel", "dpiece_part", "dsplit_ptr",
             "dsplit_panel", "n_dparts")
+# entries one piece of a general sparse X's row holds at most (the sweep
+# behind the value: PERF.md, ``chip_smoke.py`` phase kernels_general_csr)
+CSR_PIECE_ENTRIES = 256
+CSR_PIECES = ("piece_ptr", "piece_row", "piece_part", "split_ptr", "split_row",
+              "n_parts")
 # what ``row_panel_index`` derives from the stored arrays
 INDEX_FIELDS = ("panel_ptr", "panel_chunks", "dpanel_ptr", "dpanel_blocks",
                 "qpanel_ptr", "qpanel_segs", "chunk_nreal", "qseg_nreal",
@@ -956,6 +965,47 @@ class CSRSide:
     src: torch.Tensor  # (nnz,) int64
     rows: int
     cols: int
+    # the rows cut into pieces (``csr_piece_index``): a piece's entries are
+    # ``piece_ptr[i]:piece_ptr[i+1]``; its partial sum's slot in the scratch
+    # is ``piece_part[i]`` (-1 for a row of one piece); a row of several
+    # pieces, ``split_row[s]``, owns the slots ``split_ptr[s]:split_ptr[s+1]``
+    piece_ptr: torch.Tensor  # (n_pieces + 1,) int32
+    piece_row: torch.Tensor  # (n_pieces,) int32
+    piece_part: torch.Tensor  # (n_pieces,) int32
+    split_ptr: torch.Tensor  # (n_split + 1,) int32
+    split_row: torch.Tensor  # (n_split,) int32
+    n_parts: int
+
+
+def csr_piece_index(crow, cap=CSR_PIECE_ENTRIES):
+    """Each row's entries ``crow[r]:crow[r+1]`` cut into pieces of at most
+    ``cap`` consecutive entries (the row's first ``cap``, its next ``cap``,
+    ...), built with torch operations on ``crow``'s device.  An empty row is
+    one empty piece, so every row has a piece and the pieces follow the
+    entries: piece i ends where piece i + 1 starts.  The pieces of a row of
+    several take consecutive slots for their partial sums, in piece order.
+    Returns the fields of ``CSR_PIECES`` as int32 tensors (``n_parts`` an
+    int)."""
+    if cap < 1:
+        raise ValueError(f"a piece holds at least one entry, got a cap of {cap}")
+    crow = crow.long()
+    dev = crow.device
+    per = torch.clamp(torch.div(crow.diff() + cap - 1, cap, rounding_mode="floor"),
+                      min=1)
+    ends = per.cumsum(0)
+    n_pieces = int(ends[-1]) if per.numel() else 0
+    piece_row = torch.repeat_interleave(torch.arange(per.numel(), device=dev), per,
+                                        output_size=n_pieces)
+    nth = torch.arange(n_pieces, device=dev) - (ends - per)[piece_row]
+    piece_ptr = torch.cat([crow[piece_row] + nth * cap, crow[-1:]])
+    split = per[piece_row] > 1
+    piece_part = torch.where(split, split.cumsum(0) - 1, -1)
+    split_row = torch.nonzero(per > 1).flatten()
+    split_ptr = torch.zeros(split_row.numel() + 1, dtype=torch.int64, device=dev)
+    split_ptr[1:] = per[split_row].cumsum(0)
+    i32 = lambda t: t.to(torch.int32)  # noqa: E731
+    return dict(zip(CSR_PIECES, (i32(piece_ptr), i32(piece_row), i32(piece_part),
+                                 i32(split_ptr), i32(split_row), int(split_ptr[-1]))))
 
 
 def _coalesced(X):
@@ -1020,7 +1070,8 @@ class SparseCSR:
             crow = torch.zeros(rows + 1, dtype=torch.int64, device=r.device)
             crow[1:] = torch.bincount(r, minlength=rows).cumsum(0)
             return CSRSide(crow.to(torch.int32), r.to(torch.int32),
-                           c.to(torch.int32), v.contiguous(), src, rows, cols)
+                           c.to(torch.int32), v.contiguous(), src, rows, cols,
+                           **csr_piece_index(crow))
 
         return cls(side(row, col, val, back, p, n),
                    side(col[order], row[order], val[order], order, n, p),
@@ -1052,7 +1103,7 @@ class SparseCSR:
 
     def with_values(self, new_values):
         """Same pattern, new values (CSR order): both orientations and the
-        stats are refreshed."""
+        stats are refreshed; the pieces stay."""
         new_values = new_values.contiguous()
         return dataclasses.replace(
             self,

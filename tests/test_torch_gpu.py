@@ -268,8 +268,8 @@ def test_mu_kernels_match_their_plain_versions_on_the_card(card, p, n, k):
         assert float(got) == pytest.approx(float(want), rel=1e-5)
         assert float(got) == float(fn(X, W, H))
     assert build.launch_counts() == dict(
-        chunk_matmul=0, dense_matmul=0, quad_matmul=0, coo_matmul=0, chunk_sddmm=0,
-        quad_sddmm=0, mu_factor_update=2, wtq=2, qht=2, dense_objective=4,
+        chunk_matmul=0, dense_matmul=0, quad_matmul=0, coo_matmul=0, csr_matmul=0,
+        chunk_sddmm=0, quad_sddmm=0, mu_factor_update=2, wtq=2, qht=2, dense_objective=4,
         projectnn=0, colsum=0, scale_cols=0)
 
 
@@ -989,9 +989,9 @@ def test_als_solvers_on_the_card_follow_the_cpu(card, alg):
 
 @pytest.mark.parametrize("k", [1, 9, 128, 460])
 def test_general_sparse_products_run_the_band_kernel(card, k):
-    """A torch CSR X on the card: ``mm`` / ``mtm`` through the band kernel
-    over every row (one launch a slab), against the plain version, the same
-    bits twice."""
+    """A torch CSR X on the card: ``mm`` / ``mtm`` through the general-CSR
+    kernel over the rows' pieces (one launch a slab; no launch of the band
+    kernel), against the plain version, the same bits twice."""
     from nmf_tpu_torch.ops import matops
 
     Xd = three_class_matrix(5)
@@ -1002,7 +1002,7 @@ def test_general_sparse_products_run_the_band_kernel(card, k):
     build.reset_launch_counts()
     got, got_t = matops.mm(X, D), matops.mtm(D2, X)
     slabs = -(-k // tsp.MAX_K)
-    assert build.launch_counts()["coo_matmul"] == 2 * slabs
+    assert build.launch_counts()["csr_matmul"] == 2 * slabs
     assert sum(build.launch_counts().values()) == 2 * slabs
     close(got, matops.mm(Xc, D.cpu()))
     close(got_t, matops.mtm(D2.cpu(), Xc))
@@ -1010,6 +1010,36 @@ def test_general_sparse_products_run_the_band_kernel(card, k):
     W, H = torch.rand(Xd.shape[0], 4, device=card), torch.rand(4, Xd.shape[1], device=card)
     close(matops.sddmm(W, H, X), matops.sddmm(W.cpu(), H.cpu(), Xc))
     close(matops.colsums(X), torch.from_numpy(Xd.sum(0)))
+
+
+@pytest.mark.parametrize("k", [4, 9, 128, 200])
+def test_general_csr_kernel_with_split_rows(card, k):
+    """Rows cut into pieces of at most 8 entries, so most rows split: the
+    general-CSR kernel against its plain version (which follows its order)
+    in float64, the same bits twice, in column slabs and with evict-first
+    loads too; rows of one piece equal the band kernel over ``crow`` bit for
+    bit."""
+    from nmf_tpu_torch.ops import matops
+    from nmf_tpu_torch.ops.sparse_format import csr_piece_index
+
+    Xd = three_class_matrix(5)
+    A = matops.as_operand(torch.from_numpy(Xd).to(card).to_sparse_csr())
+    for side in (A.fwd, A.bwd):
+        cut = dataclasses.replace(side, **csr_piece_index(side.crow, 8))
+        assert cut.n_parts > 0
+        D = torch.rand(side.cols, k, device=card)
+        build.reset_launch_counts()
+        got = tsp.csr_matmul(cut, D)
+        assert build.launch_counts()["csr_matmul"] == 1
+        close(got, tsp.csr_matmul_plain(cut, D.double()))
+        assert torch.equal(got, tsp.csr_matmul(cut, D))
+        for slab, stream in ((k, 1), (32, 0), (64, 1)):
+            assert torch.equal(got, tsp.csr_launch(cut, D, slab, stream))
+        band = torch.zeros(side.rows, k, device=card)
+        build.launch("coo_matmul", side.crow, side.col, side.val, D, band, side.rows, k)
+        short = side.crow.diff() <= 8
+        assert torch.equal(got[short], band[short])
+        assert torch.equal(tsp.csr_matmul(side, D), band)
 
 
 def test_float64_sparse_x_on_the_card_raises(card):

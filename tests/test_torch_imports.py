@@ -121,7 +121,7 @@ def test_build_lists_every_source_and_entry_point():
     on_disk = {p.name for p in build.CSRC.iterdir()}
     assert set(build.SOURCES) | set(build.HEADERS) == on_disk
     assert set(build.KERNELS) == {
-        "chunk_matmul", "dense_matmul", "quad_matmul", "coo_matmul",
+        "chunk_matmul", "dense_matmul", "quad_matmul", "coo_matmul", "csr_matmul",
         "chunk_sddmm", "quad_sddmm", "mu_factor_update", "wtq", "qht",
         "dense_objective", "projectnn", "colsum", "scale_cols"}
     for name in build.KERNELS:
