@@ -41,6 +41,16 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
   ``checkpoint``);
 * the matrix written as a Matrix Market file and read back through the
   port's loader, then ``nnmf`` on it (phase ``loader``);
+* the multi-device path (phase ``sharded``): the matrix cut by
+  ``shard_tiled`` into a 2 x 2 mesh of stores over one card (and a (1, 1)
+  mesh, whose products give the chunk store's bits), the build timed and
+  the blocks' loads reported; the mesh's products within ``REL_TOL`` of
+  the store's, the same bits twice, timed beside the store's; HALS to
+  relative error 0.84, 10 GreedyCD iterations, 5 KL sweeps and
+  ``nnmf(X, 128, mesh=mesh, maxiter=5)`` on the mesh beside the store's
+  runs; 5 HALS iterations and 5 KL sweeps on a quad-tail 2 x 2 mesh
+  against the quad store's; with more than one card, the same mesh shape
+  over distinct cards gives the one-card mesh's bits;
 * multiplicative updates on a dense 100,000 x 10,000 low-rank problem at rank
   64, and on the two small dense problems (500 x 500 rank 8 to relative
   error 0.010, 2000 x 1000 rank 32 to 0.020); ``nnmf`` with its defaults on
@@ -1495,10 +1505,11 @@ def _monotone(label, start, history):
             fail(f"{label}: objective rose {prev} -> {cur}")
 
 
-def _traced_run(label, X, k, alg, W0, H0, iters, xsq, monotone=True):
-    """``iters`` traced iterations of one solver through the front door, with
-    the launch counts of just this run; ``monotone`` holds its objective to
-    ``_monotone`` (else the history is recorded and its values held finite)."""
+def _traced_run(label, X, k, alg, W0, H0, iters, xsq, monotone=True, mesh=None):
+    """``iters`` traced iterations of one solver through the front door (on
+    ``mesh`` when one is given), with the launch counts of just this run;
+    ``monotone`` holds its objective to ``_monotone`` (else the history is
+    recorded and its values held finite)."""
     import nmf_tpu_torch as nt
     from nmf_tpu_torch.ops.cuda import build
     from nmf_tpu_torch.ops.objectives import kl_objective, mse_objective
@@ -1511,7 +1522,7 @@ def _traced_run(label, X, k, alg, W0, H0, iters, xsq, monotone=True):
     build.reset_launch_counts()
     t0 = time.perf_counter()
     res = nt.nnmf(X, k, alg=alg, init="custom", W0=W0, H0=H0, tol=1e-30,
-                  maxiter=iters, trace=True)
+                  maxiter=iters, trace=True, mesh=mesh)
     torch.cuda.synchronize()
     seconds = time.perf_counter() - t0
     launches = build.launch_counts()
@@ -2335,7 +2346,7 @@ def check_general_csr(A):
     return rec
 
 
-def _hals_to_target(X, W0, H0, upd, max_iters=60):
+def _hals_to_target(X, W0, H0, upd, max_iters=60, label="the general X"):
     """The resumable loop from ``(W0, H0)`` in chunks of 5, one relative-error
     read a chunk, to ``TARGET_RELERR``; exits when the target is missed."""
     from nmf_tpu_torch.models import common
@@ -2353,7 +2364,7 @@ def _hals_to_target(X, W0, H0, upd, max_iters=60):
         r = relerr_of(X, w, h, xsq)[1]
     torch.cuda.synchronize()
     if not r <= TARGET_RELERR:
-        fail(f"HALS on the general X: relative error {r} after {iters} iterations")
+        fail(f"HALS on {label}: relative error {r} after {iters} iterations")
     return {"iterations": iters, "seconds_to_target": time.perf_counter() - t0,
             "final_relerr": r}
 
@@ -2508,6 +2519,170 @@ def checkpoint_dense(Xd, Wd0, Hd0, tmp):
     out, _ = _checkpointed_against_plain(
         "alspgrad_ttt3", Xd, nt.ALSPGrad(maxiter=12, maxsubiter=20), W, H, 5, tmp)
     _need_launches("checkpoint alspgrad", out["launches"], ("dense_objective",))
+    return out
+
+
+def _shard(rows, cols, vals, mesh, **opts):
+    """``shard_tiled`` of the ttt4 matrix on ``mesh``, timed to the last
+    block on the card."""
+    from nmf_tpu_torch.ops.sparse_shard import shard_tiled
+
+    t0 = time.perf_counter()
+    X = shard_tiled(rows, cols, vals, (P, N), mesh, **opts)
+    torch.cuda.synchronize()
+    return X, time.perf_counter() - t0
+
+
+def _layout(X, seconds):
+    from nmf_tpu_torch.ops.sparse_shard import sharded_load_stats
+
+    st = sharded_load_stats(X)
+    return {"build_seconds": seconds, "block_nnz": X.block_nnz,
+            "local_shape": list(X.local_shape),
+            "imbalance_max_over_mean": st["imbalance_max_over_mean"],
+            **{key: st[key].tolist() for key in st if key.endswith("_nnz")
+               or key == "slots"}}
+
+
+def _sharded_products(Xm, X, W0, H0, label):
+    """The mesh's mm, mtm and sddmm at k = 128 against the store's, each
+    within ``REL_TOL`` of ``max|want|``, the same bits twice and timed beside
+    the store's (L2 flushed, median of 5)."""
+    from nmf_tpu_torch.ops import matops
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    W, H = torch.from_numpy(W0).cuda(), torch.from_numpy(H0).cuda()
+    out = {}
+    # the nnz vector's order is the blocks': both sides put in (row, col) order
+    by_entry = [torch.argsort(matops.row_indices(A).long() * N
+                              + matops.col_indices(A).long()) for A in (Xm, X)]
+    calls = {"sddmm": (lambda A, _: matops.sddmm(W, H, A), None)}
+    for name, fn, rows in (("mm", lambda A, d: matops.mm(A, d), N),
+                           ("mtm", lambda A, d: matops.mtm(d.T, A).T, P)):
+        calls[name] = (fn, torch.rand((rows, K), generator=gen, device="cuda"))
+    for name in ("mm", "mtm", "sddmm"):
+        fn, D = calls[name]
+        got, want = fn(Xm, D), fn(X, D)
+        if name == "sddmm":
+            got, want = got[by_entry[0]], want[by_entry[1]]
+        rec = _held(f"{label} {name}", got, want, REL_TOL)
+        rec.update(same_bits=_same_bits(f"{label} {name}", lambda: fn(Xm, D)),
+                   ms=time_ms(lambda: fn(Xm, D)), store_ms=time_ms(lambda: fn(X, D)))
+        out[name] = rec
+    return out
+
+
+def sharded_phase(rows, cols, vals, X, W0, H0, store_hals, quad_paths, general_paths):
+    """The multi-device path for a sparse X on one card: the ttt4 matrix
+    cut into a 2 x 2 mesh of stores over ``cuda:0`` (and a (1, 1) one),
+    built with the chunk store's options.  The (1, 1) mesh's products give
+    the store's bits; the 2 x 2 mesh's products stay within ``REL_TOL`` of
+    the store's and repeat bit for bit; HALS to the target, 10 GreedyCD
+    iterations, 5 KL sweeps and ``nnmf(X, 128, mesh=...)`` with its other
+    defaults run on the mesh, beside the store's runs from the same start; a
+    quad-tail 2 x 2 mesh runs 5 HALS iterations and 5 KL sweeps.  With more
+    than one card the same mesh shape over distinct cards gives the one-card
+    mesh's bits."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.models.coorddesc import CoordinateDescent
+    from nmf_tpu_torch.ops import matops
+    from nmf_tpu_torch.ops.cuda import build
+
+    opts = dict(dense_tile_nnz=192, coo_tail_nnz=3)
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    one, secs = _shard(rows, cols, vals, nt.make_mesh((1, 1), devices=["cuda:0"]), **opts)
+    out["mesh_1x1"] = _layout(one, secs)
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    for name, fn, n_rows in (("mm", lambda A, d: matops.mm(A, d), N),
+                             ("mtm", lambda A, d: matops.mtm(d.T, A).T, P)):
+        D = torch.rand((n_rows, K), generator=gen, device="cuda")
+        if not torch.equal(fn(one, D), fn(X, D)):
+            fail(f"sharded: the (1, 1) mesh's {name} differs from the store's")
+    out["mesh_1x1"]["store_bits"] = True
+    del one
+
+    mesh = nt.make_mesh((2, 2), devices=["cuda:0"] * 4)
+    Xm, secs = _shard(rows, cols, vals, mesh, **opts)
+    out["mesh_2x2"] = _layout(Xm, secs)
+    out["products"] = _sharded_products(Xm, X, W0, H0, "sharded 2x2")
+    xsq = float(Xm.stats[1])
+
+    build.reset_launch_counts()
+    hals = _hals_to_target(Xm, W0, H0,
+                           CoordinateDescent(maxiter=100)._resolved(torch.float32)[0],
+                           label="the 2 x 2 mesh")
+    hals["launches"] = build.launch_counts()
+    hals["store_iterations"] = store_hals["iterations"]
+    hals["store_seconds_to_target"] = store_hals["seconds_to_target"]
+    _need_launches("sharded hals", hals["launches"],
+                   ("chunk_matmul", "dense_matmul", "coo_matmul"))
+    out["hals"] = hals
+    greedy = _traced_run("sharded greedycd", Xm, K, "greedycd", W0, H0, 10, xsq, mesh=mesh)
+    _need_launches("sharded greedycd", greedy["launches"],
+                   ("chunk_matmul", "dense_matmul", "coo_matmul"))
+    out["greedycd"] = greedy
+    div = _traced_run("sharded multdiv", Xm, K, "multdiv", W0, H0, 5, xsq, mesh=mesh)
+    _need_launches("sharded multdiv", div["launches"],
+                   ("chunk_matmul", "dense_matmul", "coo_matmul", "chunk_sddmm"))
+    want = general_paths["multdiv"]["store_objvalue"]
+    div.update(store_objvalue=want,
+               rel_diff=abs(div["objective_history"][-1] - want) / abs(want))
+    if not div["rel_diff"] <= 1e-4:
+        fail(f"sharded multdiv: objective {div['objective_history'][-1]} on the "
+             f"mesh, {want} on the store")
+    out["multdiv"] = div
+    build.reset_launch_counts()
+    r = {}
+    res = _timed(r, "seconds", lambda: nt.nnmf(Xm, K, maxiter=5, mesh=mesh))
+    r["launches"] = build.launch_counts()
+    _result_ok("sharded nnmf(X, 128, mesh=mesh)", res, (P, K), (K, N))
+    want = general_paths["nnmf_defaults"]["store_objvalue"]
+    r.update(niters=res.niters, objvalue=res.objvalue, store_objvalue=want,
+             rel_diff=abs(res.objvalue - want) / abs(want))
+    if not math.isfinite(res.objvalue):
+        fail(f"sharded nnmf(X, 128, mesh=mesh): objective {res.objvalue}")
+    _need_launches("sharded nnmf defaults", r["launches"],
+                   ("chunk_matmul", "dense_matmul", "coo_matmul"))
+    out["nnmf_defaults"] = r
+    del res
+
+    if torch.cuda.device_count() > 1:
+        count = torch.cuda.device_count()
+        multi = nt.make_mesh((2, 2), devices=[f"cuda:{i % count}" for i in range(4)])
+        Xc, secs = _shard(rows, cols, vals, multi, **opts)
+        rec = _layout(Xc, secs)
+        rec["devices"] = [str(d) for d in multi.devices.reshape(-1)]
+        for name, fn, n_rows in (("mm", lambda A, d: matops.mm(A, d), N),
+                                 ("mtm", lambda A, d: matops.mtm(d.T, A).T, P)):
+            D = torch.rand((n_rows, K), generator=gen, device="cuda")
+            if not torch.equal(fn(Xc, D), fn(Xm, D)):
+                fail(f"sharded: {name} over {count} cards differs from one card's")
+            rec[f"{name}_ms"] = time_ms(lambda: fn(Xc, D))
+        kw = dict(alg="cd", init="custom", W0=W0, H0=H0, tol=1e-30, maxiter=5)
+        a = nt.nnmf(Xc, K, mesh=multi, **kw)
+        b = nt.nnmf(Xm, K, mesh=mesh, **kw)
+        _equal_results("sharded hals over several cards", a, b)
+        rec["one_card_bits"] = True
+        out["cards"] = rec
+        del Xc, a, b
+    del Xm
+    torch.cuda.empty_cache()
+
+    Xq, secs = _shard(rows, cols, vals, mesh, dense_tile_nnz=192, quad_tail_nnz=32)
+    out["quad_mesh_2x2"] = _layout(Xq, secs)
+    for alg, names in (("cd", ("chunk_matmul", "dense_matmul", "quad_matmul")),
+                       ("multdiv", ("chunk_matmul", "dense_matmul", "quad_matmul",
+                                    "chunk_sddmm", "quad_sddmm"))):
+        rec = _traced_run(f"sharded quad {alg}", Xq, K, alg, W0, H0, 5, xsq, mesh=mesh)
+        _need_launches(f"sharded quad {alg}", rec["launches"], names)
+        for a, b in zip(rec["objective_history"], quad_paths[alg]["objective_history"]):
+            if not abs(a - b) <= 1e-4 * abs(b):
+                fail(f"sharded quad {alg}: objective {a} on the mesh, {b} on the "
+                     "quad store")
+        out[f"quad_{alg}"] = rec
+    del Xq
+    out["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
     return out
 
 
@@ -2783,6 +2958,13 @@ def main():
     say("loader", shape=[P, N], k=K, card=smi, seconds=time.perf_counter() - t0,
         **loaded)
     torch.cuda.empty_cache()
+    # 4f. the multi-device path: the matrix cut into a 2 x 2 mesh of stores
+    t0 = time.perf_counter()
+    shards = sharded_phase(rows, cols, vals, X, W0, H0, solved, quad_paths,
+                           general_paths)
+    say("sharded", shape=[P, N], k=K, card=smi, seconds=time.perf_counter() - t0,
+        **shards)
+    torch.cuda.empty_cache()
 
     # 5. the second path: multiplicative updates on the same store
     mu_sparse = solve_mu_sparse(X, W0, H0)
@@ -2895,6 +3077,12 @@ def main():
            if "greedycd" in ckpt else {}),
         "checkpoint_alspgrad_ttt3": ckpt["alspgrad_ttt3"]["launches"],
         "loader_nnmf": loaded["launches"],
+        "sharded_hals": shards["hals"]["launches"],
+        "sharded_greedycd": shards["greedycd"]["launches"],
+        "sharded_multdiv": shards["multdiv"]["launches"],
+        "sharded_nnmf_defaults": shards["nnmf_defaults"]["launches"],
+        "sharded_quad_cd": shards["quad_cd"]["launches"],
+        "sharded_quad_multdiv": shards["quad_multdiv"]["launches"],
     }
     # the paths on the dense problem (kernel 10 at its factors' shapes)
     dense_paths = ["nnmf_defaults_dense", "ttt3_projals", "ttt3_alspgrad",

@@ -15,11 +15,15 @@ a randomized SVD, SPA, custom), on dense tensors, on the tiled sparse store
 (``ops.sparse_format.build_tiled``) and on a torch sparse tensor of any
 layout (``ops.sparse_format.SparseCSR``; ``io.loader.load_mtx`` reads Matrix
 Market files); ``solve_checkpointed`` snapshots a solve and resumes it bit
-for bit.  Entry points run on the card unless the caller passes
-``device="cpu"``.
+for bit.  ``nnmf(X, k, mesh=...)`` runs a sparse X over a device mesh
+(``parallel.mesh.make_mesh``; a 2 x 2 mesh may stand on one card): X is cut
+into one store a block (``ops.sparse_shard.shard_tiled``, placed by
+``parallel.sharding.shard_problem``), each block running the same kernels,
+and W and H stay on the mesh's lead device.  Entry points run on the card
+unless the caller passes ``device="cpu"``.
 """
 
-from . import config
+from . import config, parallel
 from .init.initialization import nndsvd, randinit
 from .models.alspgrad import ALSPGrad, alspgrad_updateh, alspgrad_updatew
 from .models.checkpoint import solve_checkpointed
@@ -34,6 +38,9 @@ from .ops.fnnls import fnnls, nnls_gram
 from .ops.linalg import pdrsolve, pdsolve
 from .ops.objectives import gkldiv, kl_objective, mse_objective, sqL2dist
 from .ops.rsvd import rsvd
+from .ops.sparse_shard import ShardedTiled, shard_tiled
+from .parallel.mesh import Mesh, make_mesh
+from .parallel.sharding import shard_problem
 from .utils.numeric import adddiag, normalize1, normalize1_cols, projectnn
 
 __version__ = "0.1.0"
@@ -73,4 +80,10 @@ __all__ = [
     "normalize1_cols",
     "projectnn",
     "config",
+    "parallel",
+    "Mesh",
+    "make_mesh",
+    "shard_problem",
+    "ShardedTiled",
+    "shard_tiled",
 ]

@@ -9,6 +9,11 @@ Every ``alg`` (``"projals"``, ``"alspgrad"``, ``"multmse"``, ``"multdiv"``,
 ``"cd"``, ``"greedycd"``, ``"spa"``) and every ``init`` (``"random"``,
 ``"nndsvd"``, ``"nndsvda"``, ``"nndsvdar"``, ``"spa"``, ``"custom"``) of the JAX
 package is dispatched as there.
+
+``mesh`` (``parallel.mesh.make_mesh``) runs the solve over a device mesh: the
+init runs on X as given, then a sparse X is cut into one store a block of the
+mesh (``parallel.sharding.shard_problem``) and W and H go to the mesh's lead
+device, where the solve runs.
 """
 
 from __future__ import annotations
@@ -33,6 +38,17 @@ __all__ = ["nnmf", "solve_replicates"]
 
 _ALGS = ("projals", "alspgrad", "multmse", "multdiv", "cd", "greedycd", "spa")
 _INITS = ("random", "nndsvd", "nndsvda", "nndsvdar", "spa", "custom")
+
+
+def _solve_device(device, mesh):
+    """The device a solve runs on: ``device``, which with a mesh must be
+    the mesh's lead device."""
+    dev = config.resolve_device(device)
+    if mesh is not None and not config.same_device(dev, mesh.lead):
+        raise ValueError(
+            f"device={str(dev)!r} but the mesh's lead device is {mesh.lead}: a "
+            "solve on a mesh runs on its lead device; pass device=mesh.lead")
+    return dev
 
 
 def _check_nonneg(A, name):
@@ -63,6 +79,7 @@ def nnmf(
     seed: int = 0,
     trace: bool = False,
     device=config.DEFAULT_DEVICE,
+    mesh=None,
 ) -> Result:
     """Non-negative matrix factorization: ``X (p x n) ~ W (p x k) @ H (k x n)``.
 
@@ -71,8 +88,10 @@ def nnmf(
     ``TiledCSR`` or ``SparseCSR`` built on ``device``.  ``generator`` (a CPU ``torch.Generator``; seeded
     from ``seed`` when not given) drives every random draw.  ``initdata``
     hands the NNDSVD inits their singular triplets (see ``nndsvd``).
+    With ``mesh``, ``device`` must be the mesh's lead device (``mesh.lead``)
+    and X sparse, or a ``ShardedTiled`` built on ``mesh``.
     """
-    dev = config.resolve_device(device)
+    dev = _solve_device(device, mesh)
     X = matops.as_operand(X, dev)
     if matops.is_sparse(X):
         config.check_on_device(dev, X=matops.device_probe(X))
@@ -132,6 +151,11 @@ def nnmf(
     else:
         W, H = W0, H0
 
+    if mesh is not None:
+        from ..parallel.sharding import shard_problem
+
+        X, W, H = shard_problem(mesh, X, W, H)
+
     opts = dict(maxiter=maxiter, tol=float(tol), verbose=verbose, update_H=update_H)
     if alg == "projals":
         alginst = ProjectedALS(**opts)
@@ -149,19 +173,20 @@ def nnmf(
         alginst = CoordinateDescent(generator=gshuf, **opts)
     return solve_replicates(
         alginst, X, W, H, replicates=replicates, initH=initH, generator=grep,
-        trace=trace, device=dev,
+        trace=trace, device=dev, mesh=mesh,
     )
 
 
 @config.precision_scope()
 def solve_replicates(
     alginst, X, W, H, *, replicates: int, initH: bool, generator=None,
-    trace: bool = False, device=config.DEFAULT_DEVICE,
+    trace: bool = False, device=config.DEFAULT_DEVICE, mesh=None,
 ) -> Result:
     """Multi-start policy: solve once from the requested init, then
     ``replicates - 1`` solves, one after the other, from fresh normalized
-    random inits, keeping the minimum-objective Result."""
-    dev = config.resolve_device(device)
+    random inits, keeping the minimum-objective Result.  With ``mesh``, each
+    restart's init is drawn as without one and placed on ``mesh.lead``."""
+    dev = _solve_device(device, mesh)
     X = matops.as_operand(X)
     k = W.shape[1]
     ret = solve(alginst, X, W, H, trace, device=dev)
@@ -173,6 +198,10 @@ def solve_replicates(
         Wr, Hr = randinit(
             X, k, zeroh=not initH, normalize=True, generator=sub, device=dev
         )
+        if mesh is not None:
+            from ..parallel.sharding import shard_problem
+
+            _, Wr, Hr = shard_problem(mesh, X, Wr, Hr)
         tmp = solve(alginst, X, Wr, Hr, device=dev)
         if ret.objvalue > tmp.objvalue:
             ret = tmp

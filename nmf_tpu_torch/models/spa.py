@@ -89,7 +89,7 @@ def _store_columns(X, ai):
     slot[uniq] = torch.arange(uniq.numel(), device=ai.device)
     at = slot[matops.col_indices(X).long()]
     keep = at >= 0
-    rows = X.row_idx.long()[keep]
+    rows = matops.row_indices(X).long()[keep]
     Wu = torch.zeros((p, uniq.numel()), dtype=X.dtype, device=ai.device)
     Wu[rows, at[keep]] = matops.nnz_values(X)[keep].to(X.dtype)
     return Wu[:, inv]

@@ -1,18 +1,21 @@
-"""Matrix-product seam over dense tensors, the tiled sparse store and a
-general sparse X.
+"""Matrix-product seam over dense tensors, the tiled sparse store, a
+general sparse X and the sharded store.
 
 Every solver routes its X-products and X-reductions through these functions,
 so any X supported here works in every solver: a dense ``torch.Tensor``, a
 ``TiledCSR`` or a ``SparseCSR`` (``ops/sparse_format.py``), whose products
 and sampled product run the hand-written kernels of ``ops/cuda/sparse.py``
-on the card.  A torch sparse tensor of any layout becomes a ``SparseCSR`` at
-the front door (``as_operand``), once.
+on the card, or a ``ShardedTiled`` (``ops/sparse_shard.py``), a grid of
+stores over a device mesh whose blocks run the same kernels.  A torch sparse
+tensor of any layout becomes a ``SparseCSR`` at the front door
+(``as_operand``), once.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import sparse_shard as shard
 from .sparse_format import SparseCSR, TiledCSR
 
 __all__ = [
@@ -20,7 +23,9 @@ __all__ = [
     "is_sparse",
     "is_general",
     "is_tiled",
+    "is_sharded_tiled",
     "col_indices",
+    "row_indices",
     "mm",
     "mtm",
     "sddmm",
@@ -47,8 +52,13 @@ def is_general(X) -> bool:
     return isinstance(X, SparseCSR)
 
 
+def is_sharded_tiled(X) -> bool:
+    """True for the sharded store (``ShardedTiled``)."""
+    return isinstance(X, shard.ShardedTiled)
+
+
 def is_sparse(X) -> bool:
-    return is_tiled(X) or is_general(X)
+    return is_tiled(X) or is_general(X) or is_sharded_tiled(X)
 
 
 def as_operand(X, device=None):
@@ -63,7 +73,11 @@ def as_operand(X, device=None):
 
 
 def device_probe(X):
-    """A tensor that lives where X lives (X itself when dense)."""
+    """A tensor that lives where X lives (X itself when dense; the lead
+    block's values for the sharded store, whose products land on the lead
+    device)."""
+    if is_sharded_tiled(X):
+        return X.blocks[0][0].fwd.vals
     if is_tiled(X):
         return X.fwd.vals
     return X.fwd.val if is_general(X) else X
@@ -85,6 +99,8 @@ def mm(X, D):
         from .cuda.sparse import csr_mm
 
         return csr_mm(X.fwd, D)
+    if is_sharded_tiled(X):
+        return shard.sharded_mm(X, D).to(D.dtype)
     return X @ D
 
 
@@ -99,6 +115,8 @@ def mtm(D, X):
 
         # (X' D')' on X's transposed orientation: no transpose of X
         return csr_mm(X.bwd, D.T).T
+    if is_sharded_tiled(X):
+        return shard.sharded_mtm(X, D.T).T.to(D.dtype)
     return D @ X
 
 
@@ -123,6 +141,8 @@ def sddmm(W, H, X):
         from .cuda.sparse import csr_sample
 
         return csr_sample(X.fwd, W, H)
+    if is_sharded_tiled(X):
+        return shard.sharded_sddmm(X, W, H)
     if not is_tiled(X):
         raise TypeError("sddmm needs a sparse X")
     ri = _slim_guard(X, "row_idx", "sddmm").long()
@@ -137,12 +157,16 @@ def scale_values(X, new_values):
     """Sparse X with the same pattern but new values."""
     if not is_sparse(X):
         raise TypeError("scale_values needs a sparse X")
+    if is_sharded_tiled(X):
+        return shard.sharded_scale_values(X, new_values)
     return X.with_values(new_values)
 
 
 def nnz_values(X):
     if not is_sparse(X):
         raise TypeError("nnz_values needs a sparse X")
+    if is_sharded_tiled(X):
+        return shard.sharded_nnz_values(X)
     return _slim_guard(X, "values", "nnz_values")
 
 
@@ -208,4 +232,16 @@ def col_indices(X):
     (sparse only)."""
     if not is_sparse(X):
         raise TypeError("col_indices needs a sparse X")
+    if is_sharded_tiled(X):
+        return shard.sharded_col_ids(X)
     return _slim_guard(X, "col_idx", "col_indices")
+
+
+def row_indices(X):
+    """Row index of each stored value, aligned with ``nnz_values(X)``
+    (sparse only)."""
+    if not is_sparse(X):
+        raise TypeError("row_indices needs a sparse X")
+    if is_sharded_tiled(X):
+        return shard.sharded_row_ids(X)
+    return _slim_guard(X, "row_idx", "row_indices")

@@ -295,7 +295,8 @@ class TiledCSR:
             fwd=refresh(self.fwd),
             bwd=refresh(self.bwd),
             values=new_values,
-            stats=torch.stack([v32.sum(), (v32 * v32).sum(), v32.min()]),
+            stats=torch.stack([v32.sum(), (v32 * v32).sum(),
+                               v32.min() if v32.numel() else v32.new_zeros(())]),
         )
 
     def transpose(self):

@@ -1065,3 +1065,75 @@ def test_checkpointed_solve_on_the_card_keeps_the_bits(card, tmp_path):
     plain = nt.solve(alg, X, W, H)
     ck = nt.solve_checkpointed(alg, X, W, H, checkpoint_dir=str(tmp_path), checkpoint_every=4)
     assert ck == plain and torch.equal(ck.W, plain.W)
+
+
+def test_sharded_products_on_one_card_run_the_kernels(card):
+    """A 2 x 2 mesh over one card: the blocks run the store's kernels (all
+    four classes), the products stay within float32 rounding of the plain
+    versions on a CPU mesh, and a (1, 1) mesh gives the store's bits."""
+    from nmf_tpu_torch.ops import matops
+
+    Xd = four_class_matrix()
+    r, c, v = coo_of(Xd)
+    on = {dev: nt.shard_tiled(r, c, v, Xd.shape, nt.make_mesh((2, 2), devices=[dev] * 4),
+                              **QUAD_BUILD) for dev in (card, "cpu")}
+    D = torch.rand(Xd.shape[1], 9)
+    W, H = torch.rand(Xd.shape[0], 9), torch.rand(9, Xd.shape[1])
+    build.reset_launch_counts()
+    close(matops.mm(on[card], D.to(card)), matops.mm(on["cpu"], D))
+    close(matops.mtm(W.T.to(card), on[card]), matops.mtm(W.T, on["cpu"]))
+    close(matops.sddmm(W.to(card), H.to(card), on[card]), matops.sddmm(W, H, on["cpu"]))
+    counts = build.launch_counts()
+    assert all(counts[name] for name in ("chunk_matmul", "dense_matmul", "quad_matmul",
+                                         "coo_matmul", "chunk_sddmm", "quad_sddmm")), counts
+    one = nt.shard_tiled(r, c, v, Xd.shape, nt.make_mesh((1, 1), devices=[card]),
+                         **QUAD_BUILD)
+    store = build_tiled(r, c, v, Xd.shape, device=card, **QUAD_BUILD)
+    assert torch.equal(matops.mm(one, D.to(card)), matops.mm(store, D.to(card)))
+
+
+def test_sharded_solve_on_one_card_follows_the_cpu(card):
+    Xd = three_class_matrix()
+    r, c, v = coo_of(Xd)
+    rng = np.random.default_rng(3)
+    W0 = rng.random((Xd.shape[0], 4), dtype=np.float32)
+    H0 = rng.random((4, Xd.shape[1]), dtype=np.float32)
+    kw = dict(alg="multdiv", init="custom", W0=W0, H0=H0, maxiter=5)
+    res = {}
+    for dev in (card, "cpu"):
+        mesh = nt.make_mesh((2, 2), devices=[dev] * 4)
+        X = nt.shard_tiled(r, c, v, Xd.shape, mesh, **BUILD)
+        res[dev] = nt.nnmf(X, 4, mesh=mesh, device=mesh.lead, **kw)
+    assert res[card].niters == res["cpu"].niters
+    close(res[card].W, res["cpu"].W, rtol=2e-4, scale=1e-4)
+    assert math.isclose(res[card].objvalue, res["cpu"].objvalue, rel_tol=1e-5)
+
+
+def test_sharded_mesh_over_several_cards_gives_the_one_card_bits(card):
+    """The same 2 x 2 mesh shape over distinct cards (blocks moved between
+    cards, partials added on the lead card in the same order) gives the bits
+    of the mesh over one card: products, sampled product and five HALS
+    iterations."""
+    from nmf_tpu_torch.ops import matops
+
+    count = torch.cuda.device_count()
+    if count < 2:
+        pytest.skip("needs two or more CUDA devices")
+    Xd = four_class_matrix()
+    r, c, v = coo_of(Xd)
+    meshes = [nt.make_mesh((2, 2), devices=devs) for devs in (
+        ["cuda:0"] * 4, [f"cuda:{i % count}" for i in range(4)])]
+    X = [nt.shard_tiled(r, c, v, Xd.shape, m, **QUAD_BUILD) for m in meshes]
+    assert {b.device for row in X[1].blocks for b in row} == {
+        torch.device("cuda", i) for i in range(min(count, 4))}
+    D = torch.rand(Xd.shape[1], 9, device="cuda:0")
+    W = torch.rand(Xd.shape[0], 9, device="cuda:0")
+    H = torch.rand(9, Xd.shape[1], device="cuda:0")
+    assert torch.equal(matops.mm(X[0], D), matops.mm(X[1], D))
+    assert torch.equal(matops.mtm(W.T, X[0]), matops.mtm(W.T, X[1]))
+    assert torch.equal(matops.sddmm(W, H, X[0]), matops.sddmm(W, H, X[1]))
+    rng = np.random.default_rng(4)
+    kw = dict(alg="cd", init="custom", W0=rng.random((Xd.shape[0], 4), dtype=np.float32),
+              H0=rng.random((4, Xd.shape[1]), dtype=np.float32), maxiter=5)
+    a, b = (nt.nnmf(x, 4, mesh=m, **kw) for x, m in zip(X, meshes))
+    assert torch.equal(a.W, b.W) and torch.equal(a.H, b.H)

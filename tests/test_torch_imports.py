@@ -42,12 +42,15 @@ MODULES = [
     "nmf_tpu_torch.ops.objectives",
     "nmf_tpu_torch.ops.rsvd",
     "nmf_tpu_torch.ops.sparse_format",
+    "nmf_tpu_torch.ops.sparse_shard",
     "nmf_tpu_torch.ops.tsqr",
     "nmf_tpu_torch.ops.cuda.build",
     "nmf_tpu_torch.ops.cuda.elementwise",
     "nmf_tpu_torch.ops.cuda.mu",
     "nmf_tpu_torch.ops.cuda.objectives",
     "nmf_tpu_torch.ops.cuda.sparse",
+    "nmf_tpu_torch.parallel.mesh",
+    "nmf_tpu_torch.parallel.sharding",
     "nmf_tpu_torch.utils.dtypes",
     "nmf_tpu_torch.utils.numeric",
 ]
@@ -194,6 +197,9 @@ def _entry_points(tmp):
             checkpoint_dir=f"{tmp}/ck{next(steps)}", **kw),
         "nnmf_sparse_csr": lambda **kw: nt.nnmf(Xs, 3, alg="cd", init="random",
                                                 maxiter=1, **kw),
+        "nnmf_mesh": lambda **kw: nt.nnmf(
+            Xt, 3, alg="cd", init="random", maxiter=1,
+            mesh=nt.make_mesh((1, 2), devices=["cpu"] * 2), **kw),
         "to_bcoo": lambda **kw: loader.to_bcoo(coo, **kw),
         "from_bcoo": lambda **kw: from_bcoo(Xs, **kw),
         "sparse_from_numpy": lambda **kw: convert.sparse_from_numpy(

@@ -90,6 +90,8 @@ def _entry_points(tmp=None):
         "solve_replicates": lambda: nt.solve_replicates(
             cd, Xt, W, H, replicates=2, initH=True, device="cpu"),
         "nndsvd": lambda: nt.nndsvd(Xt, 3, variant="ar", device="cpu"),
+        "nnmf_mesh": lambda: nt.nnmf(Xt, 3, maxiter=2, device="cpu",
+                                     mesh=nt.make_mesh((1, 2), devices=["cpu"] * 2)),
         "rsvd": lambda: nt.rsvd(X, 3, device="cpu"),
     }
 
