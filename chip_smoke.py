@@ -51,6 +51,23 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
   runs; 5 HALS iterations and 5 KL sweeps on a quad-tail 2 x 2 mesh
   against the quad store's; with more than one card, the same mesh shape
   over distinct cards gives the one-card mesh's bits;
+* batched restarts (phase ``replicates_batched``): one store product of
+  width 4 x 128 against four of width 128 (each column's bits, both
+  times); ``nnmf(X, 128, alg=..., init="random", replicates=...,
+  parallel_replicates=True)`` against the restarts one after the other for
+  HALS (5, 25 iterations), GreedyCD (4, 5; its masked-step host reads
+  counted both ways) and the KL updates (3, 5; the sequential bits), each
+  lane against its sequential restart, the store's kernels at the batch's
+  width; HALS (4, 10) and ALS projected gradient (3, 2) on the dense
+  problem below (phase ``replicates_batched_dense``);
+* the dense problem below cut into a 2 x 2 mesh of dense blocks over one
+  card and a (1, 1) one (phase ``sharded_dense``): the products, kernels 8
+  and 9 and both objectives a block against the whole X's (the (1, 1)
+  mesh's bits the whole X's), the same bits twice, timed beside them;
+  kernels 8, 9 and 6 at a block's shape against their plain versions; 10
+  KL and 10 MSE sweeps and 5 HALS iterations beside the whole X's,
+  ``nnmf(Xd, 64, mesh=mesh, maxiter=20)`` and three restarts of the MSE
+  updates as one batch on the mesh;
 * multiplicative updates on a dense 100,000 x 10,000 low-rank problem at rank
   64, and on the two small dense problems (500 x 500 rank 8 to relative
   error 0.010, 2000 x 1000 rank 32 to 0.020); ``nnmf`` with its defaults on
@@ -91,6 +108,7 @@ card the script fails at once.  The last line is
 from __future__ import annotations
 
 import contextlib
+import itertools
 import json
 import math
 import pathlib
@@ -1351,7 +1369,8 @@ def counted_masked_steps(active_sums=False):
         return step(W, c, active, *a)
 
     def counted_rows(W, *a):
-        log.append([W.shape[0], 0, torch.zeros((), dtype=torch.int64, device="cuda")])
+        log.append([W.shape[:-1].numel(), 0,
+                    torch.zeros((), dtype=torch.int64, device="cuda")])
         return rows_fn(W, *a)
 
     G._masked_step, G._greedy_rows = counted_step, counted_rows
@@ -2686,6 +2705,335 @@ def sharded_phase(rows, cols, vals, X, W0, H0, store_hals, quad_paths, general_p
     return out
 
 
+@contextlib.contextmanager
+def recorded_restarts():
+    """Records, while the block runs, what each restart of ``nnmf`` gives:
+    every ``solve`` of ``solve_replicates`` (the first solve, then the
+    sequential loop's restarts), the lanes of ``solve_lanes`` (the batch),
+    and the width of every product over a store.  Recording adds no work."""
+    from nmf_tpu_torch.models import interface, replicates
+    from nmf_tpu_torch.ops.cuda import sparse as S
+
+    rec = {"solves": [], "lanes": [], "widths": []}
+    saved = interface.solve, replicates.solve_lanes, S.tiled_mm, S.tiled_mtm
+
+    def solve(*a, **kw):
+        rec["solves"].append(saved[0](*a, **kw))
+        return rec["solves"][-1]
+
+    def lanes(*a, **kw):
+        rec["lanes"].extend(saved[1](*a, **kw))
+        return rec["lanes"]
+
+    def widths(fn):
+        return lambda X, D: (rec["widths"].append(D.shape[1]), fn(X, D))[1]
+
+    interface.solve, replicates.solve_lanes = solve, lanes
+    S.tiled_mm, S.tiled_mtm = widths(saved[2]), widths(saved[3])
+    try:
+        yield rec
+    finally:
+        interface.solve, replicates.solve_lanes, S.tiled_mm, S.tiled_mtm = saved
+
+
+def restarts_each_way(label, X, k, kw, objective_tol, same_bits=False):
+    """``nnmf(X, k, **kw)`` with its restarts one after the other, then as
+    one batch (``parallel_replicates=True``): the seconds each way, the
+    batched run's launches, product widths and peak memory, and each lane
+    against its sequential restart: the same iteration count and flag, the
+    objective within ``objective_tol`` (the same bits with ``same_bits``),
+    and which solve won.  GreedyCD's masked steps (one host read each) are
+    counted both ways."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.cuda import build
+
+    out = {}
+    with recorded_restarts() as seq_rec, counted_masked_steps() as seq_steps:
+        seq = _timed(out, "sequential_seconds", lambda: nt.nnmf(X, k, **kw))
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launch_counts()
+    with recorded_restarts() as par_rec, counted_masked_steps() as par_steps:
+        par = _timed(out, "batched_seconds",
+                     lambda: nt.nnmf(X, k, parallel_replicates=True, **kw))
+    out["launches"] = build.launch_counts()
+    out["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    _result_ok(label, par, tuple(seq.W.shape), tuple(seq.H.shape))
+    first, restarts = seq_rec["solves"][0], seq_rec["solves"][1:]
+    lanes = par_rec["lanes"]
+    if not (len(par_rec["solves"]) == 1
+            and len(lanes) == len(restarts) == kw["replicates"] - 1):
+        fail(f"{label}: {len(par_rec['solves'])} solves and {len(lanes)} lanes in the "
+             f"batched run, {len(restarts)} restarts in the sequential one")
+    per_lane = []
+    for i, ((W, H, niters, conv, objv), res) in enumerate(zip(lanes, restarts)):
+        objv = float(objv)
+        rec = {"niters": niters, "sequential_niters": res.niters, "converged": conv,
+               "sequential_converged": res.converged, "objvalue": objv,
+               "sequential_objvalue": res.objvalue,
+               "rel_diff": abs(objv - res.objvalue) / abs(res.objvalue),
+               "same_bits": torch.equal(W, res.W) and torch.equal(H, res.H)}
+        if (niters, conv) != (res.niters, res.converged):
+            fail(f"{label} lane {i}: {niters} iterations, converged {conv}; its "
+                 f"sequential restart {res.niters}, {res.converged}")
+        if not rec["rel_diff"] <= objective_tol or (same_bits and not rec["same_bits"]):
+            fail(f"{label} lane {i}: objective {objv}, its sequential restart "
+                 f"{res.objvalue} (same bits {rec['same_bits']})")
+        per_lane.append(rec)
+    def winner(res, objs):
+        won = [i for i, o in enumerate(objs) if o == res.objvalue < first.objvalue]
+        return f"restart {won[0]}" if won else "first solve"
+
+    out.update(
+        lanes=per_lane, first_objvalue=first.objvalue, objvalue=par.objvalue,
+        sequential_objvalue=seq.objvalue,
+        winner=winner(par, [r["objvalue"] for r in per_lane]),
+        sequential_winner=winner(seq, [r.objvalue for r in restarts]),
+        same_result_as_sequential=par == seq,
+        product_widths=sorted(set(par_rec["widths"])))
+    if seq_steps:  # GreedyCD: the first solve's half-steps come first both ways
+        first_half_steps = 2 * first.niters
+        # a batched half-step steps until its slowest row is done: its reads
+        # should be the most any lane's restart took at that half-step
+        at, by_restart = first_half_steps, []
+        for res in restarts:
+            by_restart.append([n for _, n, _ in seq_steps[at:at + 2 * res.niters]])
+            at += 2 * res.niters
+        out["host_reads"] = {
+            "slowest_lane": sum(max(col) for col in itertools.zip_longest(
+                *by_restart, fillvalue=0)),
+            "sequential": sum(n for _, n, _ in seq_steps),
+            "batched": sum(n for _, n, _ in par_steps),
+            "sequential_restarts": sum(n for _, n, _ in seq_steps[first_half_steps:]),
+            "batched_restarts": sum(n for _, n, _ in par_steps[first_half_steps:]),
+            "first_solve": sum(n for _, n, _ in seq_steps[:first_half_steps])}
+    return out
+
+
+def wide_products(X, r=4, k=K):
+    """One store product of width ``r * k`` against ``r`` of width ``k``:
+    whether each column keeps its bits, and the times (L2 flushed, median
+    of 5); the wide product also with its columns cut into narrower slabs
+    than ``MAX_K`` (``wide_ms_by_slab``: a measurement, the package cuts at
+    ``MAX_K``), and a product's time at other widths (``ms_by_width``)."""
+    from nmf_tpu_torch.ops import matops
+    from nmf_tpu_torch.ops.cuda import sparse as S
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    out = {}
+    for name, fn, rows in (("mm", lambda d: matops.mm(X, d), N),
+                           ("mtm", lambda d: matops.mtm(d.T, X).T, P)):
+        D = torch.rand((rows, r * k), generator=gen, device="cuda")
+        parts = [D[:, i * k:(i + 1) * k].contiguous() for i in range(r)]
+        wide = fn(D)
+        same = [torch.equal(wide[:, i * k:(i + 1) * k], fn(d)) for i, d in enumerate(parts)]
+        rec = {"same_bits_by_lane": same, "width": r * k, "max_k": S.MAX_K,
+               "wide_ms": time_ms(lambda: fn(D)),
+               f"{r}_narrow_ms": time_ms(lambda: [fn(d) for d in parts]),
+               "narrow_ms": time_ms(lambda: fn(parts[0])),
+               "ms_by_width": {w: time_ms(lambda: fn(D[:, :w].contiguous()))
+                               for w in (32, 64, 256, 384, S.MAX_K)},
+               "wide_ms_by_slab": {}}
+        rec["wide_over_narrow"] = rec["wide_ms"] / rec["narrow_ms"]
+        try:
+            for slab in (64, 128, 256):
+                S.MAX_K = slab
+                if not torch.equal(fn(D), wide):
+                    fail(f"wide_products {name}: slabs of {slab} changed the bits")
+                rec["wide_ms_by_slab"][slab] = time_ms(lambda: fn(D))
+        finally:
+            S.MAX_K = rec["max_k"]
+        out[name] = rec
+    return out
+
+
+def lanes_iteration_parts(X, r=4):
+    """Where a batched iteration goes, against ``r`` single-lane ones from
+    the same normalised random starts, on the renumbered store: each
+    half-step of Fast-HALS and GreedyCD as one batch and as ``r`` calls of
+    the single-lane half-step, by events (L2 flushed, median of 3), and the
+    host's time to enqueue the batched HALS half-steps (no synchronize
+    after them)."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.init.initialization import child_generators
+    from nmf_tpu_torch.models import common
+    from nmf_tpu_torch.models import coorddesc as C
+    from nmf_tpu_torch.models import greedycd as G
+
+    starts = [nt.randinit(X, K, normalize=True, generator=g)
+              for g in child_generators(torch.Generator().manual_seed(31), r)]
+    Xr, Ws, Hs, _ = common.renumbered_problem(
+        X, torch.stack([w for w, _ in starts]), torch.stack([h for _, h in starts]))
+    Xt = Xr.transpose()
+    Wt, Ht = Ws.transpose(1, 2), Hs.transpose(1, 2)
+    halves = {
+        "hals_W": (lambda: C._halfstep_lanes(Xr, Ws, Hs, 0.0, 0.0, range(K)),
+                   lambda: [C._halfstep(Xr, Ws[i], Hs[i], 0.0, 0.0, range(K))
+                            for i in range(r)]),
+        "hals_H": (lambda: C._halfstep_lanes(Xt, Ht, Wt, 0.0, 0.0, range(K)),
+                   lambda: [C._halfstep(Xt, Ht[i], Wt[i], 0.0, 0.0, range(K))
+                            for i in range(r)]),
+        "greedycd_W": (lambda: G._halfstep_lanes(Xr, Ws, Ht, 0.0),
+                       lambda: [G._halfstep(Xr, Ws[i], Ht[i], 0.0) for i in range(r)]),
+        "greedycd_H": (lambda: G._halfstep_lanes(Xt, Ht, Ws, 0.0),
+                       lambda: [G._halfstep(Xt, Ht[i], Ws[i], 0.0) for i in range(r)]),
+    }
+    parts = {"lanes": r}
+    for name, (batched, single) in halves.items():
+        parts[f"{name}_batched_ms"] = time_ms(batched, reps=3)
+        parts[f"{name}_{r}_single_ms"] = time_ms(single, reps=3)
+        if name.startswith("hals"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            batched()
+            parts[f"{name}_batched_enqueue_ms"] = (time.perf_counter() - t0) * 1e3
+            torch.cuda.synchronize()
+        if name.endswith("_W"):
+            parts[f"{name}_batched_device"] = device_profile(batched)
+            parts[f"{name}_{r}_single_device"] = device_profile(single)
+    return parts
+
+
+def device_profile(fn, top=6):
+    """One run of ``fn`` under ``torch.profiler``: the device's busy
+    milliseconds (the kernels' own times summed) beside the wall time, and
+    the kernels that took most of them.  "not measured" where the profiler
+    reports no device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    # the kernels' own rows (the operators' rows would count them again)
+    own = [(e.key, getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    own = sorted((r for r in own if r[1] > 0), key=lambda r: -r[1])
+    if not own:
+        return {"device_ms": "not measured", "wall_ms": wall}
+    busy = sum(ms for _, ms, _ in own)
+    return {"device_ms": busy, "wall_ms": wall, "idle_share": 1 - busy / wall,
+            "top": [{"kernel": k[:80], "ms": ms, "count": n} for k, ms, n in own[:top]]}
+
+
+def replicates_phase(X):
+    """Batched restarts on the ttt4 chunk store at k 128: the wide products,
+    HALS (5 replicates, 25 iterations), GreedyCD (4, 5) and the KL updates
+    (3, 5), each run one restart after the other and as one batch; HALS and
+    GreedyCD must run kernels 1, 2 and the band at the batch's width."""
+    out = {"products": wide_products(X), "iteration_parts": lanes_iteration_parts(X)}
+    for name, kw, tol, width, same in (
+        ("hals", dict(alg="cd", init="random", replicates=5, maxiter=25), 1e-4, 4 * K, False),
+        ("greedycd", dict(alg="greedycd", init="random", replicates=4, maxiter=5),
+         1e-2, 3 * K, False),
+        ("multdiv", dict(alg="multdiv", init="random", replicates=3, maxiter=5), 0.0,
+         None, True),
+    ):
+        rec = restarts_each_way(f"replicates_batched {name}", X, K, kw, tol, same)
+        if width is not None:
+            if width not in rec["product_widths"]:
+                fail(f"replicates_batched {name}: no product of width {width}: "
+                     f"{rec['product_widths']}")
+            _need_launches(f"replicates_batched {name}", rec["launches"],
+                           ("chunk_matmul", "dense_matmul", "coo_matmul"))
+        out[name] = rec
+    return out
+
+
+def sharded_dense_phase(Xd, Wd0, Hd0, mu_dense, dense_defaults):
+    """The dense ttt3 problem on a 2 x 2 mesh over one card and on a (1, 1)
+    one: the products, the divergence sweep's quotient products (kernels 8
+    and 9 a block) and both objectives (kernel 6 a block) within
+    ``REL_TOL`` of the whole X's, the same bits twice, timed beside the whole
+    X's; the (1, 1) mesh's the whole X's bits; 10 KL and 10 MSE sweeps and 5
+    HALS iterations on the mesh beside the whole X's; ``nnmf(Xd, 64,
+    mesh=mesh, maxiter=20)`` against the whole X's objective; three
+    restarts of the MSE updates as one batch on the mesh."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops import matops
+    from nmf_tpu_torch.ops.cuda import build
+    from nmf_tpu_torch.ops.objectives import kl_objective, mse_objective
+    from nmf_tpu_torch.utils.dtypes import sqrt_eps
+
+    torch.cuda.reset_peak_memory_stats()
+    out = {}
+    one = nt.shard_dense(Xd, nt.make_mesh((1, 1), devices=["cuda:0"]))
+    mesh = nt.make_mesh((2, 2), devices=["cuda:0"] * 4)
+    Xm = _timed(out, "cut_seconds", lambda: nt.shard_dense(Xd, mesh))
+    out["block_shapes"] = [list(b.shape) for row in Xm.blocks for b in row]
+    W, H = torch.from_numpy(Wd0).cuda(), torch.from_numpy(Hd0).cuda()
+    gen = torch.Generator(device="cuda").manual_seed(29)
+    D = torch.rand((DN, DK), generator=gen, device="cuda")
+    D2 = torch.rand((DP, DK), generator=gen, device="cuda")
+    delta = sqrt_eps(torch.float32)
+    calls = {"mm": lambda A: matops.mm(A, D), "mtm": lambda A: matops.mtm(D2.T, A),
+             "wtq": lambda A: matops.wtq(A, W, H, delta),
+             "qht": lambda A: matops.qht(A, W, H, delta),
+             "mse_objective": lambda A: mse_objective(A, W, H),
+             "kl_objective": lambda A: kl_objective(A, W, H)}
+    products = {}
+    for name, fn in calls.items():
+        want = fn(Xd)
+        rec = _held(f"sharded_dense {name}", fn(Xm).reshape(-1), want.reshape(-1), REL_TOL)
+        if not torch.equal(fn(one), want):
+            fail(f"sharded_dense: the (1, 1) mesh's {name} differs from the whole X's")
+        rec.update(same_bits=_same_bits(f"sharded_dense {name}", lambda: fn(Xm)),
+                   one_by_one_bits=True, ms=time_ms(lambda: fn(Xm)),
+                   whole_ms=time_ms(lambda: fn(Xd)))
+        products[name] = rec
+    out["products"] = products
+    del one
+    # kernels 8, 9 and 6 at a block's shape, against their plain versions
+    b, wb, hb = Xm.blocks[0][0], W[:Xm.row_cuts[1]], H[:, :Xm.col_cuts[1]].contiguous()
+    block = f"block {b.shape[0]}x{b.shape[1]} k={DK}"
+    out["block_kernels"] = {**check_quotients(b, wb, hb, block, timed=True),
+                            "dense_objective": check_objective(b, wb, hb, block, True)}
+
+    xsq = float((Xd * Xd).sum(dtype=torch.float64))
+    for alg, iters, names in (("multdiv", 10, ("wtq", "qht", "dense_objective")),
+                              ("multmse", 10, ("mu_factor_update", "dense_objective")),
+                              ("cd", 5, ("dense_objective",))):
+        rec = _traced_run(f"sharded_dense {alg}", Xm, DK, alg, Wd0, Hd0, iters, xsq,
+                          mesh=mesh)
+        _need_launches(f"sharded_dense {alg}", rec["launches"], names)
+        whole = (mu_dense[alg]["objective_history"] if alg in mu_dense else
+                 _traced_run(f"dense {alg}", Xd, DK, alg, Wd0, Hd0, iters,
+                             xsq)["objective_history"])
+        rec["whole_objective_history"] = whole
+        for a, w in zip(rec["objective_history"], whole):
+            if not abs(a - w) <= 1e-4 * abs(w):
+                fail(f"sharded_dense {alg}: objective {a} on the mesh, {w} on the whole X")
+        out[alg] = rec
+    build.reset_launch_counts()
+    r = {}
+    res = _timed(r, "seconds", lambda: nt.nnmf(Xd, DK, maxiter=20, mesh=mesh))
+    r["launches"] = build.launch_counts()
+    _result_ok("sharded_dense nnmf(Xd, 64, mesh=mesh)", res, (DP, DK), (DK, DN))
+    want = dense_defaults["objvalue"]
+    r.update(niters=res.niters, objvalue=res.objvalue, whole_objvalue=want,
+             rel_diff=abs(res.objvalue - want) / abs(want))
+    if not r["rel_diff"] <= 1e-2:
+        fail(f"sharded_dense nnmf: objective {res.objvalue}, the whole X's {want}")
+    _need_launches("sharded_dense nnmf defaults", r["launches"],
+                   ("projectnn", "dense_objective"))
+    out["nnmf_defaults"] = r
+    del res
+    rec = restarts_each_way(
+        "sharded_dense replicates", Xm, DK,
+        dict(alg="multmse", init="random", replicates=3, maxiter=8, mesh=mesh), 0.0,
+        same_bits=True)
+    _need_launches("sharded_dense replicates", rec["launches"],
+                   ("mu_factor_update", "dense_objective", "colsum", "scale_cols"))
+    out["replicates"] = rec
+    out["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    del Xm
+    return out
+
+
 def loader_phase(rows, cols, vals, tmp):
     """The ttt4 matrix written as a Matrix Market file (``scipy.io.mmwrite``)
     and read back through the port's loader: ``load_mtx``, ``coo_to_csr``,
@@ -2965,6 +3313,12 @@ def main():
     say("sharded", shape=[P, N], k=K, card=smi, seconds=time.perf_counter() - t0,
         **shards)
     torch.cuda.empty_cache()
+    # 4g. batched restarts on the store (the dense problem's part in 6)
+    t0 = time.perf_counter()
+    restarts = replicates_phase(X)
+    say("replicates_batched", shape=[P, N], k=K, card=smi,
+        seconds=time.perf_counter() - t0, **restarts)
+    torch.cuda.empty_cache()
 
     # 5. the second path: multiplicative updates on the same store
     mu_sparse = solve_mu_sparse(X, W0, H0)
@@ -3023,6 +3377,26 @@ def main():
     say("solve_mu_dense", shape=[DP, DN], k=DK, card=smi, **mu_dense)
     dense_defaults = solve_defaults_dense(Xd)
     say("solve_defaults_dense", shape=[DP, DN], k=DK, card=smi, **dense_defaults)
+    # batched restarts on the dense problem: HALS, and ALS projected
+    # gradient, whose lanes step one after the other (the sequential bits):
+    # what a width-batched updater for it would have to save
+    t0 = time.perf_counter()
+    restarts["dense_hals"] = restarts_each_way(
+        "replicates_batched dense hals", Xd, DK,
+        dict(alg="cd", init="random", replicates=4, maxiter=10), 1e-4)
+    restarts["dense_alspgrad"] = restarts_each_way(
+        "replicates_batched dense alspgrad", Xd, DK,
+        dict(alg="alspgrad", init="random", replicates=3, maxiter=2), 0.0,
+        same_bits=True)
+    say("replicates_batched_dense", shape=[DP, DN], k=DK, card=smi,
+        seconds=time.perf_counter() - t0, dense_hals=restarts["dense_hals"],
+        dense_alspgrad=restarts["dense_alspgrad"])
+    # the dense problem cut into a 2 x 2 mesh of blocks over one card
+    t0 = time.perf_counter()
+    sharded_dense = sharded_dense_phase(Xd, Wd0, Hd0, mu_dense, dense_defaults)
+    say("sharded_dense", shape=[DP, DN], k=DK, card=smi,
+        seconds=time.perf_counter() - t0, **sharded_dense)
+    torch.cuda.empty_cache()
     # ttt3: projected ALS and ALS projected gradient to relative error 0.0125
     t0 = time.perf_counter()
     als_dense = solve_projals_alspgrad_dense(Xd, Wd0, Hd0)
@@ -3083,12 +3457,27 @@ def main():
         "sharded_nnmf_defaults": shards["nnmf_defaults"]["launches"],
         "sharded_quad_cd": shards["quad_cd"]["launches"],
         "sharded_quad_multdiv": shards["quad_multdiv"]["launches"],
+        "replicates_batched_hals": restarts["hals"]["launches"],
+        "replicates_batched_greedycd": restarts["greedycd"]["launches"],
+        "replicates_batched_multdiv": restarts["multdiv"]["launches"],
+        "replicates_batched_dense_hals": restarts["dense_hals"]["launches"],
+        "replicates_batched_dense_alspgrad": restarts["dense_alspgrad"]["launches"],
+        "sharded_dense_multdiv": sharded_dense["multdiv"]["launches"],
+        "sharded_dense_multmse": sharded_dense["multmse"]["launches"],
+        "sharded_dense_hals": sharded_dense["cd"]["launches"],
+        "sharded_dense_nnmf_defaults": sharded_dense["nnmf_defaults"]["launches"],
+        "sharded_dense_replicates": sharded_dense["replicates"]["launches"],
     }
     # the paths on the dense problem (kernel 10 at its factors' shapes)
+    # the dense X on the 2 x 2 mesh: kernels 6, 8 and 9 on its blocks
+    block_paths = ["sharded_dense_multdiv", "sharded_dense_multmse",
+                   "sharded_dense_hals", "sharded_dense_nnmf_defaults",
+                   "sharded_dense_replicates"]
     dense_paths = ["nnmf_defaults_dense", "ttt3_projals", "ttt3_alspgrad",
                    "ttt3_projals_traced", "ttt3_alspgrad_traced",
                    "nnmf_projals_dense", "nnmf_alspgrad_dense",
-                   "checkpoint_alspgrad_ttt3"]
+                   "checkpoint_alspgrad_ttt3", "replicates_batched_dense_hals",
+                   "replicates_batched_dense_alspgrad", *block_paths]
     csrc = "nmf_tpu_torch/csrc/"
     pallas = "nmf_tpu/ops/pallas/"
     # name: (source, TPU kernel, the records that make up one use of the kernel)
@@ -3118,15 +3507,28 @@ def main():
     # above: each shape's times and its paths' launches beside the sums
     dense_shape = f"dense_{DP}x{DN}_k{DK}"
     not_in = lambda *names: [q for q in paths if q not in names]  # noqa: E731
+    block_kernels = sharded_dense["block_kernels"]
+    bp, bn = sharded_dense["block_shapes"][0]
+    block_shape = f"dense_2x2_block_{bp}x{bn}_k{DK}"
     by_shape = {
         "mu_factor_update": {
             dense_shape: (dense["mu_factor_update"], not_in("ttt1")),
             "ttt1_500x500_k8": (small_paths["ttt1"]["mu_factor_update"], ["ttt1"]),
         },
         **{name: {
-            dense_shape: ({"": dense[name]}, not_in("ttt2")),
+            dense_shape: ({"": dense[name]}, not_in("ttt2", *block_paths)),
             "ttt2_2000x1000_k32": ({"": small_paths["ttt2"][name]}, ["ttt2"]),
+            block_shape: ({"": block_kernels[name]}, block_paths),
         } for name in ("wtq", "qht")},
+        "dense_objective": {
+            dense_shape: (dense["dense_objective"], not_in(*block_paths)),
+            block_shape: (block_kernels["dense_objective"], block_paths),
+        },
+        # the normalised random starts: ttt4's W, and the dense problem's
+        **{name: {
+            f"ttt4_{P}x{K}": ({"": ew[f"{P}x{K}"][name]}, not_in(*dense_paths)),
+            f"dense_{DP}x{DK}": ({"": ew[f"{DP}x{DK}"][name]}, dense_paths),
+        } for name in ("colsum", "scale_cols")},
         "projectnn": {
             f"ttt4_{P}x{K}_{N}x{K}": ({"W": ew[f"{P}x{K}"]["projectnn"],
                                       "H": ew[f"{N}x{K}"]["projectnn"]},

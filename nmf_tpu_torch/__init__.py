@@ -15,12 +15,15 @@ a randomized SVD, SPA, custom), on dense tensors, on the tiled sparse store
 (``ops.sparse_format.build_tiled``) and on a torch sparse tensor of any
 layout (``ops.sparse_format.SparseCSR``; ``io.loader.load_mtx`` reads Matrix
 Market files); ``solve_checkpointed`` snapshots a solve and resumes it bit
-for bit.  ``nnmf(X, k, mesh=...)`` runs a sparse X over a device mesh
-(``parallel.mesh.make_mesh``; a 2 x 2 mesh may stand on one card): X is cut
-into one store a block (``ops.sparse_shard.shard_tiled``, placed by
-``parallel.sharding.shard_problem``), each block running the same kernels,
-and W and H stay on the mesh's lead device.  Entry points run on the card
-unless the caller passes ``device="cpu"``.
+for bit.  ``nnmf(X, k, mesh=...)`` runs X over a device mesh
+(``parallel.mesh.make_mesh``; a 2 x 2 mesh may stand on one card): a sparse
+X is cut into one store a block (``ops.sparse_shard.shard_tiled``), a dense
+one into dense blocks (``ops.dense_shard.shard_dense``), both placed by
+``parallel.sharding.shard_problem``, each block running the same kernels,
+and W and H stay on the mesh's lead device.  ``nnmf(...,
+parallel_replicates=True)`` runs the random restarts as the lanes of one
+lockstep solve (``models.replicates``).  Entry points run on the card unless
+the caller passes ``device="cpu"``.
 """
 
 from . import config, parallel
@@ -37,6 +40,7 @@ from .models.spa import SPA, separable_data, spa
 from .ops.fnnls import fnnls, nnls_gram
 from .ops.linalg import pdrsolve, pdsolve
 from .ops.objectives import gkldiv, kl_objective, mse_objective, sqL2dist
+from .ops.dense_shard import ShardedDense, shard_dense
 from .ops.rsvd import rsvd
 from .ops.sparse_shard import ShardedTiled, shard_tiled
 from .parallel.mesh import Mesh, make_mesh
@@ -86,4 +90,6 @@ __all__ = [
     "shard_problem",
     "ShardedTiled",
     "shard_tiled",
+    "ShardedDense",
+    "shard_dense",
 ]

@@ -121,7 +121,7 @@ def nndsvd(X, k: int, *, zeroh: bool = False, variant: str = "std",
     ``ar`` draw.  ``X`` and the device as for ``rsvd``."""
     dev = config.resolve_device(device)
     X = matops.as_operand(X, dev)
-    if matops.is_sparse(X):
+    if matops.is_structured(X):
         config.check_on_device(dev, X=matops.device_probe(X))
         dt = matops.device_probe(X).dtype
     else:

@@ -240,7 +240,7 @@ def _checked(X, W, H, device):
     dev = config.resolve_device(device)
     X = matops.as_operand(X)
     config.check_on_device(dev, X=matops.device_probe(X), W=W, H=H)
-    return X if matops.is_sparse(X) else X.contiguous()
+    return matops.contiguous(X)
 
 
 @config.precision_scope()

@@ -221,8 +221,7 @@ def solve_checkpointed(alg, X, W, H, *, checkpoint_dir: str,
     dev = config.resolve_device(device)
     X = matops.as_operand(X)
     config.check_on_device(dev, X=matops.device_probe(X), W=W, H=H)
-    if not matops.is_sparse(X):
-        X = X.contiguous()
+    X = matops.contiguous(X)
     nmf_checksize(X, W, H)
     upd, tol = alg._resolved(W.dtype)
     impl = _impl_for(upd)

@@ -34,6 +34,7 @@ __all__ = [
     "stop_condition",
     "nmf_skeleton",
     "register_solver",
+    "register_batched",
     "renumbered_problem",
     "unrenumber",
     "solve",
@@ -170,6 +171,20 @@ def register_solver(options_cls, *, prepare, update, objective,
     return options_cls
 
 
+# Width-batched updaters (``models/replicates.py``): options type ->
+# ``update(upd, state, X, Ws, Hs) -> (Ws, Hs, state)``
+_BATCHED: dict[type, Callable[..., Any]] = {}
+
+
+def register_batched(options_cls, *, update):
+    """Register a width-batched updater beside a solver's own: ``update``
+    steps m lanes at once, ``Ws`` ``(m, p, k)`` and ``Hs`` ``(m, k, n)``
+    stacked and row-major, and returns them so.  The lanes run in lockstep,
+    so they share the one state that the solver's ``prepare`` gives."""
+    _BATCHED[options_cls] = update
+    return options_cls
+
+
 def _impl_for(upd) -> SolverImpl:
     try:
         return _IMPLS[type(upd)]
@@ -248,10 +263,11 @@ def renumbered_problem(X, W, H):
         X, row_perm=None, row_rank=None, col_perm=None, col_rank=None, **coo
     )
     # W'[sorted] = W[row_perm[sorted]]; H'[:, sorted] = H[:, col_perm[sorted]]
+    # (W and H may carry a leading dimension of lanes)
     return (
         Xr,
-        W.index_select(0, perms[0].long()),
-        H.index_select(1, perms[2].long()),
+        W.index_select(-2, perms[0].long()),
+        H.index_select(-1, perms[2].long()),
         perms,
     )
 
@@ -259,7 +275,7 @@ def renumbered_problem(X, W, H):
 def unrenumber(W, H, perms):
     """Inverse of :func:`renumbered_problem` on the factors:
     ``W[orig] = W'[row_rank[orig]]``."""
-    return W.index_select(0, perms[1].long()), H.index_select(1, perms[3].long())
+    return W.index_select(-2, perms[1].long()), H.index_select(-1, perms[3].long())
 
 
 @config.precision_scope()
@@ -336,7 +352,5 @@ def solve(alg, X, W, H, trace: bool = False, *,
     config.check_on_device(
         dev, X=matops.device_probe(X), W=W, H=H
     )
-    if not matops.is_sparse(X):
-        # the dense kernels read X row-major; a strided view is copied once
-        X = X.contiguous()
-    return alg._solve(X, W, H, trace)
+    # the dense kernels read X row-major; a strided view is copied once
+    return alg._solve(matops.contiguous(X), W, H, trace)

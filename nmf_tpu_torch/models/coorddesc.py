@@ -19,7 +19,7 @@ import torch
 from ..ops import matops
 from ..ops.objectives import mse_objective
 from ..utils.dtypes import cbrt_eps
-from .common import Result, nmf_skeleton, register_solver
+from .common import Result, nmf_skeleton, register_batched, register_solver
 
 __all__ = ["CoordinateDescent"]
 
@@ -123,9 +123,75 @@ def _update(upd: CoordinateDescent, state, X, W, H):
     return W, H, (gen,)
 
 
+def _halfstep_lanes(X, W, H, l1, l2, perm):
+    """``_halfstep`` of m lanes at once: ``W`` ``(m, rows, k)``, ``H``
+    ``(m, k, cols)``; every lane visits the components in ``perm``.  X
+    enters once, through one product of width ``m * k``; the Grams are taken
+    lane by lane.  A column step takes each lane's gradient with the
+    ``torch.addmv`` of ``_halfstep`` (a matrix-vector product streams the
+    lane's W once, and keeps its bits), then steps column c of every lane in
+    one batch; a lane whose Hessian entry is 0 keeps that column.  Returns a
+    new tensor with ``W``'s layout."""
+    m, rows, k = W.shape
+    eye = torch.eye(k, dtype=W.dtype, device=W.device)
+    HHt = torch.stack([h @ h.T + l2 * eye for h in H])
+    XHt = (matops.mm(X, H.permute(2, 0, 1).reshape(H.shape[2], m * k)) - l1
+           ).view(rows, m, k).transpose(0, 1)
+    hess_t = torch.diagonal(HHt, dim1=1, dim2=2)
+    # one host read per half-step: a lane's component with a zero Hessian
+    # keeps its column
+    hess = hess_t.tolist()
+    # ``_halfstep`` divides by a Python float, which torch applies on the
+    # card as a multiply by its float32 reciprocal and on the CPU as a
+    # division: the lanes do the same with their own entries
+    safe = torch.where(hess_t == 0, 1, hess_t)
+    if W.is_cuda:
+        recip = safe.reciprocal()
+        scale = lambda g, c: g.mul_(recip[:, c : c + 1])  # noqa: E731
+    else:
+        scale = lambda g, c: g.div_(safe[:, c : c + 1])  # noqa: E731
+    W = W.clone()
+    grad = W.new_empty((m, rows))
+    for c in perm:
+        zero = [hess[lane][c] == 0 for lane in range(m)]
+        if all(zero):
+            continue
+        # grad[l, i] = sum_r HHt[l, r, c] * W[l, i, r] - XHt[l, i, c]
+        for lane in range(m):
+            torch.addmv(XHt[lane, :, c], W[lane], HHt[lane, :, c], beta=-1,
+                        out=grad[lane])
+        col = W[:, :, c]
+        if any(zero):
+            keep = torch.tensor(zero, device=W.device)[:, None]
+            col.copy_(torch.where(keep, col, (col - scale(grad, c)).clamp_min(0)))
+        else:
+            col.sub_(scale(grad, c)).clamp_min_(0)
+    return W
+
+
+def _update_lanes(upd: CoordinateDescent, state, X, W, H):
+    """One sweep of every lane (``W`` ``(m, p, k)``, ``H`` ``(m, k, n)``),
+    the lanes at one iteration, so all draw the one permutation that
+    ``_update`` would draw there."""
+    (gen,) = state
+    k = W.shape[2]
+    l1W, l2W, l1H, l2H = _regsplit(upd)
+    if upd.shuffle:
+        permW = torch.randperm(k, generator=gen).tolist()
+        permH = torch.randperm(k, generator=gen).tolist()
+    else:
+        permW = permH = range(k)
+    W = _halfstep_lanes(X, W, H, l1W, l2W, permW)
+    if upd.update_H:
+        H = _halfstep_lanes(matops.transpose(X), H.transpose(1, 2),
+                            W.transpose(1, 2), l1H, l2H, permH).transpose(1, 2)
+    return W, H, (gen,)
+
+
 def _objective(upd: CoordinateDescent, state, X, W, H):
     return mse_objective(X, W, H)
 
 
 register_solver(CoordinateDescent, prepare=_prepare, update=_update,
                 objective=_objective, renumber_safe=True)
+register_batched(CoordinateDescent, update=_update_lanes)

@@ -11,9 +11,14 @@ Every ``alg`` (``"projals"``, ``"alspgrad"``, ``"multmse"``, ``"multdiv"``,
 package is dispatched as there.
 
 ``mesh`` (``parallel.mesh.make_mesh``) runs the solve over a device mesh: the
-init runs on X as given, then a sparse X is cut into one store a block of the
-mesh (``parallel.sharding.shard_problem``) and W and H go to the mesh's lead
-device, where the solve runs.
+init runs on X as given, then X is cut into one block a device of the mesh
+(``parallel.sharding.shard_problem``: a store a block for a sparse X, a dense
+block for a dense one) and W and H go to the mesh's lead device, where the
+solve runs.
+
+``parallel_replicates`` runs the ``replicates - 1`` random restarts as the
+lanes of one lockstep solve (``models/replicates.py``) instead of one after
+the other: the same starts, and each lane stops where its own solve would.
 """
 
 from __future__ import annotations
@@ -32,6 +37,7 @@ from .coorddesc import CoordinateDescent
 from .greedycd import GreedyCD
 from .multupd import MultUpdate
 from .projals import ProjectedALS
+from .replicates import solve_replicates_batched
 from .spa import SPA, spa
 
 __all__ = ["nnmf", "solve_replicates"]
@@ -52,10 +58,7 @@ def _solve_device(device, mesh):
 
 
 def _check_nonneg(A, name):
-    if matops.is_sparse(A):
-        ok = bool(matops.all_nonneg(A))
-    else:
-        ok = bool((A >= 0).all())
+    ok = bool(matops.all_nonneg(A))
     if not ok:
         raise ValueError(f"The elements of {name} must be non-negative.")
 
@@ -80,6 +83,7 @@ def nnmf(
     trace: bool = False,
     device=config.DEFAULT_DEVICE,
     mesh=None,
+    parallel_replicates: bool = False,
 ) -> Result:
     """Non-negative matrix factorization: ``X (p x n) ~ W (p x k) @ H (k x n)``.
 
@@ -88,12 +92,14 @@ def nnmf(
     ``TiledCSR`` or ``SparseCSR`` built on ``device``.  ``generator`` (a CPU ``torch.Generator``; seeded
     from ``seed`` when not given) drives every random draw.  ``initdata``
     hands the NNDSVD inits their singular triplets (see ``nndsvd``).
-    With ``mesh``, ``device`` must be the mesh's lead device (``mesh.lead``)
-    and X sparse, or a ``ShardedTiled`` built on ``mesh``.
+    With ``mesh``, ``device`` must be the mesh's lead device (``mesh.lead``);
+    X may also be a ``ShardedTiled`` or ``ShardedDense`` built on ``mesh``.
+    ``parallel_replicates`` runs the restarts as one batch
+    (``solve_replicates(..., parallel=True)``).
     """
     dev = _solve_device(device, mesh)
     X = matops.as_operand(X, dev)
-    if matops.is_sparse(X):
+    if matops.is_structured(X):
         config.check_on_device(dev, X=matops.device_probe(X))
     else:
         # the dense kernels read X row-major; a strided view is copied once
@@ -173,7 +179,7 @@ def nnmf(
         alginst = CoordinateDescent(generator=gshuf, **opts)
     return solve_replicates(
         alginst, X, W, H, replicates=replicates, initH=initH, generator=grep,
-        trace=trace, device=dev, mesh=mesh,
+        trace=trace, device=dev, mesh=mesh, parallel=parallel_replicates,
     )
 
 
@@ -181,11 +187,18 @@ def nnmf(
 def solve_replicates(
     alginst, X, W, H, *, replicates: int, initH: bool, generator=None,
     trace: bool = False, device=config.DEFAULT_DEVICE, mesh=None,
+    parallel: bool = False,
 ) -> Result:
     """Multi-start policy: solve once from the requested init, then
-    ``replicates - 1`` solves, one after the other, from fresh normalized
-    random inits, keeping the minimum-objective Result.  With ``mesh``, each
-    restart's init is drawn as without one and placed on ``mesh.lead``."""
+    ``replicates - 1`` solves from fresh normalized random inits, keeping the
+    minimum-objective Result.  With ``mesh``, each restart's init is drawn as
+    without one and placed on ``mesh.lead``.
+
+    ``parallel=True`` runs the restarts as the lanes of one lockstep solve
+    (``models/replicates.py``) from the starts the sequential loop draws;
+    its best replaces the first solve only when its objective is strictly
+    lower.  A solver with no iterative path (SPA) takes the sequential
+    loop."""
     dev = _solve_device(device, mesh)
     X = matops.as_operand(X)
     k = W.shape[1]
@@ -194,6 +207,12 @@ def solve_replicates(
         return ret
     if generator is None:
         generator = torch.Generator().manual_seed(0)
+    if parallel:
+        best = solve_replicates_batched(
+            alginst, X, k, replicates - 1, initH=initH, generator=generator,
+            device=dev, mesh=mesh)
+        if best is not None:
+            return best if best.objvalue < ret.objvalue else ret
     for sub in child_generators(generator, replicates - 1):
         Wr, Hr = randinit(
             X, k, zeroh=not initH, normalize=True, generator=sub, device=dev

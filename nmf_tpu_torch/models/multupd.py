@@ -7,7 +7,8 @@
   memory hot spot.  For a sparse X it is a sampled product at X's pattern
   (``matops.sddmm``) and a value refresh of the store; for a dense float32 X
   on the card the kernels of ``ops/cuda/mu.py`` form it tile by tile and it
-  never reaches device memory.  The MSE factor steps of such an X go through
+  never reaches device memory (``matops.wtq`` / ``qht``; a dense X on a mesh
+  runs them a block at a time).  The MSE factor steps of such an X go through
   ``mu_factor_update``, which keeps ``G @ F`` inside the kernel.
 * Tensors on the CPU and float64 take the plain expressions.
 """
@@ -124,9 +125,9 @@ def _update_div(upd: MultUpdate, state, X, W, H):
     # the divergence objective floors the regularizers at sqrt(eps(T))
     lam_w = max(float(upd.lambda_w), delta)
     lam_h = max(float(upd.lambda_h), delta)
-    use_kernels = matops.is_dense_f32_on_card(X)
-    if use_kernels:
-        from ..ops.cuda.mu import qht, wtq
+    # kernels 8 and 9 on the card; a ShardedDense takes them (or their plain
+    # versions on the CPU) a block at a time
+    use_kernels = matops.is_dense_f32_on_card(X) or matops.is_sharded_dense(X)
 
     def quotient(W, H):
         # for sparse X this is a sampled product at X's pattern (0/y = 0) and
@@ -138,14 +139,14 @@ def _update_div(upd: MultUpdate, state, X, W, H):
 
     if upd.update_H:
         if use_kernels:
-            WtQ = wtq(X, W, H, delta)
+            WtQ = matops.wtq(X, W, H, delta)
         else:
             WtQ = matops.mtm(W.T, quotient(W, H))
         sW = W.sum(dim=0)  # (k,)
         H = H * (WtQ / (sW[:, None] + lam_h))
 
     if use_kernels:
-        QHt = qht(X, W, H, delta)
+        QHt = matops.qht(X, W, H, delta)
     else:
         QHt = matops.mm(quotient(W, H), H.T)
     sH = H.sum(dim=1)  # (k,)

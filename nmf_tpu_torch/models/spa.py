@@ -105,6 +105,11 @@ def spa(X, k: int, *, device=config.DEFAULT_DEVICE):
     X = matops.as_operand(X)
     config.check_on_device(dev, X=matops.device_probe(X))
     k = int(k)
+    if matops.is_sharded_dense(X):
+        raise ValueError(
+            "spa takes a whole dense X, or a sparse one: a dense X cut over a "
+            "mesh keeps no column whole on one device; run spa on X before it "
+            "is cut (nnmf(X, k, init='spa', mesh=...) does)")
     if matops.is_sparse(X):
         W = _store_columns(X, _spa_anchors_sparse(X, k))
     else:

@@ -241,7 +241,7 @@ def fnnls(A, B, *, precise: bool = True, cascade: bool | None = None,
         work = torch.float64 if precise else dt
         Aw = A.to(work)
         AtA = Aw.T @ Aw
-        if matops.is_sparse(B):
+        if matops.is_structured(B):
             AtB = matops.mtm(A.T, B).to(work)
         else:
             AtB = Aw.T @ B.to(work)

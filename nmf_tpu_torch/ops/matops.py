@@ -5,16 +5,18 @@ Every solver routes its X-products and X-reductions through these functions,
 so any X supported here works in every solver: a dense ``torch.Tensor``, a
 ``TiledCSR`` or a ``SparseCSR`` (``ops/sparse_format.py``), whose products
 and sampled product run the hand-written kernels of ``ops/cuda/sparse.py``
-on the card, or a ``ShardedTiled`` (``ops/sparse_shard.py``), a grid of
-stores over a device mesh whose blocks run the same kernels.  A torch sparse
-tensor of any layout becomes a ``SparseCSR`` at the front door
-(``as_operand``), once.
+on the card, a ``ShardedTiled`` (``ops/sparse_shard.py``), a grid of
+stores over a device mesh whose blocks run the same kernels, or a
+``ShardedDense`` (``ops/dense_shard.py``), a grid of dense blocks whose
+blocks run the dense kernels.  A torch sparse tensor of any layout becomes a
+``SparseCSR`` at the front door (``as_operand``), once.
 """
 
 from __future__ import annotations
 
 import torch
 
+from . import dense_shard as dshard
 from . import sparse_shard as shard
 from .sparse_format import SparseCSR, TiledCSR
 
@@ -24,10 +26,15 @@ __all__ = [
     "is_general",
     "is_tiled",
     "is_sharded_tiled",
+    "is_sharded_dense",
+    "is_structured",
+    "contiguous",
     "col_indices",
     "row_indices",
     "mm",
     "mtm",
+    "wtq",
+    "qht",
     "sddmm",
     "scale_values",
     "sq_norm",
@@ -57,8 +64,25 @@ def is_sharded_tiled(X) -> bool:
     return isinstance(X, shard.ShardedTiled)
 
 
+def is_sharded_dense(X) -> bool:
+    """True for a dense X cut over a mesh (``ShardedDense``)."""
+    return isinstance(X, dshard.ShardedDense)
+
+
 def is_sparse(X) -> bool:
     return is_tiled(X) or is_general(X) or is_sharded_tiled(X)
+
+
+def is_structured(X) -> bool:
+    """True for every X that is no plain tensor: a sparse X or a
+    ``ShardedDense``."""
+    return is_sparse(X) or is_sharded_dense(X)
+
+
+def contiguous(X):
+    """A plain tensor made row-major (the dense kernels read X so; a strided
+    view is copied once); any other X as it is."""
+    return X if is_structured(X) else X.contiguous()
 
 
 def as_operand(X, device=None):
@@ -78,6 +102,8 @@ def device_probe(X):
     device)."""
     if is_sharded_tiled(X):
         return X.blocks[0][0].fwd.vals
+    if is_sharded_dense(X):
+        return X.blocks[0][0]
     if is_tiled(X):
         return X.fwd.vals
     return X.fwd.val if is_general(X) else X
@@ -85,8 +111,13 @@ def device_probe(X):
 
 def is_dense_f32_on_card(X) -> bool:
     """True for the X the dense kernels (``ops/cuda/mu.py``,
-    ``ops/cuda/objectives.py``) take: a dense float32 tensor on the card."""
-    return not is_sparse(X) and X.is_cuda and X.dtype == torch.float32
+    ``ops/cuda/objectives.py``) take: a dense float32 tensor on the card, or
+    a ``ShardedDense`` of such blocks (which takes them a block at a
+    time)."""
+    if is_sparse(X):
+        return False
+    probe = device_probe(X)
+    return probe.is_cuda and probe.dtype == torch.float32
 
 
 def mm(X, D):
@@ -101,6 +132,8 @@ def mm(X, D):
         return csr_mm(X.fwd, D)
     if is_sharded_tiled(X):
         return shard.sharded_mm(X, D).to(D.dtype)
+    if is_sharded_dense(X):
+        return dshard.dense_mm(X, D)
     return X @ D
 
 
@@ -117,7 +150,29 @@ def mtm(D, X):
         return csr_mm(X.bwd, D.T).T
     if is_sharded_tiled(X):
         return shard.sharded_mtm(X, D.T).T.to(D.dtype)
+    if is_sharded_dense(X):
+        return dshard.dense_mtm(D, X)
     return D @ X
+
+
+def wtq(X, W, H, delta):
+    """``W' (X / (W H + delta))`` for a dense X, the quotient never formed
+    whole: kernel 8 on the card (its plain version on the CPU), a block at a
+    time on a ``ShardedDense``."""
+    if is_sharded_dense(X):
+        return dshard.dense_wtq(X, W, H, delta)
+    from .cuda.mu import wtq as wtq_kernel
+
+    return wtq_kernel(X, W, H, delta)
+
+
+def qht(X, W, H, delta):
+    """``(X / (W H + delta)) H'`` for a dense X, as ``wtq`` (kernel 9)."""
+    if is_sharded_dense(X):
+        return dshard.dense_qht(X, W, H, delta)
+    from .cuda.mu import qht as qht_kernel
+
+    return qht_kernel(X, W, H, delta)
 
 
 def _slim_guard(X, attr, op):
@@ -177,12 +232,16 @@ def sq_norm(X):
             return X.stats[1]
         v = nnz_values(X)
         return (v * v).sum()
+    if is_sharded_dense(X):
+        return dshard.dense_reduce(X, lambda b: (b * b).sum())
     return (X * X).sum()
 
 
 def total_sum(X):
     if is_sparse(X):
         return X.stats[0] if X.stats is not None else nnz_values(X).sum()
+    if is_sharded_dense(X):
+        return dshard.dense_reduce(X, torch.sum)
     return X.sum()
 
 
@@ -218,11 +277,13 @@ def all_nonneg(X):
         if X.stats is not None:
             return X.stats[2] >= 0
         return (nnz_values(X) >= 0).all()
+    if is_sharded_dense(X):
+        return all(bool((b >= 0).all()) for row in X.blocks for b in row)
     return (X >= 0).all()
 
 
 def transpose(X):
-    if is_sparse(X):
+    if is_structured(X):
         return X.transpose()
     return X.T
 

@@ -3,7 +3,8 @@
 The dense objectives never hold the whole ``W @ H`` for large problems.  A
 float32 X on the card goes through the objective kernel
 (``ops/cuda/objectives.py``); on the CPU and in float64 they run over column
-blocks of H, one product and one reduction per block.  The sparse MSE
+blocks of H, one product and one reduction per block.  A dense X on a mesh
+(``ShardedDense``) sums its blocks' objectives in float64.  The sparse MSE
 objective uses the Gram identity and touches X through ``mm`` only; the
 sparse KL objective samples ``W @ H`` at X's nonzeros.
 """
@@ -19,6 +20,7 @@ from .cuda.objectives import (
     mse_objective_kernel,
     sqL2dist,
 )
+from .dense_shard import dense_objective
 
 __all__ = ["sqL2dist", "gkldiv", "mse_objective", "kl_objective"]
 
@@ -39,6 +41,8 @@ def mse_objective(X, W, H):
         cross = (W * matops.mm(X, H.T)).sum()
         wh_sq = ((W.T @ W) * (H @ H.T)).sum()
         return 0.5 * (matops.sq_norm(X) - 2 * cross + wh_sq)
+    if matops.is_sharded_dense(X):
+        return dense_objective(X, W, H, mse_objective)
     if X.numel() <= _SMALL:
         return 0.5 * sqL2dist(X, W @ H)
     if matops.is_dense_f32_on_card(X):
@@ -64,6 +68,8 @@ def kl_objective(X, W, H):
         ).sum()
         mass = torch.dot(W.sum(dim=0), H.sum(dim=1))
         return nnz_term + mass
+    if matops.is_sharded_dense(X):
+        return dense_objective(X, W, H, kl_objective)
     if X.numel() <= _SMALL:
         return gkldiv(X, W @ H)
     if matops.is_dense_f32_on_card(X):

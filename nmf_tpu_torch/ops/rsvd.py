@@ -46,7 +46,7 @@ def rsvd(X, k: int, *, oversample: int = 10, n_iter: int = 2, generator=None,
     so one seed gives one sketch whatever the device and the type."""
     dev = config.resolve_device(device)
     X = matops.as_operand(X, dev)
-    if matops.is_sparse(X):
+    if matops.is_structured(X):
         config.check_on_device(dev, X=matops.device_probe(X))
         dt = matops.device_probe(X).dtype
     else:

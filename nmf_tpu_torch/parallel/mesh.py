@@ -1,12 +1,12 @@
-"""Device mesh for the sharded sparse path.
+"""Device mesh for the sharded path.
 
 The workload's two scalable dimensions are p (rows of X and W) and n
 (columns of X and H); k stays whole.  A mesh is a 2-D ("rows", "cols") grid
 of ``torch.device``s driven by one process, as the JAX package's mesh is
 driven by one controller: X is cut into one block of the grid a device
-(``ops/sparse_shard.py``), and W and H stay whole on the mesh's first device,
-its *lead*.  A device may stand in the grid more than once, so a 2 x 2 mesh
-runs on one card.
+(``ops/sparse_shard.py``, ``ops/dense_shard.py``), and W and H stay whole on
+the mesh's first device, its *lead*.  A device may stand in the grid more
+than once, so a 2 x 2 mesh runs on one card.
 """
 
 from __future__ import annotations

@@ -1137,3 +1137,76 @@ def test_sharded_mesh_over_several_cards_gives_the_one_card_bits(card):
               H0=rng.random((4, Xd.shape[1]), dtype=np.float32), maxiter=5)
     a, b = (nt.nnmf(x, 4, mesh=m, **kw) for x, m in zip(X, meshes))
     assert torch.equal(a.W, b.W) and torch.equal(a.H, b.H)
+
+
+@pytest.mark.parametrize("alg", ["cd", "greedycd", "multdiv"])
+def test_batched_restarts_on_the_card_follow_the_sequential_ones(card, alg):
+    """Three restarts as one batch on the store against one after the
+    other: the same iteration counts; the lanes stepped by the solver's own
+    update (MU) give the sequential bits, the batched lanes stay within
+    float32 rounding carried through the iterations.  Kernels 1, 2 and the
+    band run at width 3 k."""
+    Xd = three_class_matrix()
+    r, c, v = coo_of(Xd)
+    X = build_tiled(r, c, v, Xd.shape, device=card, **BUILD)
+    widths = []
+    tiled_mm = tsp.tiled_mm
+    kw = dict(alg=alg, init="random", replicates=4, maxiter=8, seed=3)
+    seq = nt.nnmf(X, 5, **kw)
+    try:
+        tsp.tiled_mm = lambda X, D: (widths.append(D.shape[1]), tiled_mm(X, D))[1]
+        build.reset_launch_counts()
+        par = nt.nnmf(X, 5, parallel_replicates=True, **kw)
+    finally:
+        tsp.tiled_mm = tiled_mm
+    assert par.niters == seq.niters and par.converged == seq.converged
+    if alg == "multdiv":
+        assert torch.equal(par.W, seq.W) and par.objvalue == seq.objvalue
+    else:
+        assert 15 in widths
+        counts = build.launch_counts()
+        assert all(counts[n] for n in ("chunk_matmul", "dense_matmul", "coo_matmul"))
+        close(par.W, seq.W, rtol=2e-4, scale=1e-4)
+        assert math.isclose(par.objvalue, seq.objvalue, rel_tol=1e-4)
+
+
+def test_dense_mesh_on_one_card_follows_the_whole_x(card):
+    """A dense X on a 2 x 2 mesh over one card runs kernels 6, 8 and 9 on
+    its blocks and stays within float32 rounding of the whole X; a (1, 1)
+    mesh gives the whole X's bits."""
+    from nmf_tpu_torch.ops import matops
+    from nmf_tpu_torch.ops.objectives import kl_objective, mse_objective
+
+    rng = np.random.default_rng(5)
+    # blocks of 2100 x 2050: above the 4M entries below which the objective
+    # forms W @ H whole instead of launching kernel 6
+    p, n = 4200, 4100
+    X = torch.from_numpy(rng.random((p, n), dtype=np.float32)).to(card)
+    W = torch.from_numpy(rng.random((p, 6), dtype=np.float32)).to(card)
+    H = torch.from_numpy(rng.random((6, n), dtype=np.float32)).to(card)
+    two = nt.shard_dense(X, nt.make_mesh((2, 2), devices=[card] * 4))
+    one = nt.shard_dense(X, nt.make_mesh((1, 1), devices=[card]))
+    for fn in (lambda A: matops.wtq(A, W, H, 1e-8), lambda A: matops.qht(A, W, H, 1e-8),
+               lambda A: mse_objective(A, W, H), lambda A: kl_objective(A, W, H),
+               lambda A: matops.mm(A, H.T), lambda A: matops.mtm(W.T, A)):
+        want = fn(X)
+        build.reset_launch_counts()
+        got = fn(two)
+        blocks = build.launch_counts()
+        close(got, want)
+        assert torch.equal(got, fn(two))
+        assert torch.equal(fn(one), want)
+        assert sum(blocks.values()) in (0, 4), blocks  # a kernel a block or none
+    build.reset_launch_counts()
+    for fn in (matops.wtq, matops.qht):
+        fn(two, W, H, 1e-8)
+    mse_objective(two, W, H)
+    counts = build.launch_counts()
+    assert (counts["wtq"], counts["qht"], counts["dense_objective"]) == (4, 4, 4), counts
+    kw = dict(alg="multdiv", init="custom", W0=W.cpu().numpy(), H0=H.cpu().numpy(),
+              maxiter=5)
+    a = nt.nnmf(X, 6, mesh=two.mesh, **kw)
+    b = nt.nnmf(X, 6, **kw)
+    assert a.niters == b.niters
+    close(a.W, b.W, rtol=2e-4, scale=1e-4)
+    assert nt.nnmf(X, 6, mesh=one.mesh, **kw) == b

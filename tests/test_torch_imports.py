@@ -35,7 +35,9 @@ MODULES = [
     "nmf_tpu_torch.models.interface",
     "nmf_tpu_torch.models.multupd",
     "nmf_tpu_torch.models.projals",
+    "nmf_tpu_torch.models.replicates",
     "nmf_tpu_torch.models.spa",
+    "nmf_tpu_torch.ops.dense_shard",
     "nmf_tpu_torch.ops.fnnls",
     "nmf_tpu_torch.ops.linalg",
     "nmf_tpu_torch.ops.matops",
@@ -106,7 +108,7 @@ def test_every_source_of_the_port_is_checked():
             "sddmm_piece.cuh", "elementwise.cu", "elementwise.py", "rsvd.py",
             "tsqr.py", "linalg.py", "initialization.py", "projals.py",
             "alspgrad.py", "spa.py", "fnnls.py", "checkpoint.py",
-            "loader.py"} <= names
+            "loader.py", "replicates.py", "dense_shard.py"} <= names
 
 
 def test_every_module_of_the_port_is_imported_by_the_check():
@@ -148,6 +150,7 @@ def test_tf32_is_off():
 
 def _entry_points(tmp):
     from nmf_tpu_torch.io import loader
+    from nmf_tpu_torch.models.replicates import solve_lanes
     from nmf_tpu_torch.ops.sparse_format import from_bcoo
 
     rng = np.random.default_rng(0)
@@ -199,6 +202,15 @@ def _entry_points(tmp):
                                                 maxiter=1, **kw),
         "nnmf_mesh": lambda **kw: nt.nnmf(
             Xt, 3, alg="cd", init="random", maxiter=1,
+            mesh=nt.make_mesh((1, 2), devices=["cpu"] * 2), **kw),
+        "nnmf_parallel_replicates": lambda **kw: nt.nnmf(
+            Xt, 3, alg="greedycd", init="random", replicates=3, maxiter=2,
+            parallel_replicates=True, **kw),
+        "solve_lanes": lambda **kw: solve_lanes(
+            nt.CoordinateDescent(maxiter=2), Xt, torch.stack([W, W]),
+            torch.stack([H, H]), **kw),
+        "nnmf_dense_mesh": lambda **kw: nt.nnmf(
+            X, 3, alg="multdiv", init="random", maxiter=2,
             mesh=nt.make_mesh((1, 2), devices=["cpu"] * 2), **kw),
         "to_bcoo": lambda **kw: loader.to_bcoo(coo, **kw),
         "from_bcoo": lambda **kw: from_bcoo(Xs, **kw),

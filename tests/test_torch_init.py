@@ -97,6 +97,19 @@ def test_pdsolve_and_pdrsolve_match_jax():
         np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-12)
 
 
+
+def test_pdsolve_and_pdrsolve_give_nan_where_jax_does():
+    """A Gram that is not positive definite: NaN, as the JAX package's
+    ``cho_factor`` gives, and no exception."""
+    A = np.array([[1.0, 2.0], [2.0, 1.0]])
+    x, B = np.ones((2, 3)), np.ones((4, 2))
+    for got, want in (
+        (tlinalg.pdsolve(*_t(A, x)), jax_pdsolve(jnp.asarray(A), jnp.asarray(x))),
+        (tlinalg.pdsolve(*_t(A, x[:, 0])), jax_pdsolve(jnp.asarray(A), jnp.asarray(x[:, 0]))),
+        (tlinalg.pdrsolve(*_t(B, A)), jax_pdrsolve(jnp.asarray(B), jnp.asarray(A))),
+    ):
+        assert np.isnan(np.asarray(want)).all() and torch.isnan(got).all()
+
 # ---------------------------------------------------------------------------
 # the randomized SVD
 

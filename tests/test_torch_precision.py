@@ -22,6 +22,7 @@ import torch
 import nmf_tpu_torch as nt
 from nmf_tpu_torch import config
 from nmf_tpu_torch.models import common
+from nmf_tpu_torch.models.replicates import solve_lanes
 from nmf_tpu_torch.ops import matops
 from nmf_tpu_torch.ops.sparse_format import build_tiled
 
@@ -93,6 +94,14 @@ def _entry_points(tmp=None):
         "nnmf_mesh": lambda: nt.nnmf(Xt, 3, maxiter=2, device="cpu",
                                      mesh=nt.make_mesh((1, 2), devices=["cpu"] * 2)),
         "rsvd": lambda: nt.rsvd(X, 3, device="cpu"),
+        "nnmf_parallel_replicates": lambda: nt.nnmf(
+            Xt, 3, alg="cd", init="random", replicates=3, maxiter=2,
+            device="cpu", parallel_replicates=True),
+        "solve_lanes": lambda: solve_lanes(
+            cd, Xd, torch.stack([W, W]), torch.stack([H, H]), device="cpu"),
+        "nnmf_dense_mesh": lambda: nt.nnmf(
+            X, 3, alg="cd", init="random", maxiter=2, device="cpu",
+            mesh=nt.make_mesh((2, 2), devices=["cpu"] * 4)),
     }
 
 
