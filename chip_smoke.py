@@ -68,6 +68,15 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
   KL and 10 MSE sweeps and 5 HALS iterations beside the whole X's,
   ``nnmf(Xd, 64, mesh=mesh, maxiter=20)`` and three restarts of the MSE
   updates as one batch on the mesh;
+* one process a card (phase ``multiprocess``): two worker processes of this
+  script (``--rank R ...``) over gloo on ``cuda:0``, each building its own
+  row of blocks of the first matrix's 2 x 2 mesh from its own entries
+  (``shard_tiled(..., local=True)``) and keeping its own row of the dense
+  problem's 2 x 2 mesh; the products, 5 HALS iterations, 5 KL sweeps and
+  ``nnmf(X, 128, mesh=mesh, maxiter=3)``, then the dense mesh's products,
+  quotient products, objectives and 5 KL sweeps, each rank's result the
+  one-process meshes' bit for bit (digests); with two cards once more over
+  NCCL, one card a rank;
 * multiplicative updates on a dense 100,000 x 10,000 low-rank problem at rank
   64, and on the two small dense problems (500 x 500 rank 8 to relative
   error 0.010, 2000 x 1000 rank 32 to 0.020); ``nnmf`` with its defaults on
@@ -108,10 +117,12 @@ card the script fails at once.  The last line is
 from __future__ import annotations
 
 import contextlib
+import hashlib
 import itertools
 import json
 import math
 import pathlib
+import socket
 import statistics
 import subprocess
 import sys
@@ -147,6 +158,8 @@ TTT3_TARGET = 0.0125  # benchmarks/run.py's ttt3 target for both ALS solvers
 KKT_REL = 1e-9
 P, N, K = 163_000, 59_000, 128
 DP, DN, DK = 100_000, 10_000, 64  # the dense multiplicative-update problem
+MP_SEED = 31  # the multiprocess phase's operands and starts
+MP_TIMEOUT = 300  # seconds both of the phase's worker processes may take
 
 
 def say(phase, **kw):
@@ -2685,6 +2698,8 @@ def sharded_phase(rows, cols, vals, X, W0, H0, store_hals, quad_paths, general_p
         rec["one_card_bits"] = True
         out["cards"] = rec
         del Xc, a, b
+    # the multiprocess phase's reference: these runs on this one-process mesh
+    out["multiprocess_reference"] = multiprocess_sparse_runs(Xm, mesh)
     del Xm
     torch.cuda.empty_cache()
 
@@ -3030,8 +3045,218 @@ def sharded_dense_phase(Xd, Wd0, Hd0, mu_dense, dense_defaults):
                    ("mu_factor_update", "dense_objective", "colsum", "scale_cols"))
     out["replicates"] = rec
     out["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
+    # the multiprocess phase's reference: these runs on this one-process mesh
+    out["multiprocess_reference"] = multiprocess_dense_runs(Xm, mesh)
     del Xm
     return out
+
+
+def _digest(t):
+    """A tensor's bits, as the first 16 hex digits of their sha256."""
+    return hashlib.sha256(t.detach().contiguous().cpu().numpy().tobytes()).hexdigest()[:16]
+
+
+def _digested_runs(runs):
+    """Each of ``runs`` (name: call) once, timed to the card's end, its
+    result's bits digested (a ``Result``: W, H, iterations, objective); the
+    launch counts set to 0 before the first and read after the last."""
+    from nmf_tpu_torch.ops.cuda import build
+
+    out = {"digests": {}, "seconds": {}}
+    build.reset_launch_counts()
+    for name, fn in runs.items():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        got = fn()
+        torch.cuda.synchronize()
+        out["seconds"][name] = time.perf_counter() - t0
+        out["digests"][name] = (_digest(got) if isinstance(got, torch.Tensor) else
+                                {"W": _digest(got.W), "H": _digest(got.H),
+                                 "niters": got.niters, "objvalue": got.objvalue})
+    out["launches"] = build.launch_counts()
+    return out
+
+
+def multiprocess_sparse_runs(Xm, mesh):
+    """What the multiprocess phase runs on the ttt4 2 x 2 mesh, in one
+    process or in each of several: ``mm`` / ``mtm`` on seeded operands, 5
+    HALS iterations and 5 KL sweeps from a seeded start, ``nnmf(X, 128,
+    mesh=mesh, maxiter=3)`` with its other defaults."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops import matops
+
+    dev = mesh.lead
+    gen = torch.Generator(device=dev).manual_seed(MP_SEED)
+    D = torch.rand((N, K), generator=gen, device=dev)
+    D2 = torch.rand((P, K), generator=gen, device=dev)
+    W0 = torch.rand((P, K), generator=gen, device=dev)
+    H0 = torch.rand((K, N), generator=gen, device=dev)
+    kw = dict(init="custom", W0=W0, H0=H0, maxiter=5, tol=1e-30, mesh=mesh, device=dev)
+    return _digested_runs({
+        "mm": lambda: matops.mm(Xm, D),
+        "mtm": lambda: matops.mtm(D2.T, Xm),
+        "hals": lambda: nt.nnmf(Xm, K, alg="cd", **kw),
+        "multdiv": lambda: nt.nnmf(Xm, K, alg="multdiv", **kw),
+        "nnmf_defaults": lambda: nt.nnmf(Xm, K, maxiter=3, mesh=mesh, device=dev),
+    })
+
+
+def multiprocess_dense_runs(Xm, mesh):
+    """What the multiprocess phase runs on the ttt3 2 x 2 mesh of dense
+    blocks: ``mm`` / ``mtm``, ``wtq`` / ``qht`` (kernels 8 and 9 a block),
+    both objectives (kernel 6 a block) and 5 KL sweeps from a seeded start."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops import matops
+    from nmf_tpu_torch.ops.objectives import kl_objective, mse_objective
+    from nmf_tpu_torch.utils.dtypes import sqrt_eps
+
+    dev = mesh.lead
+    gen = torch.Generator(device=dev).manual_seed(MP_SEED + 1)
+    D = torch.rand((DN, DK), generator=gen, device=dev)
+    D2 = torch.rand((DP, DK), generator=gen, device=dev)
+    W = torch.rand((DP, DK), generator=gen, device=dev)
+    H = torch.rand((DK, DN), generator=gen, device=dev)
+    delta = sqrt_eps(torch.float32)
+    return _digested_runs({
+        "mm": lambda: matops.mm(Xm, D),
+        "mtm": lambda: matops.mtm(D2.T, Xm),
+        "wtq": lambda: matops.wtq(Xm, W, H, delta),
+        "qht": lambda: matops.qht(Xm, W, H, delta),
+        "mse_objective": lambda: mse_objective(Xm, W, H),
+        "kl_objective": lambda: kl_objective(Xm, W, H),
+        "multdiv": lambda: nt.nnmf(Xm, DK, alg="multdiv", init="custom", W0=W, H0=H,
+                                   maxiter=5, tol=1e-30, mesh=mesh, device=dev),
+    })
+
+
+def multiprocess_worker(argv):
+    """One process of the multiprocess phase (``--rank R --world 2 --port
+    PORT --data COO.npz --backend gloo|nccl --device cuda:I``): it joins the
+    group, takes only its own entries of the ttt4 matrix and builds its
+    blocks of the 2 x 2 mesh (``shard_tiled(..., local=True)``), runs
+    ``multiprocess_sparse_runs``, then makes the ttt3 matrix on its card
+    from the seed, keeps its blocks and runs ``multiprocess_dense_runs``.
+    Its last line is one JSON object: its digests, launches and times."""
+    import argparse
+
+    import torch.distributed as dist
+
+    ap = argparse.ArgumentParser()
+    for name in ("--rank", "--world", "--port"):
+        ap.add_argument(name, type=int, required=True)
+    for name in ("--data", "--backend", "--device"):
+        ap.add_argument(name, required=True)
+    a = ap.parse_args(argv)
+    t_start = time.perf_counter()
+    if not torch.cuda.is_available():
+        fail("no CUDA device: this script only runs on the card")
+    torch.cuda.set_device(a.device)
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.ops.cuda import build
+    from nmf_tpu_torch.ops.sparse_format import TILE
+    from nmf_tpu_torch.ops.sparse_shard import sharded_load_stats
+    from nmf_tpu_torch.parallel.mesh import init_distributed
+
+    init_distributed(f"localhost:{a.port}", a.world, a.rank, backend=a.backend,
+                     timeout=MP_TIMEOUT)
+    build.load_kernels()
+    mesh = nt.make_mesh((2, 2), devices=[a.device] * (4 // a.world))
+    own = mesh.ranks == mesh.rank
+    with np.load(a.data) as coo:
+        rows, cols, vals = coo["rows"], coo["cols"], coo["vals"]
+    local_p = -(-(-(-P // 2)) // TILE) * TILE
+    local_n = -(-(-(-N // 2)) // TILE) * TILE
+    mine = own[rows // local_p, cols // local_n]
+    rec = {"rank": a.rank, "backend": a.backend, "device": a.device,
+           "entries": int(mine.sum()), "setup_seconds": time.perf_counter() - t_start}
+    t0 = time.perf_counter()
+    Xm = nt.shard_tiled(rows[mine], cols[mine], vals[mine], (P, N), mesh, local=True,
+                        dense_tile_nnz=192, coo_tail_nnz=3)
+    torch.cuda.synchronize()
+    rec["build_seconds"] = time.perf_counter() - t0
+    del rows, cols, vals
+    slots = sharded_load_stats(Xm)["slots"]
+    rec.update(slot_share=float(slots[own].sum() / slots.sum()), slots=slots.tolist(),
+               block_nnz=Xm.block_nnz)
+    rec["sparse"] = multiprocess_sparse_runs(Xm, mesh)
+    del Xm
+    torch.cuda.empty_cache()
+    Xd = _lowrank_noisy_on_card(np.random.default_rng(0), DP, DN, DK)
+    Xdm = nt.shard_dense(Xd, mesh)
+    del Xd
+    rec["dense"] = multiprocess_dense_runs(Xdm, mesh)
+    rec["seconds"] = time.perf_counter() - t_start
+    dist.destroy_process_group()
+    print(json.dumps(rec), flush=True)
+    return 0
+
+
+def _run_ranks(data, backend, devices):
+    """Two worker processes of this script, rank r on ``devices[r]``: each
+    one's JSON line.  A worker that fails, or does not end within
+    ``MP_TIMEOUT`` seconds, fails the run; every worker is ended."""
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    procs = [subprocess.Popen(
+        [sys.executable, str(pathlib.Path(__file__).resolve()), "--rank", str(r),
+         "--world", str(len(devices)), "--port", str(port), "--data", str(data),
+         "--backend", backend, "--device", dev],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+        for r, dev in enumerate(devices)]
+    deadline = time.monotonic() + MP_TIMEOUT
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=max(1.0, deadline - time.monotonic())))
+    except subprocess.TimeoutExpired:
+        fail(f"multiprocess {backend}: a worker did not end within {MP_TIMEOUT} s")
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for r, (p, (out, err)) in enumerate(zip(procs, outs)):
+        if p.returncode:
+            fail(f"multiprocess {backend} rank {r} exited {p.returncode}:\n{err[-4000:]}")
+    return [json.loads(out.strip().splitlines()[-1]) for out, _ in outs]
+
+
+def multiprocess_phase(data, sparse_ref, dense_ref):
+    """One process a card: two processes of this script over gloo, both on
+    ``cuda:0`` (NCCL refuses two ranks on one card, so every partial goes
+    through the host), each building its own row of the ttt4 2 x 2 mesh
+    from its own entries and keeping its own row of the ttt3 one.  Each
+    rank must give the one-process 2 x 2 meshes' bits (``sparse_ref``,
+    ``dense_ref``) everywhere, launch kernels 1, 2, 4 and the band (and 6, 8
+    and 9 on the dense mesh) and hold at most 0.75 of the slots.  With two
+    or more cards the same runs go once more over NCCL, rank r on
+    ``cuda:r``."""
+    layouts = [("gloo", ["cuda:0", "cuda:0"])]
+    if torch.cuda.device_count() > 1:
+        layouts.append(("nccl", ["cuda:0", "cuda:1"]))
+    out = {"one_process": {"sparse": sparse_ref, "dense": dense_ref}}
+    for backend, devices in layouts:
+        t0 = time.perf_counter()
+        ranks = _run_ranks(data, backend, devices)
+        for r, rec in enumerate(ranks):
+            label = f"multiprocess {backend} rank {r}"
+            for part, ref in (("sparse", sparse_ref), ("dense", dense_ref)):
+                for name, want in ref["digests"].items():
+                    got = rec[part]["digests"][name]
+                    if got != want:
+                        fail(f"{label}: {part} {name} gives {got}, the one-process "
+                             f"mesh {want}")
+            _need_launches(f"{label} sparse", rec["sparse"]["launches"],
+                           ("chunk_matmul", "dense_matmul", "coo_matmul", "chunk_sddmm"))
+            _need_launches(f"{label} dense", rec["dense"]["launches"],
+                           ("dense_objective", "wtq", "qht"))
+            if not rec["slot_share"] <= 0.75:
+                fail(f"{label} holds {rec['slot_share']} of the slots")
+        out[backend] = {"seconds": time.perf_counter() - t0, "devices": devices,
+                        "one_process_bits": True, "ranks": ranks}
+    return out
+
 
 
 def loader_phase(rows, cols, vals, tmp):
@@ -3310,9 +3535,13 @@ def main():
     t0 = time.perf_counter()
     shards = sharded_phase(rows, cols, vals, X, W0, H0, solved, quad_paths,
                            general_paths)
+    mp_sparse_ref = shards.pop("multiprocess_reference")
     say("sharded", shape=[P, N], k=K, card=smi, seconds=time.perf_counter() - t0,
         **shards)
     torch.cuda.empty_cache()
+    # the matrix's entries for the multiprocess phase's workers (in 6)
+    mp_data = pathlib.Path(tmp_dir.name) / "ttt4_coo.npz"
+    np.savez(mp_data, rows=rows, cols=cols, vals=vals)
     # 4g. batched restarts on the store (the dense problem's part in 6)
     t0 = time.perf_counter()
     restarts = replicates_phase(X)
@@ -3394,9 +3623,16 @@ def main():
     # the dense problem cut into a 2 x 2 mesh of blocks over one card
     t0 = time.perf_counter()
     sharded_dense = sharded_dense_phase(Xd, Wd0, Hd0, mu_dense, dense_defaults)
+    mp_dense_ref = sharded_dense.pop("multiprocess_reference")
     say("sharded_dense", shape=[DP, DN], k=DK, card=smi,
         seconds=time.perf_counter() - t0, **sharded_dense)
     torch.cuda.empty_cache()
+    # one process a card: two processes over gloo on this card, each with
+    # its own blocks of both meshes, against the one-process meshes' bits
+    t0 = time.perf_counter()
+    multiprocess = multiprocess_phase(mp_data, mp_sparse_ref, mp_dense_ref)
+    say("multiprocess", card=smi, shape=[P, N], k=K, dense_shape=[DP, DN], dense_k=DK,
+        seconds=time.perf_counter() - t0, **multiprocess)
     # ttt3: projected ALS and ALS projected gradient to relative error 0.0125
     t0 = time.perf_counter()
     als_dense = solve_projals_alspgrad_dense(Xd, Wd0, Hd0)
@@ -3467,12 +3703,19 @@ def main():
         "sharded_dense_hals": sharded_dense["cd"]["launches"],
         "sharded_dense_nnmf_defaults": sharded_dense["nnmf_defaults"]["launches"],
         "sharded_dense_replicates": sharded_dense["replicates"]["launches"],
+        # each worker of the multiprocess phase, read in that process
+        **{f"multiprocess_{backend}_rank{r}_{part}": rec[part]["launches"]
+           for backend in ("gloo", "nccl") if backend in multiprocess
+           for r, rec in enumerate(multiprocess[backend]["ranks"])
+           for part in ("sparse", "dense")},
     }
     # the paths on the dense problem (kernel 10 at its factors' shapes)
     # the dense X on the 2 x 2 mesh: kernels 6, 8 and 9 on its blocks
     block_paths = ["sharded_dense_multdiv", "sharded_dense_multmse",
                    "sharded_dense_hals", "sharded_dense_nnmf_defaults",
-                   "sharded_dense_replicates"]
+                   "sharded_dense_replicates",
+                   *(q for q in paths if q.startswith("multiprocess_")
+                     and q.endswith("_dense"))]
     dense_paths = ["nnmf_defaults_dense", "ttt3_projals", "ttt3_alspgrad",
                    "ttt3_projals_traced", "ttt3_alspgrad_traced",
                    "nnmf_projals_dense", "nnmf_alspgrad_dense",
@@ -3600,4 +3843,4 @@ def main():
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(multiprocess_worker(sys.argv[1:]) if "--rank" in sys.argv else main())

@@ -20,7 +20,10 @@ for bit.  ``nnmf(X, k, mesh=...)`` runs X over a device mesh
 X is cut into one store a block (``ops.sparse_shard.shard_tiled``), a dense
 one into dense blocks (``ops.dense_shard.shard_dense``), both placed by
 ``parallel.sharding.shard_problem``, each block running the same kernels,
-and W and H stay on the mesh's lead device.  ``nnmf(...,
+and W and H stay on the mesh's lead device; with one process a card
+(``parallel.mesh.init_distributed``) each process holds its own blocks and
+every block's partial reaches every process (``parallel.exchange``).
+``warmup`` runs every (alg, init) pair once.  ``nnmf(...,
 parallel_replicates=True)`` runs the random restarts as the lanes of one
 lockstep solve (``models.replicates``).  Entry points run on the card unless
 the caller passes ``device="cpu"``.
@@ -45,7 +48,15 @@ from .ops.rsvd import rsvd
 from .ops.sparse_shard import ShardedTiled, shard_tiled
 from .parallel.mesh import Mesh, make_mesh
 from .parallel.sharding import shard_problem
-from .utils.numeric import adddiag, normalize1, normalize1_cols, projectnn
+from .utils.numeric import (
+    adddiag,
+    normalize1,
+    normalize1_cols,
+    posneg,
+    printf_mat,
+    projectnn,
+)
+from .utils.precompile import warmup
 
 __version__ = "0.1.0"
 
@@ -83,6 +94,9 @@ __all__ = [
     "normalize1",
     "normalize1_cols",
     "projectnn",
+    "posneg",
+    "printf_mat",
+    "warmup",
     "config",
     "parallel",
     "Mesh",

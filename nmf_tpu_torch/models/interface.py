@@ -14,7 +14,9 @@ package is dispatched as there.
 init runs on X as given, then X is cut into one block a device of the mesh
 (``parallel.sharding.shard_problem``: a store a block for a sparse X, a dense
 block for a dense one) and W and H go to the mesh's lead device, where the
-solve runs.
+solve runs.  On a mesh that spans several processes (one process a card)
+every process calls ``nnmf`` with the whole X, or its own blocks of it,
+keeps its own blocks and returns the same ``Result``.
 
 ``parallel_replicates`` runs the ``replicates - 1`` random restarts as the
 lanes of one lockstep solve (``models/replicates.py``) instead of one after

@@ -25,6 +25,7 @@ from .. import config
 from ..ops import matops
 from ..ops.fnnls import fnnls
 from ..ops.objectives import kl_objective, mse_objective
+from ..parallel.exchange import agree_sum
 from ..utils.numeric import projectnn
 from .common import Result
 
@@ -82,7 +83,8 @@ def _store_columns(X, ai):
     the product of X with one-hot columns, exact in float32 there; on the
     card the dense blocks' product (kernel 2) splits each value into two
     TF32 parts and gives ``x * 1`` to about 1e-7, not exactly, so the
-    columns are gathered instead."""
+    columns are gathered instead.  On a store that spans several processes
+    each copies its own blocks' entries and the copies are added."""
     p, n = X.shape
     uniq, inv = torch.unique(ai, return_inverse=True)
     slot = torch.full((n,), -1, dtype=torch.int64, device=ai.device)
@@ -92,6 +94,9 @@ def _store_columns(X, ai):
     rows = matops.row_indices(X).long()[keep]
     Wu = torch.zeros((p, uniq.numel()), dtype=X.dtype, device=ai.device)
     Wu[rows, at[keep]] = matops.nnz_values(X)[keep].to(X.dtype)
+    if matops.is_sharded_tiled(X) and X.mesh.processes > 1:
+        # each process copied its own blocks' entries: the others hold zeros
+        Wu = torch.from_numpy(agree_sum(Wu.cpu().numpy(), X.mesh)).to(Wu.device)
     return Wu[:, inv]
 
 

@@ -42,6 +42,7 @@ __all__ = [
     "colsums",
     "rowsums",
     "nnz_values",
+    "nnz_sum",
     "all_nonneg",
     "transpose",
     "mean",
@@ -101,9 +102,9 @@ def device_probe(X):
     block's values for the sharded store, whose products land on the lead
     device)."""
     if is_sharded_tiled(X):
-        return X.blocks[0][0].fwd.vals
+        return X.owned()[0][2].fwd.vals
     if is_sharded_dense(X):
-        return X.blocks[0][0]
+        return X.owned()[0][2]
     if is_tiled(X):
         return X.fwd.vals
     return X.fwd.val if is_general(X) else X
@@ -225,13 +226,22 @@ def nnz_values(X):
     return _slim_guard(X, "values", "nnz_values")
 
 
+def nnz_sum(X, v):
+    """``v.sum()`` of a vector in the nnz vector's order; on a sharded store
+    the blocks' float64 sums added in block order across its processes
+    (``sharded_nnz_sum``), so one process and several give the same bits."""
+    if is_sharded_tiled(X):
+        return shard.sharded_nnz_sum(X, v)
+    return v.sum()
+
+
 def sq_norm(X):
     """``sum(X**2)``."""
     if is_sparse(X):
         if X.stats is not None:
             return X.stats[1]
         v = nnz_values(X)
-        return (v * v).sum()
+        return nnz_sum(X, v * v)
     if is_sharded_dense(X):
         return dshard.dense_reduce(X, lambda b: (b * b).sum())
     return (X * X).sum()
@@ -239,7 +249,7 @@ def sq_norm(X):
 
 def total_sum(X):
     if is_sparse(X):
-        return X.stats[0] if X.stats is not None else nnz_values(X).sum()
+        return X.stats[0] if X.stats is not None else nnz_sum(X, nnz_values(X))
     if is_sharded_dense(X):
         return dshard.dense_reduce(X, torch.sum)
     return X.sum()
@@ -278,7 +288,7 @@ def all_nonneg(X):
             return X.stats[2] >= 0
         return (nnz_values(X) >= 0).all()
     if is_sharded_dense(X):
-        return all(bool((b >= 0).all()) for row in X.blocks for b in row)
+        return dshard.dense_all_nonneg(X)
     return (X >= 0).all()
 
 

@@ -54,7 +54,9 @@ def kl_objective(X, W, H):
     """``gkldiv(X, W@H)``.
 
     Sparse X: ``sum_{x>0}[x log(x/wh) - x] + sum_all(wh)`` with wh sampled
-    at the nonzeros and ``sum_all(wh) = colsum(W) . rowsum(H)``."""
+    at the nonzeros and ``sum_all(wh) = colsum(W) . rowsum(H)``; on a
+    sharded store the first sum is taken block by block, in block order
+    (``matops.nnz_sum``)."""
     from . import matops
 
     if matops.is_sparse(X):
@@ -63,9 +65,8 @@ def kl_objective(X, W, H):
         pos = xv > 0
         safe_x = torch.where(pos, xv, 1)
         safe_wh = torch.where(wh_at_nnz > 0, wh_at_nnz, 1)
-        nnz_term = torch.where(
-            pos, safe_x * (safe_x.log() - safe_wh.log()) - xv, 0
-        ).sum()
+        nnz_term = matops.nnz_sum(X, torch.where(
+            pos, safe_x * (safe_x.log() - safe_wh.log()) - xv, 0))
         mass = torch.dot(W.sum(dim=0), H.sum(dim=1))
         return nnz_term + mass
     if matops.is_sharded_dense(X):

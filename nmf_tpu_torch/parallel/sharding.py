@@ -5,7 +5,9 @@ block a device of the mesh: the stores of a ``ShardedTiled``
 (``ops/sparse_shard.py``) for a sparse X, the dense blocks of a
 ``ShardedDense`` (``ops/dense_shard.py``) for a dense one.  W and H stay
 whole on the mesh's lead device, where the products' sums, the k x k Grams,
-the objectives and the stop tests are computed.  The solvers reach X only
+the objectives and the stop tests are computed; on a mesh that spans several
+processes each process holds only its own blocks, and W and H whole on its
+own lead, every process taking the same steps on the same bits.  The solvers reach X only
 through ``ops/matops.py`` and ``ops/objectives.py``, which send either grid
 to its sharded products, so no solver knows of the mesh.
 """
@@ -26,8 +28,9 @@ def shard_problem(mesh: Mesh, X, W, H):
     ``SparseCSR`` or a torch sparse tensor) is rebuilt as a ``ShardedTiled``
     over the mesh, a ``TiledCSR`` with its own store options; a dense X is
     cut into a ``ShardedDense``; a prebuilt ``ShardedTiled`` or
-    ``ShardedDense`` passes through (its mesh must match).  W and H move to
-    ``mesh.lead``."""
+    ``ShardedDense`` passes through (its mesh must match).  With several
+    processes each passes the whole X and keeps only its own blocks.  W and
+    H move to ``mesh.lead``."""
     from ..ops import matops
     from ..ops.dense_shard import shard_dense
     from ..ops.sparse_shard import shard_tiled

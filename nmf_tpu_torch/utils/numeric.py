@@ -11,7 +11,8 @@ import torch
 
 from ..ops.cuda import elementwise
 
-__all__ = ["adddiag", "normalize1", "normalize1_cols", "projectnn", "safe_div"]
+__all__ = ["adddiag", "normalize1", "normalize1_cols", "projectnn", "posneg",
+           "printf_mat", "safe_div"]
 
 
 def adddiag(A, a):
@@ -35,6 +36,22 @@ def normalize1_cols(a):
 def projectnn(A):
     """Project all entries onto the non-negative orthant (NaN is kept)."""
     return elementwise.projectnn(A)
+
+
+def posneg(A):
+    """Split ``A = Ap - An`` into its positive and negative parts."""
+    zero = torch.zeros((), dtype=A.dtype, device=A.device)
+    pos = A >= 0
+    return torch.where(pos, A, zero), torch.where(pos, zero, -A)
+
+
+def printf_mat(x):
+    """Print a matrix a row a line, each entry as ``%8.4f``."""
+    import numpy as np
+
+    x = x.detach().cpu().numpy() if isinstance(x, torch.Tensor) else np.asarray(x)
+    for i in range(x.shape[0]):
+        print(" ".join(f"{v:8.4f}" for v in x[i]) + " ")
 
 
 def safe_div(num, den):

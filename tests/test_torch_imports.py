@@ -51,10 +51,12 @@ MODULES = [
     "nmf_tpu_torch.ops.cuda.mu",
     "nmf_tpu_torch.ops.cuda.objectives",
     "nmf_tpu_torch.ops.cuda.sparse",
+    "nmf_tpu_torch.parallel.exchange",
     "nmf_tpu_torch.parallel.mesh",
     "nmf_tpu_torch.parallel.sharding",
     "nmf_tpu_torch.utils.dtypes",
     "nmf_tpu_torch.utils.numeric",
+    "nmf_tpu_torch.utils.precompile",
 ]
 
 
@@ -108,7 +110,8 @@ def test_every_source_of_the_port_is_checked():
             "sddmm_piece.cuh", "elementwise.cu", "elementwise.py", "rsvd.py",
             "tsqr.py", "linalg.py", "initialization.py", "projals.py",
             "alspgrad.py", "spa.py", "fnnls.py", "checkpoint.py",
-            "loader.py", "replicates.py", "dense_shard.py"} <= names
+            "loader.py", "replicates.py", "dense_shard.py", "exchange.py",
+            "precompile.py"} <= names
 
 
 def test_every_module_of_the_port_is_imported_by_the_check():
@@ -216,6 +219,7 @@ def _entry_points(tmp):
         "from_bcoo": lambda **kw: from_bcoo(Xs, **kw),
         "sparse_from_numpy": lambda **kw: convert.sparse_from_numpy(
             np.stack([r, c], 1), X[r, c], X.shape, **kw),
+        "warmup": lambda **kw: nt.warmup(algs=("cd",), inits=("random",), **kw),
     }
 
 

@@ -74,6 +74,7 @@ def _problem():
 def _entry_points(tmp=None):
     X, Xt, W, H = _problem()
     Xd = torch.from_numpy(X)
+    r, c = np.nonzero(X)
     cd = nt.CoordinateDescent(maxiter=2)
     return {
         "solve_checkpointed": lambda: nt.solve_checkpointed(
@@ -102,6 +103,10 @@ def _entry_points(tmp=None):
         "nnmf_dense_mesh": lambda: nt.nnmf(
             X, 3, alg="cd", init="random", maxiter=2, device="cpu",
             mesh=nt.make_mesh((2, 2), devices=["cpu"] * 4)),
+        "solve_local_store_mesh": lambda: nt.solve(cd, nt.shard_tiled(
+            r, c, X[r, c], X.shape, nt.make_mesh((1, 2), devices=["cpu"] * 2),
+            local=True), W, H, device="cpu"),
+        "warmup": lambda: nt.warmup(algs=("cd",), inits=("random",), device="cpu"),
     }
 
 

@@ -103,7 +103,11 @@ def test_mesh_shape_lead_and_errors(monkeypatch):
         make_mesh()
     with pytest.raises(RuntimeError, match="no CUDA device"):
         make_mesh((1, 1), devices=["cuda:0"])
-    with pytest.raises(NotImplementedError, match="6c"):
+    # init_distributed checks its arguments before it joins a group (the
+    # joins themselves: tests/test_torch_distributed.py)
+    with pytest.raises(ValueError, match="together"):
+        nt.parallel.mesh.init_distributed("localhost:1", None, 0, backend="gloo")
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         nt.parallel.mesh.init_distributed()
 
 
@@ -294,8 +298,11 @@ def test_errors():
         nt.nnmf(X, 3, mesh=cpu_mesh((1, 1)), device="cpu")
     # a dense X on a mesh is cut into dense blocks (tests/test_torch_sharded_dense.py)
     assert nt.nnmf(t(Xd), 3, mesh=mesh, device="cpu", maxiter=2).niters == 2
-    with pytest.raises(NotImplementedError, match="6c"):
-        shard.shard_tiled(*coo_of(Xd), Xd.shape, mesh, local=True)
+    # local=True in one process: every entry is its own, the local=False store
+    loc = shard.shard_tiled(*coo_of(Xd), Xd.shape, mesh, local=True, **OPTS["degree"])
+    D = torch.rand((Xd.shape[1], 3), generator=torch.Generator().manual_seed(0))
+    assert loc.block_nnz == X.block_nnz and torch.equal(loc.stats, X.stats)
+    assert torch.equal(shard.sharded_mm(loc, D), shard.sharded_mm(X, D))
     meta = make_mesh((1, 1), devices=["meta"])
     with pytest.raises(ValueError, match="lead device"):
         nt.nnmf(X, 3, mesh=meta, device="cpu")
