@@ -1,12 +1,17 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA build: ``python3 chip_smoke.py``.
 
-Needs one NVIDIA Hopper card, ``nvcc`` and no network.  It builds the
+Needs one NVIDIA Hopper card, ``nvcc``, ``g++`` and no network.  It builds the
 fourteen CUDA kernels from ``nmf_tpu_torch/csrc/`` (the twelve that replace
 the TPU kernels, the COO band's and the general-CSR product's), holds each kernel against its plain
 PyTorch version on the card (the product and multiplicative-update kernels
 also at every ``k`` they refused before they summed over ``k`` in slabs), and
-drives the ported paths through ``nnmf`` and the resumable solver loop:
+drives the ported paths through ``nnmf`` and the resumable solver loop.
+It also builds the host library of the loader and the store binner
+(``nmf_tpu_torch/csrc/host/nmf_host.cpp``, with the host's C++ compiler;
+phase ``build_host``): every store below is binned through it, and the ttt4
+chunk store is built once more with the binner on its numpy version, timed
+beside it and equal to it array for array on both sides (phase ``store``):
 
 * sparse Fast-HALS on the 163,000 x 59,000 power-law problem (about 17.6M
   nonzeros, rank 128) down to relative error 0.84;
@@ -40,7 +45,10 @@ drives the ported paths through ``nnmf`` and the resumable solver loop:
   5), with a snapshot's bytes and the seconds of a save and a load (phase
   ``checkpoint``);
 * the matrix written as a Matrix Market file and read back through the
-  port's loader, then ``nnmf`` on it (phase ``loader``);
+  port's loader, ``load_mtx`` and ``coo_to_csr`` on the host library and on
+  scipy's route, timed, the same arrays (``coo_to_csr`` also over the
+  entries twice, the copy shuffled), then ``nnmf`` on it (phase
+  ``loader``);
 * the multi-device path (phase ``sharded``): the matrix cut by
   ``shard_tiled`` into a 2 x 2 mesh of stores over one card (and a (1, 1)
   mesh, whose products give the chunk store's bits), the build timed and
@@ -121,6 +129,7 @@ import hashlib
 import itertools
 import json
 import math
+import os
 import pathlib
 import socket
 import statistics
@@ -3259,12 +3268,34 @@ def multiprocess_phase(data, sparse_ref, dense_ref):
 
 
 
+def stores_differ(a, b):
+    """The fields in which two of the port's tiled stores differ, every
+    array of both sides compared on its device (an empty list if none)."""
+    import dataclasses
+
+    out = []
+    for tag, x, y in (("", a, b), ("fwd.", a.fwd, b.fwd), ("bwd.", a.bwd, b.bwd)):
+        for f in dataclasses.fields(y):
+            if f.name in ("fwd", "bwd"):
+                continue
+            u, w = getattr(x, f.name), getattr(y, f.name)
+            same = (u.dtype == w.dtype and torch.equal(u, w)
+                    if isinstance(w, torch.Tensor) else u == w)
+            if not same:
+                out.append(tag + f.name)
+    return out
+
+
 def loader_phase(rows, cols, vals, tmp):
     """The ttt4 matrix written as a Matrix Market file (``scipy.io.mmwrite``)
     and read back through the port's loader: ``load_mtx``, ``coo_to_csr``,
     ``to_bcoo`` onto the card, each timed; the entries must be the
-    generator's; then ``nnmf(..., alg="cd", init="random", maxiter=5)`` on
-    it, with the launch counts of its run."""
+    generator's.  ``load_mtx`` and ``coo_to_csr`` also on their plain
+    (scipy) route, timed, the same arrays; ``coo_to_csr`` on both routes
+    again over the entries twice, the second copy shuffled (every row
+    unsorted, every position summed), the same bits.  Then ``nnmf(...,
+    alg="cd", init="random", maxiter=5)`` on it, with the launch counts of
+    its run."""
     import scipy.io
     import scipy.sparse
 
@@ -3285,7 +3316,29 @@ def loader_phase(rows, cols, vals, tmp):
             and np.array_equal(csr.data, vals) and Xl.is_cuda
             and torch.equal(Xl.values().cpu(), torch.from_numpy(vals))):
         fail("loader: the entries read back are not the generator's")
-    del coo, csr, m
+
+    def same(a, b):
+        return a[:2] == b[:2] and all(
+            x.dtype == y.dtype and np.array_equal(x, y) for x, y in zip(a[2:], b[2:]))
+
+    with loader._plain_route():
+        coo_p = _timed(out, "load_mtx_plain_seconds", lambda: loader.load_mtx(path))
+        csr_p = _timed(out, "coo_to_csr_plain_seconds", lambda: loader.coo_to_csr(coo_p))
+    if not (same(coo, coo_p) and same(csr, csr_p)):
+        fail("loader: the native and the scipy route read other arrays")
+    del coo, coo_p, csr, csr_p, m
+    perm = np.random.default_rng(11).permutation(len(vals))
+    twice = loader.COO(P, N, np.concatenate([rows, rows[perm]]),
+                       np.concatenate([cols, cols[perm]]),
+                       np.concatenate([vals, vals[perm] * np.float32(0.3)]))
+    csr2 = _timed(out, "coo_to_csr_twice_seconds", lambda: loader.coo_to_csr(twice))
+    with loader._plain_route():
+        csr2_p = _timed(out, "coo_to_csr_twice_plain_seconds",
+                        lambda: loader.coo_to_csr(twice))
+    if not (same(csr2, csr2_p) and len(csr2.data) == len(vals)):
+        fail("loader: coo_to_csr over unsorted duplicates gave other bits than scipy")
+    out["same_arrays_both_routes"] = True
+    del twice, csr2, csr2_p
     build.reset_launch_counts()
     res = _timed(out, "nnmf_seconds", lambda: nt.nnmf(
         Xl, K, alg="cd", init="random", maxiter=5))
@@ -3303,6 +3356,7 @@ def main():
     t_start = time.perf_counter()
     if not torch.cuda.is_available():
         fail("no CUDA device: this script only runs on the card")
+    from nmf_tpu_torch.io import loader, native
     from nmf_tpu_torch.ops.cuda import build
     from nmf_tpu_torch.ops.sparse_format import build_tiled
 
@@ -3325,6 +3379,12 @@ def main():
              if "registers" in ln or "spill" in ln] if logs else []
     say("build", seconds=time.perf_counter() - t0,
         built_now=build.build_seconds is not None, ptxas=ptxas)
+    # the host library of the loader and the store binner (g++)
+    t0 = time.perf_counter()
+    native.load()
+    say("build_host", seconds=time.perf_counter() - t0,
+        built_now=native.build_seconds is not None, source=str(native.SOURCE.relative_to(
+            pathlib.Path(__file__).resolve().parent)), flags=list(native.CXX_FLAGS))
 
     # 3. kernels against their plain versions: small store, then full store
     rng = np.random.default_rng(3)
@@ -3428,9 +3488,24 @@ def main():
                      max_sub_segments_in_a_panel=int(side.qpanel_ptr.diff().max()))
         return c
 
-    say("store", shape=[P, N], nnz=len(vals), k=K, binner="numpy",
+    # the chunk store once more with every binner pass on its numpy version
+    t0 = time.perf_counter()
+    with loader._plain_route():
+        Xplain = build_tiled(rows, cols, vals, (P, N), dense_tile_nnz=192,
+                             coo_tail_nnz=3)
+    torch.cuda.synchronize()
+    t_build_plain = time.perf_counter() - t0
+    differ = stores_differ(X, Xplain)
+    if differ:
+        fail(f"store: the native and the numpy binner differ in {differ}")
+    del Xplain
+    torch.cuda.empty_cache()
+
+    say("store", shape=[P, N], nnz=len(vals), k=K, binner="native",
+        cpu_count=os.cpu_count(), cpus_usable=len(os.sched_getaffinity(0)),
         data_seconds=t_data, host_build_seconds=t_build,
         host_build_seconds_quad=t_build_quad,
+        host_build_seconds_plain=t_build_plain, same_store_both_routes=True,
         **{s: classes(side) for s, side in (("fwd", X.fwd), ("bwd", X.bwd))},
         quad_store={s: classes(side) for s, side in (("fwd", Xq.fwd), ("bwd", Xq.bwd))})
     # the store's row and column sums in a fixed order

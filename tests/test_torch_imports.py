@@ -18,7 +18,7 @@ from nmf_tpu_torch.ops.sparse_format import build_tiled
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 PORT_SOURCES = sorted(
     p for p in (ROOT / "nmf_tpu_torch").rglob("*")
-    if p.suffix in (".py", ".cu", ".cuh") and "build" not in p.parts
+    if p.suffix in (".py", ".cu", ".cuh", ".cpp") and "build" not in p.parts
 ) + [ROOT / "chip_smoke.py"]
 
 MODULES = [
@@ -27,6 +27,7 @@ MODULES = [
     "nmf_tpu_torch.convert",
     "nmf_tpu_torch.init.initialization",
     "nmf_tpu_torch.io.loader",
+    "nmf_tpu_torch.io.native",
     "nmf_tpu_torch.models.alspgrad",
     "nmf_tpu_torch.models.checkpoint",
     "nmf_tpu_torch.models.common",
@@ -77,6 +78,8 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         "print('BAD', bad)\n"
         "from nmf_tpu_torch.ops.cuda import build\n"
         "print('BUILT', build._lib is not None or build.build_seconds is not None)\n"
+        "from nmf_tpu_torch.io import native\n"
+        "print('HOST_BUILT', native._lib is not None or native.build_seconds is not None)\n"
     ) + settings
     out, alone = (
         subprocess.run([sys.executable, "-c", c], cwd=ROOT, capture_output=True,
@@ -84,8 +87,9 @@ def test_import_pulls_in_neither_jax_nor_the_jax_package():
         for c in (code, settings))
     assert out.returncode == 0, out.stderr
     assert "BAD []" in out.stdout, out.stdout
-    # importing the package builds and loads no kernel
+    # importing the package builds and loads no kernel and no host library
     assert "BUILT False" in out.stdout, out.stdout
+    assert "HOST_BUILT False" in out.stdout, out.stdout
     # the import leaves the caller's settings as they were
     assert alone.returncode == 0, alone.stderr
     assert "SETTINGS" in alone.stdout
@@ -111,7 +115,7 @@ def test_every_source_of_the_port_is_checked():
             "tsqr.py", "linalg.py", "initialization.py", "projals.py",
             "alspgrad.py", "spa.py", "fnnls.py", "checkpoint.py",
             "loader.py", "replicates.py", "dense_shard.py", "exchange.py",
-            "precompile.py"} <= names
+            "precompile.py", "native.py", "nmf_host.cpp"} <= names
 
 
 def test_every_module_of_the_port_is_imported_by_the_check():
@@ -124,10 +128,14 @@ def test_every_module_of_the_port_is_imported_by_the_check():
 
 
 def test_build_lists_every_source_and_entry_point():
+    from nmf_tpu_torch.io import native
     from nmf_tpu_torch.ops.cuda import build
 
-    on_disk = {p.name for p in build.CSRC.iterdir()}
+    on_disk = {p.name for p in build.CSRC.iterdir() if p.is_file()}
     assert set(build.SOURCES) | set(build.HEADERS) == on_disk
+    # the one other directory holds the host library's one source
+    assert {p for p in build.CSRC.iterdir() if not p.is_file()} == {native.SOURCE.parent}
+    assert list(native.SOURCE.parent.iterdir()) == [native.SOURCE]
     assert set(build.KERNELS) == {
         "chunk_matmul", "dense_matmul", "quad_matmul", "coo_matmul", "csr_matmul",
         "chunk_sddmm", "quad_sddmm", "mu_factor_update", "wtq", "qht",

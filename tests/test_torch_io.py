@@ -35,7 +35,7 @@ def mtx_file(tmp_path):
 @pytest.fixture
 def jax_numpy_route(monkeypatch):
     """The JAX package's loader without its native library: its numpy
-    route, the one the port has."""
+    route (scipy's), whose arrays the port's host library gives."""
     monkeypatch.setattr(jl, "_LIB", None)
     monkeypatch.setattr(jl, "_LIB_TRIED", True)
 
