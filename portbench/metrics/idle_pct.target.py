@@ -1,0 +1,8 @@
+"""``idle_pct.target``: ``idle_pct`` in a cell whose solves run
+to a target, where it moves ``time_to_target_s``."""
+
+from pathlib import Path
+
+from portbench.manifest import load_module
+
+read = load_module(Path(__file__).with_name("idle_pct.py")).read

@@ -1,0 +1,8 @@
+"""``launches_per_solve.target``: ``launches_per_solve`` in a cell whose solves run
+to a target, where it moves ``time_to_target_s``."""
+
+from pathlib import Path
+
+from portbench.manifest import load_module
+
+read = load_module(Path(__file__).with_name("launches_per_solve.py")).read
