@@ -20,10 +20,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 import numpy as np
+
+from ..utils import spans
 
 __all__ = ["load", "MtxResult", "SOURCE", "BUILD", "CXX", "CXX_FLAGS"]
 
@@ -34,7 +35,6 @@ CXX = ("g++", "c++")  # the host compilers tried, in this order
 CXX_FLAGS = ("-O3", "-std=c++17", "-fPIC", "-pthread", "-shared")
 
 _lib = None
-build_seconds = None  # seconds the last build in this process took, if any
 
 
 class MtxResult(ctypes.Structure):
@@ -107,21 +107,22 @@ def _build(target: Path) -> None:
 
 def load():
     """The host library (built on first call), with ``argtypes`` and
-    ``restype`` set on every entry point."""
-    global _lib, build_seconds
+    ``restype`` set on every entry point.  Recorded as the spans
+    ``native.load`` and, around a build, ``native.build``."""
+    global _lib
     if _lib is not None:
         return _lib
-    h = hashlib.sha256(SOURCE.read_bytes())
-    h.update(" ".join(CXX_FLAGS).encode())
-    target = BUILD / f"libnmf_host_{h.hexdigest()[:16]}.so"
-    if not target.exists():
-        t0 = time.perf_counter()
-        _build(target)
-        build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(target))
-    for name, (argtypes, restype) in _SIGNATURES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = restype
-    _lib = lib
+    with spans.span("native.load"):
+        h = hashlib.sha256(SOURCE.read_bytes())
+        h.update(" ".join(CXX_FLAGS).encode())
+        target = BUILD / f"libnmf_host_{h.hexdigest()[:16]}.so"
+        if not target.exists():
+            with spans.span("native.build"):
+                _build(target)
+        lib = ctypes.CDLL(str(target))
+        for name, (argtypes, restype) in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = restype
+        _lib = lib
     return lib

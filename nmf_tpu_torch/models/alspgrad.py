@@ -35,6 +35,7 @@ import torch
 from .. import config
 from ..ops import matops
 from ..ops.objectives import mse_objective
+from ..utils import spans
 from ..utils.dtypes import cbrt_eps, eps as _eps, quartic_root_eps
 from .common import Result, nmf_skeleton, register_solver
 
@@ -153,9 +154,10 @@ def _pg_subsolve(AtA, AtB, Y0, maxiter, traceiter, tolg, beta, sigma):
         torch.zeros((), dtype=torch.bool, device=dev),
     )
 
-    while bool(~c.converged & ((c.ls_it > 0) | (c.t < maxiter))):  # the host read
+    while spans.host_read(~c.converged & ((c.ls_it > 0) | (c.t < maxiter)),
+                          "bool"):  # the host read
         c = _flat_body(AtA, AtB, c, traceiter, tolg, beta, sigma)
-    return c.Y, int(c.t)
+    return c.Y, spans.host_read(c.t, "tolist")
 
 
 # ---------------------------------------------------------------------------
@@ -177,7 +179,7 @@ def _line_search(AtA, Y, G, alpha, traceiter, beta, sigma):
         D = Yn - Y
         Y_out, Yp, alpha, decr, done_t = _ls_trial(
             Y, Yp, G, alpha, decr, first, Yn, D, AtA @ D, beta, sigma)
-        done = bool(done_t)
+        done = spans.host_read(done_t, "bool")
     return Y_out, alpha, it
 
 
@@ -186,7 +188,7 @@ def _pg_step(AtA, AtB, Y, alpha, traceiter, tolg, beta, sigma):
     Returns (Y, alpha, pgnrm, backtracks, converged)."""
     G = AtA @ Y - AtB
     pgnrm = _projgradnorm(G, Y)
-    converged = bool(pgnrm < tolg)
+    converged = spans.host_read(pgnrm < tolg, "bool")
     if converged:
         return Y, alpha, pgnrm, 0, True
     Y, alpha, backtracks = _line_search(AtA, Y, G, alpha, traceiter, beta, sigma)
@@ -199,7 +201,8 @@ def _pg_solve_verbose(AtA, AtB, normB2, Y, maxiter, traceiter, tolg, beta, sigma
     tolg, beta, sigma = _scalars(Y, tolg, beta, sigma)
 
     def objective(Y):
-        return float(0.5 * ((Y * (AtA @ Y)).sum() - 2 * (AtB * Y).sum() + normB2))
+        return spans.host_read(
+            0.5 * ((Y * (AtA @ Y)).sum() - 2 * (AtB * Y).sum() + normB2), "float")
 
     print(
         f"{'Iter':>5}    {'objv':>12}    {'objv.change':>12}    "
@@ -217,7 +220,8 @@ def _pg_solve_verbose(AtA, AtB, normB2, Y, maxiter, traceiter, tolg, beta, sigma
         preobjv, objv = objv, objective(Y)
         print(
             f"{t:5d}    {objv:12.5e}    {objv - preobjv:12.5e}    "
-            f"{float(pgnrm):12.5e}    {float(alpha):8.4f}    {backtracks:12d}"
+            f"{spans.host_read(pgnrm, 'float'):12.5e}    "
+            f"{spans.host_read(alpha, 'float'):8.4f}    {backtracks:12d}"
         )
     return Y, t
 
@@ -329,16 +333,18 @@ def _update(upd: ALSPGrad, state, X, W, H):
     solve, the tolg decay."""
     (tolg,) = state
     if upd.update_H:
-        AtA, AtB = _h_problem(X, W)
-        H, iterH = _pg_subsolve(AtA, AtB, H, upd.maxsubiter, _TRACEITER, tolg,
-                                _BETA, _SIGMA)
-        if iterH == 1:
+        with spans.span("half.H"):
+            AtA, AtB = _h_problem(X, W)
+            H, iterH = _pg_subsolve(AtA, AtB, H, upd.maxsubiter, _TRACEITER, tolg,
+                                    _BETA, _SIGMA)
+            if iterH == 1:
+                tolg = tolg * 0.1
+    with spans.span("half.W"):
+        AtA, AtB = _w_problem(X, H)
+        Wt, iterW = _pg_subsolve(AtA, AtB, W.T.contiguous(), upd.maxsubiter,
+                                 _TRACEITER, tolg, _BETA, _SIGMA)
+        if iterW == 1:
             tolg = tolg * 0.1
-    AtA, AtB = _w_problem(X, H)
-    Wt, iterW = _pg_subsolve(AtA, AtB, W.T.contiguous(), upd.maxsubiter,
-                             _TRACEITER, tolg, _BETA, _SIGMA)
-    if iterW == 1:
-        tolg = tolg * 0.1
     return Wt.T.contiguous(), H, (tolg,)
 
 

@@ -33,6 +33,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils import spans
 from .common import (
     Result,
     _impl_for,
@@ -258,7 +259,7 @@ def solve_checkpointed(alg, X, W, H, *, checkpoint_dir: str,
                    (*callers(W, H), state, torch.tensor(t, dtype=torch.int32)))
         _prune(checkpoint_dir, keep)
 
-    objv = float(impl.objective(upd, state, X, W, H))
+    objv = spans.host_read(impl.objective(upd, state, X, W, H), "float")
     return Result(*callers(W, H), t, converged, objv)
 
 

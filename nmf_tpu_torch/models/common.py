@@ -13,6 +13,11 @@ exact iteration the reference stops at.
 The core ``_solve_while_from`` is resumable (state in, state out, iteration
 bound): time-to-tolerance loops and checkpointing run it in chunks with
 identical results.
+
+While ``utils.spans`` records, a solve is a ``solve`` span holding
+``solve.prepare``, ``solve.renumber`` / ``solve.unrenumber``, one ``iter``
+an iteration (the solver's ``half.W`` and ``half.H``, then ``stop``: the
+stop test and its host read) and ``solve.objective``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import numpy as np
 import torch
 
 from .. import config
+from ..utils import spans
 from ..utils.numeric import safe_div
 
 __all__ = [
@@ -82,7 +88,7 @@ class Result:
         self.H = H
         self.niters = int(niters)
         self.converged = bool(converged)
-        self.objvalue = float(objvalue)
+        self.objvalue = spans.host_read(objvalue, "float")
         self.trace = trace
 
     def __eq__(self, other):
@@ -210,16 +216,21 @@ def _solve_while_from(upd, state, X, W, H, t0, maxiter, tol,
     maxiter = int(maxiter)
     converged = False
     while not converged and t < maxiter:
-        Wn, Hn, state = impl.update(upd, state, X, W, H)
-        conv, dev = stop_condition(Wn, W, Hn, H, tol)
-        W, H = Wn, Hn
-        if history is not None:
-            history[0][t] = impl.objective(upd, state, X, W, H)
-            history[1][t] = dev
-        t += 1
-        converged = bool(conv)  # the one host sync of the iteration
+        with spans.span("iter", t=t):
+            Wn, Hn, state = impl.update(upd, state, X, W, H)
+            if history is not None:
+                history[0][t] = impl.objective(upd, state, X, Wn, Hn)
+            with spans.span("stop"):
+                conv, dev = stop_condition(Wn, W, Hn, H, tol)
+                if history is not None:
+                    history[1][t] = dev
+                # the one host sync of the iteration
+                converged = spans.host_read(conv, "bool")
+            W, H = Wn, Hn
+            t += 1
     if with_objective:
-        objv = impl.objective(upd, state, X, W, H)
+        with spans.span("solve.objective"):
+            objv = impl.objective(upd, state, X, W, H)
     else:
         objv = torch.full((), float("nan"), dtype=W.dtype, device=W.device)
     return W, H, state, t, converged, objv
@@ -282,22 +293,26 @@ def unrenumber(W, H, perms):
 def nmf_skeleton(upd, X, W, H, maxiter, verbose, tol, trace: bool = False) -> Result:
     """Run the shared iteration skeleton and wrap the outcome in a Result.
     ``upd`` is an options object hooked up via :func:`register_solver`."""
-    nmf_checksize(X, W, H)
-    renum = _renumber_ok(upd, X)
-    if renum:
-        X, W, H, perms = renumbered_problem(X, W, H)
-    res = _nmf_skeleton_inner(upd, X, W, H, maxiter, verbose, tol, trace)
-    if renum:
-        Wn, Hn = unrenumber(res.W, res.H, perms)
-        res = Result(
-            Wn, Hn, res.niters, res.converged, res.objvalue, trace=res.trace
-        )
-    return res
+    with spans.span("solve", alg=type(upd).__name__):
+        nmf_checksize(X, W, H)
+        renum = _renumber_ok(upd, X)
+        if renum:
+            with spans.span("solve.renumber"):
+                X, W, H, perms = renumbered_problem(X, W, H)
+        res = _nmf_skeleton_inner(upd, X, W, H, maxiter, verbose, tol, trace)
+        if renum:
+            with spans.span("solve.unrenumber"):
+                Wn, Hn = unrenumber(res.W, res.H, perms)
+            res = Result(
+                Wn, Hn, res.niters, res.converged, res.objvalue, trace=res.trace
+            )
+        return res
 
 
 def _nmf_skeleton_inner(upd, X, W, H, maxiter, verbose, tol, trace) -> Result:
     maxiter = int(maxiter)
-    state = _prepare(upd, X, W, H)
+    with spans.span("solve.prepare"):
+        state = _prepare(upd, X, W, H)
     if trace:
         hist = tuple(
             torch.full((maxiter,), float("nan"), dtype=W.dtype, device=W.device)
@@ -314,7 +329,7 @@ def _nmf_skeleton_inner(upd, X, W, H, maxiter, verbose, tol, trace) -> Result:
         return Result(W, H, t, converged, objv)
 
     # single steps with the reference's trace table
-    objv = float(_objective(upd, state, X, W, H))
+    objv = spans.host_read(_objective(upd, state, X, W, H), "float")
     start = time.time()
     print(
         f"{'Iter':<5}    {'Elapsed time':<13}    {'objv':<13}    "
@@ -329,10 +344,11 @@ def _nmf_skeleton_inner(upd, X, W, H, maxiter, verbose, tol, trace) -> Result:
             upd, state, X, W, H, 0, 1, tol, with_objective=False, history=hist
         )
         t += 1
-        preobjv, objv = objv, float(hist[0][0])
+        preobjv, objv = objv, spans.host_read(hist[0][0], "float")
+        relchange = spans.host_read(hist[1][0], "float")
         print(
             f"{t:5d}    {time.time() - start:13.6e}    {objv:13.6e}    "
-            f"{objv - preobjv:13.6e}    {float(hist[1][0]):13.6e}"
+            f"{objv - preobjv:13.6e}    {relchange:13.6e}"
         )
     return Result(W, H, t, converged, objv)
 

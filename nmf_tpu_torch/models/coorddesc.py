@@ -18,6 +18,7 @@ import torch
 
 from ..ops import matops
 from ..ops.objectives import mse_objective
+from ..utils import spans
 from ..utils.dtypes import cbrt_eps
 from .common import Result, nmf_skeleton, register_batched, register_solver
 
@@ -83,7 +84,7 @@ def _halfstep(X, W, H, l1, l2, perm):
     HHt = H @ H.T + l2 * torch.eye(k, dtype=W.dtype, device=W.device)
     XHt = matops.mm(X, H.T) - l1
     # one host read per half-step: a component with a zero Hessian is skipped
-    hess = torch.diagonal(HHt).tolist()
+    hess = spans.host_read(torch.diagonal(HHt), "tolist")
     W = W.clone()
     for c in perm:
         if hess[c] == 0:
@@ -117,9 +118,11 @@ def _update(upd: CoordinateDescent, state, X, W, H):
     else:
         permW = permH = range(k)
 
-    W = _halfstep(X, W, H, l1W, l2W, permW)
+    with spans.span("half.W"):
+        W = _halfstep(X, W, H, l1W, l2W, permW)
     if upd.update_H:
-        H = _halfstep(matops.transpose(X), H.T, W.T, l1H, l2H, permH).T
+        with spans.span("half.H"):
+            H = _halfstep(matops.transpose(X), H.T, W.T, l1H, l2H, permH).T
     return W, H, (gen,)
 
 
@@ -140,7 +143,7 @@ def _halfstep_lanes(X, W, H, l1, l2, perm):
     hess_t = torch.diagonal(HHt, dim1=1, dim2=2)
     # one host read per half-step: a lane's component with a zero Hessian
     # keeps its column
-    hess = hess_t.tolist()
+    hess = spans.host_read(hess_t, "tolist")
     # ``_halfstep`` divides by a Python float, which torch applies on the
     # card as a multiply by its float32 reciprocal and on the CPU as a
     # division: the lanes do the same with their own entries
@@ -181,10 +184,12 @@ def _update_lanes(upd: CoordinateDescent, state, X, W, H):
         permH = torch.randperm(k, generator=gen).tolist()
     else:
         permW = permH = range(k)
-    W = _halfstep_lanes(X, W, H, l1W, l2W, permW)
+    with spans.span("half.W"):
+        W = _halfstep_lanes(X, W, H, l1W, l2W, permW)
     if upd.update_H:
-        H = _halfstep_lanes(matops.transpose(X), H.transpose(1, 2),
-                            W.transpose(1, 2), l1H, l2H, permH).transpose(1, 2)
+        with spans.span("half.H"):
+            H = _halfstep_lanes(matops.transpose(X), H.transpose(1, 2),
+                                W.transpose(1, 2), l1H, l2H, permH).transpose(1, 2)
     return W, H, (gen,)
 
 

@@ -30,6 +30,7 @@ import torch
 from .. import config
 from ..ops import matops
 from ..ops.objectives import mse_objective
+from ..utils import spans
 from ..utils.dtypes import cbrt_eps, eps
 from ..utils.numeric import projectnn
 from .common import Result, nmf_skeleton, register_batched, register_solver
@@ -152,7 +153,7 @@ def _greedy_rows(W, G, S, D, P, denom, Pdiag, threshold, max_inner, base=None):
     Wsub, Wflat = W, None
     for cap in caps:
         act = _active(carry, threshold, max_inner)
-        while (n_active := int(act.sum())) > cap:  # the host read
+        while (n_active := spans.host_read(act.sum(), "tolist")) > cap:  # the host read
             carry = _masked_step(Wsub, carry, act, P, denom, Pdiag, base)
             act = _active(carry, threshold, max_inner)
         if idx is not None:  # rows that finished at this level keep their deltas
@@ -295,22 +296,26 @@ def _prepare(upd: GreedyCD, X, W, H):
 
 
 def _update(upd: GreedyCD, state, X, W, H):
-    W = _halfstep(X, W, H.T, upd.lambda_w)
+    with spans.span("half.W"):
+        W = _halfstep(X, W, H.T, upd.lambda_w)
     if upd.update_H:
-        H = _halfstep(matops.transpose(X), H.T, W, upd.lambda_h).T
+        with spans.span("half.H"):
+            H = _halfstep(matops.transpose(X), H.T, W, upd.lambda_h).T
     return W, H, state
 
 
 def _update_lanes(upd: GreedyCD, state, X, W, H):
     """One sweep of every lane: ``W`` ``(m, p, k)``, ``H`` ``(m, k, n)``,
     both returned row-major, as ``_update`` returns one lane's."""
-    W = projectnn(W + _halfstep_lanes(X, W, H.transpose(1, 2), upd.lambda_w))
+    with spans.span("half.W"):
+        W = projectnn(W + _halfstep_lanes(X, W, H.transpose(1, 2), upd.lambda_w))
     if upd.update_H:
-        # H' + delta equals delta + H' element by element: the sum is taken
-        # in H's row-major layout
-        delta = _halfstep_lanes(matops.transpose(X), H.transpose(1, 2), W,
-                                upd.lambda_h)
-        H = projectnn(H + delta.transpose(1, 2))
+        with spans.span("half.H"):
+            # H' + delta equals delta + H' element by element: the sum is
+            # taken in H's row-major layout
+            delta = _halfstep_lanes(matops.transpose(X), H.transpose(1, 2), W,
+                                    upd.lambda_h)
+            H = projectnn(H + delta.transpose(1, 2))
     return W, H, state
 
 

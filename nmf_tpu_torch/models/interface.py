@@ -32,6 +32,7 @@ import torch
 from .. import config
 from ..init.initialization import child_generators, nndsvd, randinit
 from ..ops import matops
+from ..utils import spans
 from ..utils.dtypes import default_tol
 from .alspgrad import ALSPGrad
 from .common import Result, solve
@@ -60,7 +61,7 @@ def _solve_device(device, mesh):
 
 
 def _check_nonneg(A, name):
-    ok = bool(matops.all_nonneg(A))
+    ok = spans.host_read(matops.all_nonneg(A), "bool")
     if not ok:
         raise ValueError(f"The elements of {name} must be non-negative.")
 
@@ -99,6 +100,64 @@ def nnmf(
     ``parallel_replicates`` runs the restarts as one batch
     (``solve_replicates(..., parallel=True)``).
     """
+    with spans.span("nnmf", alg=alg, k=k, replicates=replicates,
+                    parallel=parallel_replicates):
+        with spans.span("nnmf.checks"):
+            dev, X, W0, H0 = _checked_problem(X, k, init, alg, replicates, W0, H0,
+                                              update_H, device, mesh)
+        T = X.dtype
+        if tol is None:
+            tol = default_tol(T)
+        if generator is None:
+            generator = torch.Generator().manual_seed(seed)
+        ginit, grep, gshuf = child_generators(generator, 3)
+
+        # ProjectedALS overwrites H before reading it, so H needn't be initialized
+        initH = alg != "projals"
+
+        with spans.span("nnmf.init"):
+            if init == "random":
+                W, H = randinit(X, k, zeroh=not initH, normalize=True, generator=ginit,
+                                device=dev)
+            elif init in ("nndsvd", "nndsvda", "nndsvdar"):
+                variant = {"nndsvd": "std", "nndsvda": "a", "nndsvdar": "ar"}[init]
+                W, H = nndsvd(X, k, variant=variant, zeroh=not initH, initdata=initdata,
+                              generator=ginit, device=dev)
+            elif init == "spa":
+                W, H = spa(X, k, device=dev)
+            else:
+                W, H = W0, H0
+
+        if mesh is not None:
+            from ..parallel.sharding import shard_problem
+
+            X, W, H = shard_problem(mesh, X, W, H)
+
+        opts = dict(maxiter=maxiter, tol=float(tol), verbose=verbose, update_H=update_H)
+        if alg == "projals":
+            alginst = ProjectedALS(**opts)
+        elif alg == "alspgrad":
+            alginst = ALSPGrad(**opts)
+        elif alg == "multmse":
+            alginst = MultUpdate(obj="mse", **opts)
+        elif alg == "multdiv":
+            alginst = MultUpdate(obj="div", **opts)
+        elif alg == "greedycd":
+            alginst = GreedyCD(**opts)
+        elif alg == "spa":
+            alginst = SPA(obj="mse")
+        else:
+            alginst = CoordinateDescent(generator=gshuf, **opts)
+        return solve_replicates(
+            alginst, X, W, H, replicates=replicates, initH=initH, generator=grep,
+            trace=trace, device=dev, mesh=mesh, parallel=parallel_replicates,
+        )
+
+
+def _checked_problem(X, k, init, alg, replicates, W0, H0, update_H, device, mesh):
+    """``nnmf``'s checks of its arguments, in the reference's order, with X
+    (and a custom start) moved to the solve's device: ``(dev, X, W0,
+    H0)``."""
     dev = _solve_device(device, mesh)
     X = matops.as_operand(X, dev)
     if matops.is_structured(X):
@@ -137,52 +196,7 @@ def nnmf(
         raise ValueError("Invalid algorithm.")
     if alg == "spa" and init != "spa":
         raise ValueError("Invalid value for init, use :spa instead.")
-
-    if tol is None:
-        tol = default_tol(T)
-    if generator is None:
-        generator = torch.Generator().manual_seed(seed)
-    ginit, grep, gshuf = child_generators(generator, 3)
-
-    # ProjectedALS overwrites H before reading it, so H needn't be initialized
-    initH = alg != "projals"
-
-    if init == "random":
-        W, H = randinit(X, k, zeroh=not initH, normalize=True, generator=ginit,
-                        device=dev)
-    elif init in ("nndsvd", "nndsvda", "nndsvdar"):
-        variant = {"nndsvd": "std", "nndsvda": "a", "nndsvdar": "ar"}[init]
-        W, H = nndsvd(X, k, variant=variant, zeroh=not initH, initdata=initdata,
-                      generator=ginit, device=dev)
-    elif init == "spa":
-        W, H = spa(X, k, device=dev)
-    else:
-        W, H = W0, H0
-
-    if mesh is not None:
-        from ..parallel.sharding import shard_problem
-
-        X, W, H = shard_problem(mesh, X, W, H)
-
-    opts = dict(maxiter=maxiter, tol=float(tol), verbose=verbose, update_H=update_H)
-    if alg == "projals":
-        alginst = ProjectedALS(**opts)
-    elif alg == "alspgrad":
-        alginst = ALSPGrad(**opts)
-    elif alg == "multmse":
-        alginst = MultUpdate(obj="mse", **opts)
-    elif alg == "multdiv":
-        alginst = MultUpdate(obj="div", **opts)
-    elif alg == "greedycd":
-        alginst = GreedyCD(**opts)
-    elif alg == "spa":
-        alginst = SPA(obj="mse")
-    else:
-        alginst = CoordinateDescent(generator=gshuf, **opts)
-    return solve_replicates(
-        alginst, X, W, H, replicates=replicates, initH=initH, generator=grep,
-        trace=trace, device=dev, mesh=mesh, parallel=parallel_replicates,
-    )
+    return dev, X, W0, H0
 
 
 @config.precision_scope()
@@ -209,21 +223,23 @@ def solve_replicates(
         return ret
     if generator is None:
         generator = torch.Generator().manual_seed(0)
-    if parallel:
-        best = solve_replicates_batched(
-            alginst, X, k, replicates - 1, initH=initH, generator=generator,
-            device=dev, mesh=mesh)
-        if best is not None:
-            return best if best.objvalue < ret.objvalue else ret
-    for sub in child_generators(generator, replicates - 1):
-        Wr, Hr = randinit(
-            X, k, zeroh=not initH, normalize=True, generator=sub, device=dev
-        )
-        if mesh is not None:
-            from ..parallel.sharding import shard_problem
+    with spans.span("replicates"):
+        if parallel:
+            best = solve_replicates_batched(
+                alginst, X, k, replicates - 1, initH=initH, generator=generator,
+                device=dev, mesh=mesh)
+            if best is not None:
+                return best if best.objvalue < ret.objvalue else ret
+        for sub in child_generators(generator, replicates - 1):
+            with spans.span("replicates.draw"):
+                Wr, Hr = randinit(
+                    X, k, zeroh=not initH, normalize=True, generator=sub, device=dev
+                )
+                if mesh is not None:
+                    from ..parallel.sharding import shard_problem
 
-            _, Wr, Hr = shard_problem(mesh, X, Wr, Hr)
-        tmp = solve(alginst, X, Wr, Hr, device=dev)
-        if ret.objvalue > tmp.objvalue:
-            ret = tmp
-    return ret
+                    _, Wr, Hr = shard_problem(mesh, X, Wr, Hr)
+            tmp = solve(alginst, X, Wr, Hr, device=dev)
+            if ret.objvalue > tmp.objvalue:
+                ret = tmp
+        return ret

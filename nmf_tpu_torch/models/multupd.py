@@ -20,6 +20,7 @@ import warnings
 
 from ..ops import matops
 from ..ops.objectives import kl_objective, mse_objective
+from ..utils import spans
 from ..utils.dtypes import cbrt_eps, sqrt_eps
 from .common import Result, nmf_skeleton, register_solver
 
@@ -101,19 +102,21 @@ def _update_mse(upd: MultUpdate, state, X, W, H):
         W, H = W.contiguous(), H.contiguous()
 
     if upd.update_H:
-        WtX = matops.mtm(W.T, X)
-        if use_kernels:
-            H = mu_factor_update(H, W.T @ W, WtX, lam_h, delta)
-        else:
-            WtWH = (W.T @ W) @ H
-            H = H * ((WtX - lam_h).clamp_min(0) / (WtWH + delta))
+        with spans.span("half.H"):
+            WtX = matops.mtm(W.T, X)
+            if use_kernels:
+                H = mu_factor_update(H, W.T @ W, WtX, lam_h, delta)
+            else:
+                WtWH = (W.T @ W) @ H
+                H = H * ((WtX - lam_h).clamp_min(0) / (WtWH + delta))
 
-    XHt = matops.mm(X, H.T)
-    if use_kernels:
-        W = mu_factor_update(W.T, H @ H.T, XHt.T, lam_w, delta).T
-    else:
-        WHHt = W @ (H @ H.T)
-        W = W * ((XHt - lam_w).clamp_min(0) / (WHHt + delta))
+    with spans.span("half.W"):
+        XHt = matops.mm(X, H.T)
+        if use_kernels:
+            W = mu_factor_update(W.T, H @ H.T, XHt.T, lam_w, delta).T
+        else:
+            WHHt = W @ (H @ H.T)
+            W = W * ((XHt - lam_w).clamp_min(0) / (WHHt + delta))
     return W, H, state
 
 
@@ -134,23 +137,26 @@ def _update_div(upd: MultUpdate, state, X, W, H):
         # the dense p x n WH is never formed
         if matops.is_sparse(X):
             wh_at_nnz = matops.sddmm(W, H, X)
-            return matops.scale_values(X, matops.nnz_values(X) / (wh_at_nnz + delta))
+            with spans.span("refresh"):
+                return matops.scale_values(X, matops.nnz_values(X) / (wh_at_nnz + delta))
         return X / (W @ H + delta)
 
     if upd.update_H:
-        if use_kernels:
-            WtQ = matops.wtq(X, W, H, delta)
-        else:
-            WtQ = matops.mtm(W.T, quotient(W, H))
-        sW = W.sum(dim=0)  # (k,)
-        H = H * (WtQ / (sW[:, None] + lam_h))
+        with spans.span("half.H"):
+            if use_kernels:
+                WtQ = matops.wtq(X, W, H, delta)
+            else:
+                WtQ = matops.mtm(W.T, quotient(W, H))
+            sW = W.sum(dim=0)  # (k,)
+            H = H * (WtQ / (sW[:, None] + lam_h))
 
-    if use_kernels:
-        QHt = matops.qht(X, W, H, delta)
-    else:
-        QHt = matops.mm(quotient(W, H), H.T)
-    sH = H.sum(dim=1)  # (k,)
-    W = W * (QHt / (sH[None, :] + lam_w))
+    with spans.span("half.W"):
+        if use_kernels:
+            QHt = matops.qht(X, W, H, delta)
+        else:
+            QHt = matops.mm(quotient(W, H), H.T)
+        sH = H.sum(dim=1)  # (k,)
+        W = W * (QHt / (sH[None, :] + lam_w))
     return W, H, state
 
 

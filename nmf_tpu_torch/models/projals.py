@@ -15,6 +15,7 @@ import torch
 from ..ops import matops
 from ..ops.linalg import pdrsolve, pdsolve
 from ..ops.objectives import mse_objective
+from ..utils import spans
 from ..utils.dtypes import cbrt_eps
 from ..utils.numeric import projectnn
 from .common import Result, nmf_skeleton, register_solver
@@ -64,10 +65,12 @@ def _update(upd: ProjectedALS, state, X, W, H):
     k = W.shape[1]
     eye = torch.eye(k, dtype=W.dtype, device=W.device)
     if upd.update_H:
-        WtW = W.T @ W + upd.lambda_h * eye
-        H = projectnn(pdsolve(WtW, matops.mtm(W.T, X)))
-    HHt = H @ H.T + upd.lambda_w * eye
-    W = projectnn(pdrsolve(matops.mm(X, H.T), HHt))
+        with spans.span("half.H"):
+            WtW = W.T @ W + upd.lambda_h * eye
+            H = projectnn(pdsolve(WtW, matops.mtm(W.T, X)))
+    with spans.span("half.W"):
+        HHt = H @ H.T + upd.lambda_w * eye
+        W = projectnn(pdrsolve(matops.mm(X, H.T), HHt))
     return W, H, state
 
 

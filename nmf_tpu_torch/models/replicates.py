@@ -16,6 +16,11 @@ GreedyCD's masked steps, run as one batch, so the host enqueues a step once
 for all lanes.  Every other solver steps its lanes one after the other with
 its own ``update`` (the sequential bits), and still reads all the lanes'
 flags once an iteration.
+
+While ``utils.spans`` records, ``solve_lanes`` is a ``solve`` span (attr
+``lanes``) whose ``iter`` spans carry ``lanes``, the lanes still running;
+``solve_replicates_batched`` draws the starts in ``replicates.draw`` and
+steps them in ``replicates.lanes``.
 """
 
 from __future__ import annotations
@@ -25,6 +30,7 @@ import torch
 from .. import config
 from ..init.initialization import child_generators, randinit
 from ..ops import matops
+from ..utils import spans
 from .common import (
     _BATCHED,
     Result,
@@ -56,60 +62,68 @@ def solve_lanes(alginst, X, Ws, Hs, *, device=config.DEFAULT_DEVICE):
         raise ValueError(f"{r} starts of W but {Hs.shape[0]} of H")
     nmf_checksize(X, Ws[0], Hs[0])
     upd, tol = alginst._resolved(Ws.dtype)
-    impl = _impl_for(upd)
-    batched = _BATCHED.get(type(upd))
-    perms = None
-    if _renumber_ok(upd, X):
-        X, Ws, Hs, perms = renumbered_problem(X, Ws, Hs)
-    else:
-        Ws, Hs = Ws.contiguous(), Hs.contiguous()
-
-    maxiter = int(upd.maxiter)
-    # the lanes as a stacked pair for a batched updater, else one tensor a
-    # lane, each as the sequential solve holds it
-    if batched is not None:
-        state = impl.prepare(upd, X, Ws[0], Hs[0])
-        W, H = Ws, Hs
-    else:
-        W, H = list(Ws.unbind(0)), list(Hs.unbind(0))
-        state = [impl.prepare(upd, X, w, h) for w, h in zip(W, H)]
-    running = list(range(r))  # lane of each slot of the batch
-    final = [None] * r  # (W, H, niters, converged, state) once a lane stops
-    t = 0
-    while running and t < maxiter:
-        if batched is not None:
-            Wn, Hn, state = batched(upd, state, X, W, H)
+    with spans.span("solve", alg=type(upd).__name__, lanes=r):
+        impl = _impl_for(upd)
+        batched = _BATCHED.get(type(upd))
+        perms = None
+        if _renumber_ok(upd, X):
+            with spans.span("solve.renumber"):
+                X, Ws, Hs, perms = renumbered_problem(X, Ws, Hs)
         else:
-            stepped = [impl.update(upd, s, X, w, h) for s, w, h in zip(state, W, H)]
-            Wn, Hn, state = (list(a) for a in zip(*stepped))
-        conv = torch.stack([stop_condition(Wn[i], W[i], Hn[i], H[i], tol)[0]
-                            for i in range(len(running))])
-        flags = conv.tolist()  # the one host sync of the iteration
-        t += 1
-        W, H = Wn, Hn
-        stay = [i for i, f in enumerate(flags) if not f and t < maxiter]
-        for i, f in enumerate(flags):
-            if f or t >= maxiter:
-                lane_state = state if batched is not None else state[i]
-                final[running[i]] = (W[i], H[i], t, f, lane_state)
-        if len(stay) < len(running):
-            running = [running[i] for i in stay]
-            if batched is not None:
-                at = torch.tensor(stay, dtype=torch.long, device=W.device)
-                W, H = W.index_select(0, at), H.index_select(0, at)
-            else:
-                W, H, state = ([a[i] for i in stay] for a in (W, H, state))
-    for i, lane in enumerate(running):  # maxiter of 0
-        final[lane] = (W[i], H[i], t, False,
-                       state if batched is not None else state[i])
+            Ws, Hs = Ws.contiguous(), Hs.contiguous()
 
-    out = []
-    for w, h, niters, converged, s in final:
-        objv = impl.objective(upd, s, X, w, h)
-        if perms is not None:
-            w, h = unrenumber(w, h, perms)
-        out.append((w, h, niters, converged, objv))
-    return out
+        maxiter = int(upd.maxiter)
+        # the lanes as a stacked pair for a batched updater, else one tensor a
+        # lane, each as the sequential solve holds it
+        with spans.span("solve.prepare"):
+            if batched is not None:
+                state = impl.prepare(upd, X, Ws[0], Hs[0])
+                W, H = Ws, Hs
+            else:
+                W, H = list(Ws.unbind(0)), list(Hs.unbind(0))
+                state = [impl.prepare(upd, X, w, h) for w, h in zip(W, H)]
+        running = list(range(r))  # lane of each slot of the batch
+        final = [None] * r  # (W, H, niters, converged, state) once a lane stops
+        t = 0
+        while running and t < maxiter:
+            with spans.span("iter", t=t, lanes=len(running)):
+                if batched is not None:
+                    Wn, Hn, state = batched(upd, state, X, W, H)
+                else:
+                    stepped = [impl.update(upd, s, X, w, h) for s, w, h in zip(state, W, H)]
+                    Wn, Hn, state = (list(a) for a in zip(*stepped))
+                with spans.span("stop"):
+                    conv = torch.stack([stop_condition(Wn[i], W[i], Hn[i], H[i], tol)[0]
+                                        for i in range(len(running))])
+                    # the one host sync of the iteration
+                    flags = spans.host_read(conv, "tolist")
+                t += 1
+                W, H = Wn, Hn
+                stay = [i for i, f in enumerate(flags) if not f and t < maxiter]
+                for i, f in enumerate(flags):
+                    if f or t >= maxiter:
+                        lane_state = state if batched is not None else state[i]
+                        final[running[i]] = (W[i], H[i], t, f, lane_state)
+                if len(stay) < len(running):
+                    running = [running[i] for i in stay]
+                    if batched is not None:
+                        at = torch.tensor(stay, dtype=torch.long, device=W.device)
+                        W, H = W.index_select(0, at), H.index_select(0, at)
+                    else:
+                        W, H, state = ([a[i] for i in stay] for a in (W, H, state))
+        for i, lane in enumerate(running):  # maxiter of 0
+            final[lane] = (W[i], H[i], t, False,
+                           state if batched is not None else state[i])
+
+        out = []
+        for w, h, niters, converged, s in final:
+            with spans.span("solve.objective"):
+                objv = impl.objective(upd, s, X, w, h)
+            if perms is not None:
+                with spans.span("solve.unrenumber"):
+                    w, h = unrenumber(w, h, perms)
+            out.append((w, h, niters, converged, objv))
+        return out
 
 
 def solve_replicates_batched(alginst, X, k: int, nrep: int, *, initH: bool,
@@ -123,12 +137,14 @@ def solve_replicates_batched(alginst, X, k: int, nrep: int, *, initH: bool,
     if nrep < 1 or not hasattr(alginst, "_resolved"):
         return None
     dev = mesh.lead if mesh is not None else config.resolve_device(device)
-    starts = [randinit(X, k, zeroh=not initH, normalize=True, generator=sub,
-                       device=dev) for sub in child_generators(generator, nrep)]
-    Ws = torch.stack([w for w, _ in starts])
-    Hs = torch.stack([h for _, h in starts])
-    del starts
-    lanes = solve_lanes(alginst, X, Ws, Hs, device=dev)
+    with spans.span("replicates.draw"):
+        starts = [randinit(X, k, zeroh=not initH, normalize=True, generator=sub,
+                           device=dev) for sub in child_generators(generator, nrep)]
+        Ws = torch.stack([w for w, _ in starts])
+        Hs = torch.stack([h for _, h in starts])
+        del starts
+    with spans.span("replicates.lanes"):
+        lanes = solve_lanes(alginst, X, Ws, Hs, device=dev)
     results = [Result(*lane) for lane in lanes]
     best = results[0]
     for res in results[1:]:  # as the sequential loop keeps its best

@@ -15,10 +15,11 @@ import hashlib
 import os
 import shutil
 import subprocess
-import time
 from pathlib import Path
 
 import torch
+
+from ...utils import spans
 
 __all__ = ["load_kernels", "launch", "launch_counts", "reset_launch_counts",
            "KERNELS", "NVCC_FLAGS", "SMEM_PER_BLOCK"]
@@ -94,7 +95,6 @@ KERNELS = tuple(name[len("nmf_"):] for name in _ARGTYPES)
 _launches = dict.fromkeys(KERNELS, 0)
 
 _lib = None
-build_seconds = None  # seconds the last build in this process took, if any
 
 
 def _nvcc() -> str:
@@ -138,31 +138,33 @@ def _build(target: Path) -> None:
 
 def load_kernels():
     """The kernels' shared library (built on first call), with ``argtypes``
-    and ``restype`` set on every entry point."""
-    global _lib, build_seconds
+    and ``restype`` set on every entry point.  Recorded as the spans
+    ``kernels.load`` and, around a build, ``kernels.build``."""
+    global _lib
     if _lib is not None:
         return _lib
-    h = hashlib.sha256()
-    for s in SOURCES + HEADERS:
-        h.update((CSRC / s).read_bytes())
-    h.update(" ".join(NVCC_FLAGS).encode())
-    target = BUILD / f"libnmf_kernels_{h.hexdigest()[:16]}.so"
-    if not target.exists():
-        t0 = time.perf_counter()
-        _build(target)
-        build_seconds = time.perf_counter() - t0
-    lib = ctypes.CDLL(str(target))
-    for name, argtypes in _ARGTYPES.items():
-        fn = getattr(lib, name)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    _lib = lib
+    with spans.span("kernels.load"):
+        h = hashlib.sha256()
+        for s in SOURCES + HEADERS:
+            h.update((CSRC / s).read_bytes())
+        h.update(" ".join(NVCC_FLAGS).encode())
+        target = BUILD / f"libnmf_kernels_{h.hexdigest()[:16]}.so"
+        if not target.exists():
+            with spans.span("kernels.build"):
+                _build(target)
+        lib = ctypes.CDLL(str(target))
+        for name, argtypes in _ARGTYPES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
     return lib
 
 
 def launch(name: str, *args) -> None:
-    """Launch kernel ``name`` and count the launch; raises when the launch
-    is refused.  The only place a count moves.  A tensor argument is passed
+    """Launch kernel ``name`` and count the launch (also in the innermost
+    span while ``utils.spans`` records); raises when the launch is refused.
+    The only place a count moves.  A tensor argument is passed
     as its data pointer; the kernel runs on the device of the first one, on
     that device's current stream, under a device guard."""
     fn = getattr(load_kernels(), f"nmf_{name}")
@@ -173,6 +175,7 @@ def launch(name: str, *args) -> None:
     if err != 0:
         raise RuntimeError(f"{name} failed to launch: CUDA error {err}")
     _launches[name] += 1
+    spans.launched()
 
 
 def launch_counts() -> dict:

@@ -9,7 +9,8 @@
 ``utils.numeric.projectnn`` and ``normalize1_cols`` call them.  Each wrapper
 launches its kernel for float32 tensors on the card or raises; it takes the
 plain version beside it for tensors on the CPU and for float64 (the kernels
-are float32 only).  ``build.launch_counts()`` counts kernel launches.
+are float32 only).  ``build.launch_counts()`` counts kernel launches, and
+``utils.spans`` counts them in the innermost span while it records.
 """
 
 from __future__ import annotations

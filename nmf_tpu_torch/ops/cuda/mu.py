@@ -24,7 +24,8 @@ order it would unslabbed.
 Each wrapper launches its kernel for float32 tensors on the card or raises;
 it takes the plain version beside it for tensors on the CPU and for float64
 (the kernels are float32 only; float64 is the parity-test type and runs the
-plain expression).  ``build.launch_counts()`` counts kernel launches.
+plain expression).  ``build.launch_counts()`` counts kernel launches, and
+``utils.spans`` counts them in the innermost span while it records.
 """
 
 from __future__ import annotations

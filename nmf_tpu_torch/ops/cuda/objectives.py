@@ -8,7 +8,8 @@ walk is (``objective_splits``), each run adding its own partial.
 A wrapper launches the kernel for float32 tensors on the card or raises; it
 takes the plain version (column blocks of ``W @ H``, one reduction a block)
 for tensors on the CPU and for float64 (the kernel is float32 only).
-``build.launch_counts()`` counts kernel launches.
+``build.launch_counts()`` counts kernel launches, and ``utils.spans``
+counts them in the innermost span while it records.
 """
 
 from __future__ import annotations

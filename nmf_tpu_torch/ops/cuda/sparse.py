@@ -26,7 +26,8 @@ Each kernel has a plain PyTorch version beside it that does the same
 arithmetic over the same store arrays.  A wrapper takes the plain version
 only for tensors that live on the CPU; for CUDA tensors it launches its
 kernel or raises.  ``build.launch_counts()`` counts kernel launches, and
-nothing else.
+nothing else; while ``utils.spans`` records, each launch is also counted in
+the innermost span.
 
 On the card everything is float32 (a general X on the CPU keeps its dtype),
 with D row-major ``(n, k)``: one gathered row of D is

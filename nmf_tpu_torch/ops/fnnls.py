@@ -34,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from .. import config
+from ..utils import spans
 from . import matops
 
 __all__ = ["fnnls", "nnls_gram"]
@@ -162,7 +163,7 @@ def _run(AtA, c, tol, max_outer, cap):
     reads the count after every step).  Returns the carry, its active mask
     and their count."""
     act = _active(c, max_outer)
-    while (n_active := int(act.sum())) > cap:
+    while (n_active := spans.host_read(act.sum(), "tolist")) > cap:
         c = _masked_step(AtA, c, act, tol)
         act = _active(c, max_outer)
     return c, act, n_active

@@ -10,12 +10,18 @@ stores over a device mesh whose blocks run the same kernels, or a
 ``ShardedDense`` (``ops/dense_shard.py``), a grid of dense blocks whose
 blocks run the dense kernels.  A torch sparse tensor of any layout becomes a
 ``SparseCSR`` at the front door (``as_operand``), once.
+
+Each product entry point (``mm``, ``mtm``, ``sddmm``, ``wtq``, ``qht``) is
+one span of ``utils.spans`` while it records (``seam.<name>``, attrs
+``kind``: ``tiled``, ``csr``, ``sharded`` or ``dense``, and ``width``: the
+dense operand's columns), which counts the port's launches inside it.
 """
 
 from __future__ import annotations
 
 import torch
 
+from ..utils import spans
 from . import dense_shard as dshard
 from . import sparse_shard as shard
 from .sparse_format import SparseCSR, TiledCSR
@@ -121,59 +127,74 @@ def is_dense_f32_on_card(X) -> bool:
     return probe.is_cuda and probe.dtype == torch.float32
 
 
+def _kind(X) -> str:
+    """The seam span's ``kind`` attr of X."""
+    if is_tiled(X):
+        return "tiled"
+    if is_general(X):
+        return "csr"
+    if is_sharded_tiled(X) or is_sharded_dense(X):
+        return "sharded"
+    return "dense"
+
+
 def mm(X, D):
     """``X @ D`` for dense or sparse X (dense result)."""
-    if is_tiled(X):
-        from .cuda.sparse import tiled_mm
+    with spans.span("seam.mm", kind=_kind(X), width=D.shape[-1]):
+        if is_tiled(X):
+            from .cuda.sparse import tiled_mm
 
-        return tiled_mm(X, D).to(D.dtype)
-    if is_general(X):
-        from .cuda.sparse import csr_mm
+            return tiled_mm(X, D).to(D.dtype)
+        if is_general(X):
+            from .cuda.sparse import csr_mm
 
-        return csr_mm(X.fwd, D)
-    if is_sharded_tiled(X):
-        return shard.sharded_mm(X, D).to(D.dtype)
-    if is_sharded_dense(X):
-        return dshard.dense_mm(X, D)
-    return X @ D
+            return csr_mm(X.fwd, D)
+        if is_sharded_tiled(X):
+            return shard.sharded_mm(X, D).to(D.dtype)
+        if is_sharded_dense(X):
+            return dshard.dense_mm(X, D)
+        return X @ D
 
 
 def mtm(D, X):
     """``D @ X`` with D dense (used as ``W.T @ X``; dense result)."""
-    if is_tiled(X):
-        from .cuda.sparse import tiled_mtm
+    with spans.span("seam.mtm", kind=_kind(X), width=D.shape[0]):
+        if is_tiled(X):
+            from .cuda.sparse import tiled_mtm
 
-        return tiled_mtm(X, D.T).T.to(D.dtype)
-    if is_general(X):
-        from .cuda.sparse import csr_mm
+            return tiled_mtm(X, D.T).T.to(D.dtype)
+        if is_general(X):
+            from .cuda.sparse import csr_mm
 
-        # (X' D')' on X's transposed orientation: no transpose of X
-        return csr_mm(X.bwd, D.T).T
-    if is_sharded_tiled(X):
-        return shard.sharded_mtm(X, D.T).T.to(D.dtype)
-    if is_sharded_dense(X):
-        return dshard.dense_mtm(D, X)
-    return D @ X
+            # (X' D')' on X's transposed orientation: no transpose of X
+            return csr_mm(X.bwd, D.T).T
+        if is_sharded_tiled(X):
+            return shard.sharded_mtm(X, D.T).T.to(D.dtype)
+        if is_sharded_dense(X):
+            return dshard.dense_mtm(D, X)
+        return D @ X
 
 
 def wtq(X, W, H, delta):
     """``W' (X / (W H + delta))`` for a dense X, the quotient never formed
     whole: kernel 8 on the card (its plain version on the CPU), a block at a
     time on a ``ShardedDense``."""
-    if is_sharded_dense(X):
-        return dshard.dense_wtq(X, W, H, delta)
-    from .cuda.mu import wtq as wtq_kernel
+    with spans.span("seam.wtq", kind=_kind(X), width=W.shape[1]):
+        if is_sharded_dense(X):
+            return dshard.dense_wtq(X, W, H, delta)
+        from .cuda.mu import wtq as wtq_kernel
 
-    return wtq_kernel(X, W, H, delta)
+        return wtq_kernel(X, W, H, delta)
 
 
 def qht(X, W, H, delta):
     """``(X / (W H + delta)) H'`` for a dense X, as ``wtq`` (kernel 9)."""
-    if is_sharded_dense(X):
-        return dshard.dense_qht(X, W, H, delta)
-    from .cuda.mu import qht as qht_kernel
+    with spans.span("seam.qht", kind=_kind(X), width=W.shape[1]):
+        if is_sharded_dense(X):
+            return dshard.dense_qht(X, W, H, delta)
+        from .cuda.mu import qht as qht_kernel
 
-    return qht_kernel(X, W, H, delta)
+        return qht_kernel(X, W, H, delta)
 
 
 def _slim_guard(X, attr, op):
@@ -193,20 +214,21 @@ def sddmm(W, H, X):
     ``nnz_values(X)`` (sparse X only).  A store on the card goes through
     ``tiled_sddmm`` and its chunk kernel; a store on the CPU and a general X
     take the gather-gather-reduce form."""
-    if is_general(X):
-        from .cuda.sparse import csr_sample
+    with spans.span("seam.sddmm", kind=_kind(X), width=W.shape[1]):
+        if is_general(X):
+            from .cuda.sparse import csr_sample
 
-        return csr_sample(X.fwd, W, H)
-    if is_sharded_tiled(X):
-        return shard.sharded_sddmm(X, W, H)
-    if not is_tiled(X):
-        raise TypeError("sddmm needs a sparse X")
-    ri = _slim_guard(X, "row_idx", "sddmm").long()
-    if X.device.type == "cuda":
-        from .cuda.sparse import tiled_sddmm
+            return csr_sample(X.fwd, W, H)
+        if is_sharded_tiled(X):
+            return shard.sharded_sddmm(X, W, H)
+        if not is_tiled(X):
+            raise TypeError("sddmm needs a sparse X")
+        ri = _slim_guard(X, "row_idx", "sddmm").long()
+        if X.device.type == "cuda":
+            from .cuda.sparse import tiled_sddmm
 
-        return tiled_sddmm(X, W, H)
-    return (W[ri, :] * H[:, X.col_idx.long()].T).sum(dim=1)
+            return tiled_sddmm(X, W, H)
+        return (W[ri, :] * H[:, X.col_idx.long()].T).sum(dim=1)
 
 
 def scale_values(X, new_values):

@@ -60,6 +60,7 @@ from ..io.loader import (
     stable_argsort,
     tile_key,
 )
+from ..utils import spans
 
 TILE = 128  # row-panel height == col-panel width == chunk capacity
 DENSE_GROUP = 8  # dense-tile blocks per window (same stripe and col panel)
@@ -846,6 +847,12 @@ def side_from_numpy(f, device) -> TiledSideC:
     })
 
 
+def store_pass(name):
+    """The span of one pass of a store's build (``store.pass``, attr
+    ``pass``)."""
+    return spans.span("store.pass", **{"pass": name})
+
+
 def build_tiled(
     rows, cols, vals, shape, *, stripe_tiles: int = 32, layout: str = "compact",
     group: int = 16, order: str = "degree", dense_tile_nnz: int | None = None,
@@ -872,60 +879,65 @@ def build_tiled(
     if layout != "compact":
         raise ValueError(f"layout={layout!r} is not supported: use 'compact'")
     dev = config.resolve_device(device)
-    p, n = shape
-    rows = np.asarray(rows, np.int32)
-    cols = np.asarray(cols, np.int32)
-    vals = np.asarray(vals, np.float32)
-    # == lexsort((cols, rows))
-    so = stable_argsort(rows.astype(np.int64) * n + cols)
-    rows, cols, vals = gather3(so, rows, cols, vals)
+    with spans.span("store.build", nnz=len(vals)):
+        p, n = shape
+        with store_pass("sort"):
+            rows = np.asarray(rows, np.int32)
+            cols = np.asarray(cols, np.int32)
+            vals = np.asarray(vals, np.float32)
+            # == lexsort((cols, rows))
+            so = stable_argsort(rows.astype(np.int64) * n + cols)
+            rows, cols, vals = gather3(so, rows, cols, vals)
 
-    row_perm = row_rank = col_perm = col_rank = None
-    rows_t, cols_t = rows, cols
-    if order == "degree":
-        rdeg = np.bincount(rows, minlength=p)
-        cdeg = np.bincount(cols, minlength=n)
-        row_perm = np.argsort(-rdeg, kind="stable").astype(np.int32)
-        col_perm = np.argsort(-cdeg, kind="stable").astype(np.int32)
-        row_rank = np.empty(p, np.int32)
-        row_rank[row_perm] = np.arange(p, dtype=np.int32)
-        col_rank = np.empty(n, np.int32)
-        col_rank[col_perm] = np.arange(n, dtype=np.int32)
-        rows_t = row_rank[rows]
-        cols_t = col_rank[cols]
+            row_perm = row_rank = col_perm = col_rank = None
+            rows_t, cols_t = rows, cols
+            if order == "degree":
+                rdeg = np.bincount(rows, minlength=p)
+                cdeg = np.bincount(cols, minlength=n)
+                row_perm = np.argsort(-rdeg, kind="stable").astype(np.int32)
+                col_perm = np.argsort(-cdeg, kind="stable").astype(np.int32)
+                row_rank = np.empty(p, np.int32)
+                row_rank[row_perm] = np.arange(p, dtype=np.int32)
+                col_rank = np.empty(n, np.int32)
+                col_rank[col_perm] = np.arange(n, dtype=np.int32)
+                rows_t = row_rank[rows]
+                cols_t = col_rank[cols]
 
-    fwd = _build_side_compact(
-        rows_t, cols_t, vals, p, n, stripe_tiles, group, dense_tile_nnz,
-        tail_span, quad_tail_nnz, quad_seg, coo_tail_nnz,
-    )
-    bwd = _build_side_compact(
-        cols_t, rows_t, vals, n, p, stripe_tiles, group, dense_tile_nnz,
-        tail_span, quad_tail_nnz, quad_seg, coo_tail_nnz,
-    )
-    stats = np.asarray(
-        [
-            vals.sum(dtype=np.float64),
-            (vals.astype(np.float64) ** 2).sum(),
-            vals.min() if len(vals) else 0.0,
-        ],
-        np.float32,
-    )
-    dv = lambda a: to_tensor(a, dev)
-    return TiledCSR(
-        side_from_numpy(fwd, dev),
-        side_from_numpy(bwd, dev),
-        dv(rows),
-        dv(cols),
-        dv(vals),
-        dv(row_perm),
-        dv(row_rank),
-        dv(col_perm),
-        dv(col_rank),
-        (p, n),
-        (stripe_tiles, layout, group, dense_tile_nnz, quad_tail_nnz, quad_seg,
-         coo_tail_nnz),
-        stats=dv(stats),
-    )
+        with store_pass("bin.fwd"):
+            fwd = _build_side_compact(
+                rows_t, cols_t, vals, p, n, stripe_tiles, group, dense_tile_nnz,
+                tail_span, quad_tail_nnz, quad_seg, coo_tail_nnz,
+            )
+        with store_pass("bin.bwd"):
+            bwd = _build_side_compact(
+                cols_t, rows_t, vals, n, p, stripe_tiles, group, dense_tile_nnz,
+                tail_span, quad_tail_nnz, quad_seg, coo_tail_nnz,
+            )
+            stats = np.asarray(
+                [
+                    vals.sum(dtype=np.float64),
+                    (vals.astype(np.float64) ** 2).sum(),
+                    vals.min() if len(vals) else 0.0,
+                ],
+                np.float32,
+            )
+        with store_pass("upload"):
+            dv = lambda a: to_tensor(a, dev)
+            return TiledCSR(
+                side_from_numpy(fwd, dev),
+                side_from_numpy(bwd, dev),
+                dv(rows),
+                dv(cols),
+                dv(vals),
+                dv(row_perm),
+                dv(row_rank),
+                dv(col_perm),
+                dv(col_rank),
+                (p, n),
+                (stripe_tiles, layout, group, dense_tile_nnz, quad_tail_nnz, quad_seg,
+                 coo_tail_nnz),
+                stats=dv(stats),
+            )
 
 
 def from_bcoo(X, *, stripe_tiles: int = 32, layout: str = "compact",

@@ -42,7 +42,15 @@ from ..io.loader import gather3, stable_argsort
 from ..parallel.exchange import agree_min, agree_sum, gather_cells
 from ..parallel.mesh import Mesh
 from .cuda.sparse import tiled_mm
-from .sparse_format import TILE, TiledCSR, _build_side_compact, side_from_numpy, to_tensor
+from ..utils import spans
+from .sparse_format import (
+    TILE,
+    TiledCSR,
+    _build_side_compact,
+    side_from_numpy,
+    store_pass,
+    to_tensor,
+)
 
 __all__ = [
     "ShardedTiled",
@@ -175,83 +183,87 @@ def shard_tiled(
         raise ValueError(f"layout={layout!r} is not supported: use 'compact'")
     if order not in ("degree", "natural"):
         raise ValueError("order must be 'degree' or 'natural'")
-    p, n = shape
-    R, C = mesh.devices.shape
-    rows = np.asarray(rows, np.int32)
-    cols = np.asarray(cols, np.int32)
-    vals = np.asarray(vals, np.float32)
-    # each block a whole number of tiles: ceil(p / R) rounded up to TILE
-    local_p = -(-(-(-p // R)) // TILE) * TILE
-    local_n = -(-(-(-n // C)) // TILE) * TILE
-    own = mesh.ranks == mesh.rank
-    mine = own[rows // local_p, cols // local_n]
-    if local:
-        # agreed first, so that every process raises and none waits
-        if not agree_min(np.asarray([int(mine.all())]), mesh)[0]:
-            raise ValueError(
-                "local=True: some entries fall in blocks owned by other "
-                "processes; pass each process only its own entries")
-    perms = {}
-    if order == "degree":
-        deg = np.concatenate([np.bincount(rows, minlength=local_p * R),
-                              np.bincount(cols, minlength=local_n * C)])
-        if local:
-            deg = agree_sum(deg, mesh)
-        row_perm, row_rank = _block_perms(deg[:local_p * R], R, local_p)
-        col_perm, col_rank = _block_perms(deg[local_p * R:], C, local_n)
-        perms = {name: torch.from_numpy(a.astype(np.int64)).to(mesh.lead)
-                 for name, a in (("row_perm", row_perm), ("row_rank", row_rank),
-                                 ("col_perm", col_perm), ("col_rank", col_rank))}
-    if not mine.all():
-        rows, cols, vals = rows[mine], cols[mine], vals[mine]
-    # CSR order, as build_tiled takes it (== lexsort((cols, rows)))
-    rows, cols, vals = gather3(stable_argsort(rows.astype(np.int64) * n + cols),
-                               rows, cols, vals)
-
-    # the entries block by block (block row major), CSR order kept in each
-    blk = (rows // local_p).astype(np.int64) * C + cols // local_n
-    by_block = stable_argsort(blk)
-    start = np.concatenate([[0], np.cumsum(np.bincount(blk, minlength=R * C))])
-    opts = (stripe_tiles, layout, group, dense_tile_nnz, quad_tail_nnz, quad_seg,
-            coo_tail_nnz)
-    # per block: entries, sum, sum of squares (float64) and min
-    counts = np.zeros(R * C, np.int64)
-    sums, sqs = np.zeros(R * C), np.zeros(R * C)
-    mins = np.full(R * C, np.inf)
-    grid = []
-    for i in range(R):
-        row = []
-        for j in range(C):
-            if not own[i, j]:
-                row.append(None)
-                continue
-            sel = by_block[start[i * C + j]:start[i * C + j + 1]]
-            lr = rows[sel] - np.int32(i * local_p)
-            lc = cols[sel] - np.int32(j * local_n)
+    with spans.span("store.build", nnz=len(vals)):
+        p, n = shape
+        R, C = mesh.devices.shape
+        with store_pass("sort"):
+            rows = np.asarray(rows, np.int32)
+            cols = np.asarray(cols, np.int32)
+            vals = np.asarray(vals, np.float32)
+            # each block a whole number of tiles: ceil(p / R) rounded up to TILE
+            local_p = -(-(-(-p // R)) // TILE) * TILE
+            local_n = -(-(-(-n // C)) // TILE) * TILE
+            own = mesh.ranks == mesh.rank
+            mine = own[rows // local_p, cols // local_n]
+            if local:
+                # agreed first, so that every process raises and none waits
+                if not agree_min(np.asarray([int(mine.all())]), mesh)[0]:
+                    raise ValueError(
+                        "local=True: some entries fall in blocks owned by other "
+                        "processes; pass each process only its own entries")
+            perms = {}
             if order == "degree":
-                lr, lc = row_rank[i][lr], col_rank[j][lc]
-            v = vals[sel]
-            b = i * C + j
-            counts[b] = len(v)
-            if len(v):
-                sums[b] = v.sum(dtype=np.float64)
-                sqs[b] = (v.astype(np.float64) ** 2).sum()
-                mins[b] = v.min()
-            dev = mesh.devices[i, j]
-            side = lambda r, c, rr, cc: side_from_numpy(_build_side_compact(  # noqa: E731
-                r, c, v, rr, cc, stripe_tiles, group, dense_tile_nnz, 1,
-                quad_tail_nnz, quad_seg, coo_tail_nnz), dev)
-            row.append(TiledCSR(
-                side(lr, lc, local_p, local_n), side(lc, lr, local_n, local_p),
-                to_tensor(lr, dev), to_tensor(lc, dev), to_tensor(v, dev),
-                shape=(local_p, local_n), build_opts=opts))
-        grid.append(tuple(row))
-    # each block is owned by one process: the others add zeros
-    sums, sqs, counts = np.split(agree_sum(np.concatenate([sums, sqs, counts]), mesh), 3)
-    stats = _stats_in_block_order(sums, sqs, agree_min(mins, mesh))
-    block_nnz = tuple(tuple(int(c) for c in counts[i * C:(i + 1) * C]) for i in range(R))
-    return ShardedTiled(tuple(grid), to_tensor(stats, mesh.lead), (p, n), mesh,
-                        block_nnz, mesh.ranks, opts, **perms)
+                deg = np.concatenate([np.bincount(rows, minlength=local_p * R),
+                                      np.bincount(cols, minlength=local_n * C)])
+                if local:
+                    deg = agree_sum(deg, mesh)
+                row_perm, row_rank = _block_perms(deg[:local_p * R], R, local_p)
+                col_perm, col_rank = _block_perms(deg[local_p * R:], C, local_n)
+                perms = {name: torch.from_numpy(a.astype(np.int64)).to(mesh.lead)
+                         for name, a in (("row_perm", row_perm), ("row_rank", row_rank),
+                                         ("col_perm", col_perm), ("col_rank", col_rank))}
+            if not mine.all():
+                rows, cols, vals = rows[mine], cols[mine], vals[mine]
+            # CSR order, as build_tiled takes it (== lexsort((cols, rows)))
+            rows, cols, vals = gather3(stable_argsort(rows.astype(np.int64) * n + cols),
+                                       rows, cols, vals)
+
+            # the entries block by block (block row major), CSR order kept in each
+            blk = (rows // local_p).astype(np.int64) * C + cols // local_n
+            by_block = stable_argsort(blk)
+            start = np.concatenate([[0], np.cumsum(np.bincount(blk, minlength=R * C))])
+            opts = (stripe_tiles, layout, group, dense_tile_nnz, quad_tail_nnz, quad_seg,
+                    coo_tail_nnz)
+        # per block: entries, sum, sum of squares (float64) and min
+        counts = np.zeros(R * C, np.int64)
+        sums, sqs = np.zeros(R * C), np.zeros(R * C)
+        mins = np.full(R * C, np.inf)
+        grid = []
+        for i in range(R):
+            row = []
+            for j in range(C):
+                if not own[i, j]:
+                    row.append(None)
+                    continue
+                with store_pass("block"):
+                    sel = by_block[start[i * C + j]:start[i * C + j + 1]]
+                    lr = rows[sel] - np.int32(i * local_p)
+                    lc = cols[sel] - np.int32(j * local_n)
+                    if order == "degree":
+                        lr, lc = row_rank[i][lr], col_rank[j][lc]
+                    v = vals[sel]
+                    b = i * C + j
+                    counts[b] = len(v)
+                    if len(v):
+                        sums[b] = v.sum(dtype=np.float64)
+                        sqs[b] = (v.astype(np.float64) ** 2).sum()
+                        mins[b] = v.min()
+                    dev = mesh.devices[i, j]
+                    side = lambda r, c, rr, cc: side_from_numpy(_build_side_compact(  # noqa: E731
+                        r, c, v, rr, cc, stripe_tiles, group, dense_tile_nnz, 1,
+                        quad_tail_nnz, quad_seg, coo_tail_nnz), dev)
+                    row.append(TiledCSR(
+                        side(lr, lc, local_p, local_n), side(lc, lr, local_n, local_p),
+                        to_tensor(lr, dev), to_tensor(lc, dev), to_tensor(v, dev),
+                        shape=(local_p, local_n), build_opts=opts))
+            grid.append(tuple(row))
+        with store_pass("agree"):
+            # each block is owned by one process: the others add zeros
+            sums, sqs, counts = np.split(agree_sum(np.concatenate([sums, sqs, counts]), mesh), 3)
+            stats = _stats_in_block_order(sums, sqs, agree_min(mins, mesh))
+            block_nnz = tuple(tuple(int(c) for c in counts[i * C:(i + 1) * C]) for i in range(R))
+        return ShardedTiled(tuple(grid), to_tensor(stats, mesh.lead), (p, n), mesh,
+                            block_nnz, mesh.ranks, opts, **perms)
 
 
 def _cut_rows(A, count, size, perm):

@@ -25,6 +25,8 @@ from __future__ import annotations
 
 import torch
 
+from ..utils import spans
+
 __all__ = ["cholesky_qr"]
 
 
@@ -49,9 +51,9 @@ def cholesky_qr(Y, *, passes: int = 3):
     for _ in range(max(1, passes)):
         Q, info = _one_pass(Q, relshift)
         infos.append(info)
-    if bool(torch.stack(infos).any()):
+    if spans.host_read(torch.stack(infos).any(), "bool"):
         raise torch.linalg.LinAlgError(
             f"cholesky_qr: a shifted Gram was not positive definite "
-            f"(cholesky_ex info per pass: {torch.stack(infos).tolist()})"
+            f"(cholesky_ex info per pass: {spans.host_read(torch.stack(infos), 'tolist')})"
         )
     return Q
