@@ -2,8 +2,9 @@
 """On-card smoke run of the PyTorch/CUDA build: ``python3 chip_smoke.py``.
 
 Needs one NVIDIA Hopper card, ``nvcc``, ``g++`` and no network.  It builds the
-fourteen CUDA kernels from ``nmf_tpu_torch/csrc/`` (the twelve that replace
-the TPU kernels, the COO band's and the general-CSR product's), holds each kernel against its plain
+fifteen CUDA kernels from ``nmf_tpu_torch/csrc/`` (the twelve that replace
+the TPU kernels, the COO band's, the general-CSR product's and the Fast-HALS
+sweep's), holds each kernel against its plain
 PyTorch version on the card (the product and multiplicative-update kernels
 also at every ``k`` they refused before they summed over ``k`` in slabs), and
 drives the ported paths through ``nnmf`` and the resumable solver loop.
@@ -153,6 +154,10 @@ TF32_FLOPS = 495e12
 # n; wtq's walk over p is cut into runs), whose rounding error grows like
 # sqrt(terms) * 6e-8 = 6e-6 against the float64 reference
 REL_TOL = 2e-5
+# the HALS sweep against its plain loops in float64: each step sums k terms
+# in float32 in another order and the later columns carry it on (about
+# 1e-7 to 2e-7 of max|W| on the card tests' problems, PERF.md)
+HALS_REL_TOL = 1e-4
 # the objective sums each thread's 64 float32 terms of a step in float32 and
 # adds that sum into a double: what is left is the float32 rounding of each
 # W @ H entry and of those short sums, which averages out over 1e9 terms
@@ -799,6 +804,72 @@ def check_factor_update(X, W, H, label, timed, sweep=False, graph=False):
                     r["ms_by_width"][w] = time_ms(run, reps=3)
             finally:
                 M.mu_tiling = rule
+        rec[side] = r
+    return rec
+
+
+def check_hals_sweep(X, W0, H0):
+    """The Fast-HALS sweep kernel at both half-steps of the first HALS
+    iteration on the renumbered store: one lane (W row-major, then H's
+    transposed view), and 4 lanes from 4 starts as ``_halfstep_lanes``
+    hands them over (each lane's G, C the lanes' strided view of one
+    ``(rows, 4 k)`` product).  Each against its plain version run in float64
+    on the card, the same bits twice, each of the 4 lanes the bits of its
+    own sweep, timed beside its bound and the plain float32 loops (the
+    solver's former column loops: no one library call computes the
+    sweep)."""
+    import nmf_tpu_torch as nt
+    from nmf_tpu_torch.init.initialization import child_generators
+    from nmf_tpu_torch.models import common
+    from nmf_tpu_torch.ops import matops
+    from nmf_tpu_torch.ops.cuda import hals
+
+    lanes = 4
+    starts = [(torch.from_numpy(W0), torch.from_numpy(H0))] + [
+        nt.randinit(X, K, normalize=True, generator=g)
+        for g in child_generators(torch.Generator().manual_seed(31), lanes - 1)]
+    Xr, Ws, Hs, _ = common.renumbered_problem(
+        X, torch.stack([w.cuda() for w, _ in starts]),
+        torch.stack([h.cuda() for _, h in starts]))
+    Xt = Xr.transpose()
+
+    def lanes_of(Xs, F, D):
+        # _halfstep_lanes(Xs, F, D, 0, 0, perm)'s operands: F (m, rows, k),
+        # D (m, k, cols)
+        m, rows, k = F.shape
+        G = torch.stack([d @ d.T for d in D])
+        C = matops.mm(Xs, D.permute(2, 0, 1).reshape(D.shape[2], m * k)
+                      ).view(rows, m, k).transpose(0, 1)
+        return F, G, C
+
+    rec = {}
+    cases = (("W", lanes_of(Xr, Ws[:1], Hs[:1])),
+             ("H", lanes_of(Xt, Hs[:1].transpose(1, 2), Ws[:1].transpose(1, 2))),
+             (f"W_{lanes}_lanes", lanes_of(Xr, Ws, Hs)),
+             (f"H_{lanes}_lanes", lanes_of(Xt, Hs.transpose(1, 2), Ws.transpose(1, 2))))
+    for side, (F, G, C) in cases:
+        run = lambda: hals.hals_sweep(F.clone(), G, C, range(K))  # noqa: E731
+        got = run()
+        torch.cuda.synchronize()
+        want = hals.hals_sweep_plain(F.double(), G.double(), C.double(), range(K))
+        r = _held(f"hals_sweep {side}", got, want, HALS_REL_TOL, F.shape)
+        if got.stride() != F.stride():
+            fail(f"hals_sweep {side}: result layout differs from W's")
+        r["same_bits"] = _same_bits(f"hals_sweep {side}", run)
+        m, rows = F.shape[:2]
+        for lane in range(m if m > 1 else 0):
+            one = hals.hals_sweep(F[lane:lane + 1].clone(), G[lane:lane + 1],
+                                  C[lane:lane + 1], range(K))
+            if not torch.equal(one[0], got[lane]):
+                fail(f"hals_sweep {side}: lane {lane} alone gave other bits")
+        r["lanes"] = m
+        bound_ms, by = bound_of(m * 4 * 3 * rows * K, m * 2 * rows * K * K)
+        # timed in place on one copy: a sweep costs the same from any W
+        A = F.clone()
+        r.update(ms=time_ms(lambda: hals.hals_sweep(A, G, C, range(K))),
+                 bound_ms=bound_ms, bound_by=by,
+                 plain_ms=time_ms(lambda: hals.hals_sweep_plain(A, G, C, range(K)), reps=3))
+        r["library_ms"] = r["plain_ms"]  # the plain loops
         rec[side] = r
     return rec
 
@@ -3359,6 +3430,7 @@ def main():
     from nmf_tpu_torch.io import loader, native
     from nmf_tpu_torch.ops.cuda import build
     from nmf_tpu_torch.ops.sparse_format import build_tiled
+    from nmf_tpu_torch.utils import spans
 
     # 1. device
     smi = subprocess.run(
@@ -3372,18 +3444,20 @@ def main():
     # 2. build (kernel 11's two-pass design alongside, for its measurement)
     t0 = time.perf_counter()
     two_pass_build = start_two_pass_colsum_build()
-    build.load_kernels()
+    with spans.recording() as rec:
+        build.load_kernels()
     two_pass_colsum = load_two_pass_colsum(two_pass_build)
     logs = sorted(build.BUILD.glob("*.log"))
     ptxas = [ln.strip() for ln in logs[-1].read_text().splitlines()
              if "registers" in ln or "spill" in ln] if logs else []
     say("build", seconds=time.perf_counter() - t0,
-        built_now=build.build_seconds is not None, ptxas=ptxas)
+        built_now=any(sp.name == "kernels.build" for sp in rec.spans), ptxas=ptxas)
     # the host library of the loader and the store binner (g++)
     t0 = time.perf_counter()
-    native.load()
+    with spans.recording() as rec:
+        native.load()
     say("build_host", seconds=time.perf_counter() - t0,
-        built_now=native.build_seconds is not None, source=str(native.SOURCE.relative_to(
+        built_now=any(sp.name == "native.build" for sp in rec.spans), source=str(native.SOURCE.relative_to(
             pathlib.Path(__file__).resolve().parent)), flags=list(native.CXX_FLAGS))
 
     # 3. kernels against their plain versions: small store, then full store
@@ -3551,8 +3625,11 @@ def main():
     solved["peak_device_memory_bytes"] = torch.cuda.max_memory_allocated()
     solved["launches"] = hals_launches
     say("solve", target=TARGET_RELERR, card=smi, **solved)
-    _need_launches("solve", hals_launches, ("chunk_matmul", "dense_matmul", "coo_matmul"))
+    _need_launches("solve", hals_launches,
+                   ("chunk_matmul", "dense_matmul", "coo_matmul", "hals_sweep"))
     say("iteration_parts", card=smi, **time_iteration_parts(X, W0, H0))
+    hals_rec = check_hals_sweep(X, W0, H0)
+    say("kernels_hals", card=smi, tolerance=HALS_REL_TOL, **hals_rec)
 
     # 4b. GreedyCD, the default solver, on the same store: to the target or
     # 200 iterations (its count is chaotic near the flat end of its curve, so
@@ -3820,6 +3897,8 @@ def main():
                    {"": ew[f"{P}x{K}"]["colsum"]}),
         "scale_cols": (csrc + "elementwise.cu", pallas + "elementwise.py:74",
                        {"": ew[f"{P}x{K}"]["scale_cols"]}),
+        # no pallas_call: the JAX package's sweep is a lax.fori_loop
+        "hals_sweep": (csrc + "hals.cu", "nmf_tpu/models/coorddesc.py:90", hals_rec),
     }
     # where a kernel's launches come from shapes other than the one timed
     # above: each shape's times and its paths' launches beside the sums

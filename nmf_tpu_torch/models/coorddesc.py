@@ -2,12 +2,12 @@
 
 The reference's core loop is a sequential scalar Newton sweep over
 (component t, row i).  The data dependency is only across *components* — all
-rows are independent — so the sweep is a loop over the k components, each
-step updating one full column of W with a matrix-vector product
-``W @ HHt[:, t]``.  Exact HALS semantics (each coordinate uses the
-already-updated values of the other components) are preserved; only the row
-dimension is vectorised.  The k-step loop is a Python loop over plain tensor
-ops: X enters only through ``matops.mm`` before the loop.
+rows are independent — so a half-step forms the Gram ``H H'`` and ``X H'``
+(X enters only through ``matops.mm``), then sweeps the k components with
+exact HALS semantics (each coordinate uses the already-updated values of the
+other components): ``ops.cuda.hals.hals_sweep``, one kernel launch for every
+lane on the card, the column loops of its plain version on the CPU and in
+float64.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import dataclasses
 import torch
 
 from ..ops import matops
+from ..ops.cuda.hals import hals_sweep
 from ..ops.objectives import mse_objective
 from ..utils import spans
 from ..utils.dtypes import cbrt_eps
@@ -77,23 +78,30 @@ def _regsplit(upd: CoordinateDescent):
 
 
 def _halfstep(X, W, H, l1, l2, perm):
-    """Update ``W`` (rows x k) holding ``H`` (k x cols) fixed, with the row
-    loop vectorised.  ``perm`` (a sequence of ints) gives the component visit
-    order.  Returns a new tensor."""
-    k = H.shape[0]
-    HHt = H @ H.T + l2 * torch.eye(k, dtype=W.dtype, device=W.device)
-    XHt = matops.mm(X, H.T) - l1
-    # one host read per half-step: a component with a zero Hessian is skipped
-    hess = spans.host_read(torch.diagonal(HHt), "tolist")
+    """Update ``W`` (rows x k) holding ``H`` (k x cols) fixed.  ``perm`` (a
+    sequence of ints) gives the component visit order; a component with a
+    zero Hessian keeps its column.  Returns a new tensor with ``W``'s
+    layout."""
+    HHt = _gram(H, l2)
+    XHt = _minus(matops.mm(X, H.T), l1)
     W = W.clone()
-    for c in perm:
-        if hess[c] == 0:
-            continue
-        # grad[i] = sum_r HHt[c, r] * W[i, r] - XHt[i, c]
-        grad = torch.addmv(XHt[:, c], W, HHt[:, c], beta=-1)
-        col = W[:, c]
-        col.sub_(grad.div_(hess[c])).clamp_min_(0)
+    hals_sweep(W[None], HHt[None], XHt[None], perm)
     return W
+
+
+def _gram(H, l2):
+    """``H H' + l2 I``, with ``l2`` added to the diagonal in place and only
+    where it is not 0 (no identity formed: launches a half-step saves)."""
+    HHt = H @ H.T
+    if l2:
+        HHt.diagonal().add_(l2)
+    return HHt
+
+
+def _minus(A, l1):
+    """``A - l1``; ``A`` itself where ``l1`` is 0 (the same bits, no pass
+    over the product)."""
+    return A - l1 if l1 else A
 
 
 def _prepare(upd: CoordinateDescent, X, W, H):
@@ -130,46 +138,13 @@ def _halfstep_lanes(X, W, H, l1, l2, perm):
     """``_halfstep`` of m lanes at once: ``W`` ``(m, rows, k)``, ``H``
     ``(m, k, cols)``; every lane visits the components in ``perm``.  X
     enters once, through one product of width ``m * k``; the Grams are taken
-    lane by lane.  A column step takes each lane's gradient with the
-    ``torch.addmv`` of ``_halfstep`` (a matrix-vector product streams the
-    lane's W once, and keeps its bits), then steps column c of every lane in
-    one batch; a lane whose Hessian entry is 0 keeps that column.  Returns a
-    new tensor with ``W``'s layout."""
+    lane by lane, and one sweep steps every lane, each with the bits it has
+    alone.  Returns a new tensor with ``W``'s layout."""
     m, rows, k = W.shape
-    eye = torch.eye(k, dtype=W.dtype, device=W.device)
-    HHt = torch.stack([h @ h.T + l2 * eye for h in H])
-    XHt = (matops.mm(X, H.permute(2, 0, 1).reshape(H.shape[2], m * k)) - l1
-           ).view(rows, m, k).transpose(0, 1)
-    hess_t = torch.diagonal(HHt, dim1=1, dim2=2)
-    # one host read per half-step: a lane's component with a zero Hessian
-    # keeps its column
-    hess = spans.host_read(hess_t, "tolist")
-    # ``_halfstep`` divides by a Python float, which torch applies on the
-    # card as a multiply by its float32 reciprocal and on the CPU as a
-    # division: the lanes do the same with their own entries
-    safe = torch.where(hess_t == 0, 1, hess_t)
-    if W.is_cuda:
-        recip = safe.reciprocal()
-        scale = lambda g, c: g.mul_(recip[:, c : c + 1])  # noqa: E731
-    else:
-        scale = lambda g, c: g.div_(safe[:, c : c + 1])  # noqa: E731
-    W = W.clone()
-    grad = W.new_empty((m, rows))
-    for c in perm:
-        zero = [hess[lane][c] == 0 for lane in range(m)]
-        if all(zero):
-            continue
-        # grad[l, i] = sum_r HHt[l, r, c] * W[l, i, r] - XHt[l, i, c]
-        for lane in range(m):
-            torch.addmv(XHt[lane, :, c], W[lane], HHt[lane, :, c], beta=-1,
-                        out=grad[lane])
-        col = W[:, :, c]
-        if any(zero):
-            keep = torch.tensor(zero, device=W.device)[:, None]
-            col.copy_(torch.where(keep, col, (col - scale(grad, c)).clamp_min(0)))
-        else:
-            col.sub_(scale(grad, c)).clamp_min_(0)
-    return W
+    HHt = torch.stack([_gram(h, l2) for h in H])
+    XHt = _minus(matops.mm(X, H.permute(2, 0, 1).reshape(H.shape[2], m * k)), l1
+                 ).view(rows, m, k).transpose(0, 1)
+    return hals_sweep(W.clone(), HHt, XHt, perm)
 
 
 def _update_lanes(upd: CoordinateDescent, state, X, W, H):

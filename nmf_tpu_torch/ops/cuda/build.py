@@ -30,12 +30,13 @@ BUILD = _PKG / "build"
 SOURCES = (
     "chunk_matmul.cu", "dense_matmul.cu", "quad_matmul.cu", "coo_matmul.cu",
     "csr_matmul.cu", "chunk_sddmm.cu", "quad_sddmm.cu", "mu.cu", "objectives.cu",
-    "elementwise.cu",
+    "elementwise.cu", "hals.cu",
 )
 # quotient_tile.cuh: mu.cu and objectives.cu; sddmm_piece.cuh: the two
 # sampled products (chunk_sddmm.cu, quad_sddmm.cu); piece_walk.cuh: the chunk
 # and quad products; piece_combine.cuh: those two and the dense product;
-# cp_async.cuh: the dense product, sddmm_piece.cuh and quotient_tile.cuh
+# cp_async.cuh: the dense product, sddmm_piece.cuh, quotient_tile.cuh and
+# the HALS sweep (hals.cu)
 HEADERS = ("quotient_tile.cuh", "sddmm_piece.cuh", "piece_walk.cuh",
            "piece_combine.cuh", "cp_async.cuh")
 NVCC_FLAGS = (
@@ -49,6 +50,7 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _F = ctypes.c_float
 _S = ctypes.c_size_t
+_L = ctypes.c_longlong
 _ARGTYPES = {
     # piece_ptr, piece_panel, piece_part, split_ptr, split_panel,
     # panel_chunks, chunk_nreal, win_panel, coords, vals, D, out, parts,
@@ -88,6 +90,9 @@ _ARGTYPES = {
     "nmf_colsum": [_P] * 3 + [_I] * 5 + [_P],
     # A, sums, out, count, n, vec, stream
     "nmf_scale_cols": [_P] * 3 + [_S, _I, _I, _P],
+    # W, G, C, perm, m, rows, k, W's and C's strides (lane, row, column),
+    # stream
+    "nmf_hals_sweep": [_P] * 4 + [_I] * 3 + [_L] * 6 + [_P],
 }
 
 # one entry point ``nmf_<name>`` and one launch count per kernel

@@ -89,6 +89,79 @@ def test_halfstep_tiled_f32(l1, l2):
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **F32)
 
 
+def _former_halfstep(X, W, H, l1, l2, perm):
+    """The single-lane half-step as the solver ran it before the sweep moved
+    to ``ops.cuda.hals`` (a copy: the CPU must keep these bits)."""
+    k = H.shape[0]
+    HHt = H @ H.T + l2 * torch.eye(k, dtype=W.dtype, device=W.device)
+    XHt = X @ H.T - l1
+    hess = torch.diagonal(HHt).tolist()
+    W = W.clone()
+    for c in perm:
+        if hess[c] == 0:
+            continue
+        grad = torch.addmv(XHt[:, c], W, HHt[:, c], beta=-1)
+        col = W[:, c]
+        col.sub_(grad.div_(hess[c])).clamp_min_(0)
+    return W
+
+
+def _former_halfstep_lanes(X, W, H, l1, l2, perm):
+    """The lanes' half-step as the solver ran it before the move (a copy)."""
+    m, rows, k = W.shape
+    eye = torch.eye(k, dtype=W.dtype, device=W.device)
+    HHt = torch.stack([h @ h.T + l2 * eye for h in H])
+    XHt = (X @ H.permute(2, 0, 1).reshape(H.shape[2], m * k) - l1
+           ).view(rows, m, k).transpose(0, 1)
+    hess_t = torch.diagonal(HHt, dim1=1, dim2=2)
+    hess = hess_t.tolist()
+    safe = torch.where(hess_t == 0, 1, hess_t)
+    W = W.clone()
+    grad = W.new_empty((m, rows))
+    for c in perm:
+        zero = [hess[lane][c] == 0 for lane in range(m)]
+        if all(zero):
+            continue
+        for lane in range(m):
+            torch.addmv(XHt[lane, :, c], W[lane], HHt[lane, :, c], beta=-1,
+                        out=grad[lane])
+        col = W[:, :, c]
+        if any(zero):
+            keep = torch.tensor(zero)[:, None]
+            col.copy_(torch.where(keep, col, (col - grad.div_(safe[:, c : c + 1])).clamp_min(0)))
+        else:
+            col.sub_(grad.div_(safe[:, c : c + 1])).clamp_min_(0)
+    return W
+
+
+@pytest.mark.parametrize("dtype", [np.float32, np.float64])
+@pytest.mark.parametrize("l1, l2", [(0.0, 0.0), (0.05, 0.1)])
+@pytest.mark.parametrize("order", ["natural", "shuffled"])
+def test_halfsteps_keep_their_bits_on_the_cpu(dtype, l1, l2, order):
+    """On the CPU both half-steps take the plain sweep, which gives the bits
+    of the loops the solver ran before the sweep moved into
+    ``ops.cuda.hals``: one lane, lanes of 1 and 3 (one lane with a zero
+    Hessian entry in one column), both orientations."""
+    Xd, W, H = _problem(dtype)
+    k = W.shape[1]
+    perm = range(k) if order == "natural" else [3, 0, 5, 1, 4, 2]
+    X, Wt, Ht = (torch.from_numpy(a) for a in (Xd, W, H))
+    for args in ((X, Wt, Ht), (X.T, Ht.T, Wt.T)):
+        got = tcd._halfstep(*args, l1, l2, perm)
+        assert torch.equal(got, _former_halfstep(*args, l1, l2, perm))
+        assert got.stride() == args[1].stride()
+    rng = np.random.default_rng(4)
+    Ws = torch.from_numpy(rng.random((3, *W.shape)).astype(dtype))
+    Hs = torch.from_numpy(rng.random((3, *H.shape)).astype(dtype))
+    Hs[1, 2] = 0.0  # lane 1, component 2: a zero Hessian when l2 is 0
+    for m in (1, 3):
+        for args in ((X, Ws[:m], Hs[:m]), (X.T, Hs[:m].transpose(1, 2), Ws[:m].transpose(1, 2))):
+            got = tcd._halfstep_lanes(*args, l1, l2, perm)
+            want = _former_halfstep_lanes(*args, l1, l2, perm)
+            assert torch.equal(got, want)
+            assert got.stride() == args[1].stride()
+
+
 @pytest.mark.parametrize("reg", REG)
 @pytest.mark.parametrize("update_H", [True, False])
 def test_update_dense_f64(reg, update_H):

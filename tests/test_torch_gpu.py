@@ -270,7 +270,7 @@ def test_mu_kernels_match_their_plain_versions_on_the_card(card, p, n, k):
     assert build.launch_counts() == dict(
         chunk_matmul=0, dense_matmul=0, quad_matmul=0, coo_matmul=0, csr_matmul=0,
         chunk_sddmm=0, quad_sddmm=0, mu_factor_update=2, wtq=2, qht=2, dense_objective=4,
-        projectnn=0, colsum=0, scale_cols=0)
+        projectnn=0, colsum=0, scale_cols=0, hals_sweep=0)
 
 
 @pytest.mark.parametrize("k", [1, 9, 63, 64, 65, 128, 129, 183, 373, 437, 512])
@@ -1210,3 +1210,145 @@ def test_dense_mesh_on_one_card_follows_the_whole_x(card):
     assert a.niters == b.niters
     close(a.W, b.W, rtol=2e-4, scale=1e-4)
     assert nt.nnmf(X, 6, mesh=one.mesh, **kw) == b
+
+
+# ---------------------------------------------------------------------------
+# the Fast-HALS sweep (hals_sweep)
+
+# The kernel against the plain loops in float64: each g sums k terms of
+# about |W| G[c, c] in float32 (the kernel in a fixed order with the slab's
+# corrections, the plain version through the library's matrix-vector
+# product), so a step is off by a few k eps of max|W| and the later
+# columns carry it on; 1e-4 of max|W| leaves room at k = 520
+HALS_TOL = 1e-4
+
+
+def _hals_problem(card, m, rows, k, layout, l1, l2, zero_lane=None):
+    """Lanes of one half-step as the solver hands them to the sweep: W
+    ``(m, rows, k)`` row-major ("rows", the W half) or each lane a
+    transposed view of a row-major ``(k, rows)`` matrix ("cols", the H
+    half's ``H.T``); G = H H' + l2 I; C = X H' - l1 as the lanes' view of
+    one ``(rows, m k)`` product.  In lane ``zero_lane`` component ``k // 2``
+    has a zero row of H: a zero Hessian entry where ``l2`` is 0."""
+    g = torch.Generator(device=card).manual_seed(rows + 7 * k + m)
+    n = 2 * k + 40
+    X = torch.rand(rows, n, device=card, generator=g)
+    H = torch.rand(m, k, n, device=card, generator=g)
+    if zero_lane is not None:
+        H[zero_lane, k // 2] = 0.0
+    W = torch.rand(m, rows, k, device=card, generator=g)
+    if layout == "cols":
+        W = W.transpose(1, 2).contiguous().transpose(1, 2)
+    eye = torch.eye(k, device=card)
+    G = torch.stack([h @ h.T + l2 * eye for h in H])
+    C = (X @ H.permute(2, 0, 1).reshape(n, m * k) - l1).view(rows, m, k).transpose(0, 1)
+    return W, G, C
+
+
+def _check_hals_sweep(card, m, rows, k, layout, l1, l2, perm, zero_lane=None):
+    from nmf_tpu_torch.ops.cuda import hals
+
+    W, G, C = _hals_problem(card, m, rows, k, layout, l1, l2, zero_lane)
+    want = hals.hals_sweep_plain(W.double(), G.double(), C.double(), perm)
+    build.reset_launch_counts()
+    got = hals.hals_sweep(W.clone(), G, C, perm)
+    assert build.launch_counts()["hals_sweep"] == 1
+    assert got.stride() == W.stride()
+    close(got, want, rtol=HALS_TOL, scale=HALS_TOL)
+    # the same bits on every run
+    assert torch.equal(got, hals.hals_sweep(W.clone(), G, C, perm))
+    if zero_lane is not None:
+        assert torch.equal(got[zero_lane, :, k // 2], W[zero_lane, :, k // 2])
+        assert not torch.equal(got[zero_lane], W[zero_lane])
+    # each lane alone gives its bits in the batch
+    if m > 1:
+        for lane in range(m):
+            one = hals.hals_sweep(W[lane:lane + 1].clone(), G[lane:lane + 1],
+                                  C[lane:lane + 1], perm)
+            assert torch.equal(one[0], got[lane]), lane
+
+
+@pytest.mark.parametrize("order", ["natural", "shuffled"])
+@pytest.mark.parametrize("l1, l2", [(0.0, 0.0), (0.05, 0.1)])
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+@pytest.mark.parametrize("m", [1, 4])
+@pytest.mark.parametrize("k", [1, 7, 64, 128, 200])
+def test_hals_sweep_matches_its_plain_version(card, k, m, layout, l1, l2, order):
+    """The kernel against the plain loops in float64 at 300 rows (not a
+    multiple of the kernel's 128-row tile), both layouts of W and the lanes'
+    strided C; a lane with a zero Hessian entry keeps that column's bits; the
+    same bits twice; each of 4 lanes the bits of its own sweep."""
+    perm = (range(k) if order == "natural"
+            else torch.randperm(k, generator=torch.Generator().manual_seed(k)).tolist())
+    _check_hals_sweep(card, m, 300, k, layout, l1, l2, perm,
+                      zero_lane=m - 1 if l2 == 0 and k > 1 else None)
+
+
+@pytest.mark.parametrize("layout", ["rows", "cols"])
+def test_hals_sweep_beyond_the_tile_on_chip(card, layout):
+    """At k = 520 the tile of W does not fit shared memory (128 rows of
+    548 floats are 280 KB, a block may take 227 KB; at k = 200 it fits):
+    each thread steps its row in device memory, in the same order."""
+    perm = torch.randperm(520, generator=torch.Generator().manual_seed(1)).tolist()
+    _check_hals_sweep(card, 2, 300, 520, layout, 0.05, 0.0, perm, zero_lane=1)
+
+
+def test_hals_sweep_refuses_what_the_kernel_does_not_take(card):
+    from nmf_tpu_torch.ops.cuda import hals
+
+    W, G, C = _hals_problem(card, 2, 50, 8, "rows", 0.0, 0.0)
+    build.reset_launch_counts()
+    with pytest.raises(TypeError):
+        hals.hals_sweep(W.half(), G.half(), C.half(), range(8))
+    with pytest.raises(TypeError, match="dtypes differ"):
+        hals.hals_sweep(W, G.double(), C, range(8))
+    with pytest.raises(ValueError, match="devices differ"):
+        hals.hals_sweep(W, G.cpu(), C, range(8))
+    with pytest.raises(ValueError, match="inconsistent"):
+        hals.hals_sweep(W, G[:1], C, range(8))
+    with pytest.raises(ValueError, match="inconsistent"):
+        hals.hals_sweep(W, G, C[:, :49], range(8))
+    with pytest.raises(ValueError, match=r"\(m, rows, k\)"):
+        hals.hals_sweep(W[0], G[0], C[0], range(8))
+    with pytest.raises(ValueError, match="entries"):
+        hals.hals_sweep(W, G, C, range(7))
+    with pytest.raises(ValueError, match="permutation"):
+        hals.hals_sweep(W, G, C, [0] * 8)
+    # the kernel's own refusal: more lanes than a launch takes
+    many = torch.zeros(65_536, 1, 1, device=card)
+    with pytest.raises(RuntimeError, match="hals_sweep failed to launch"):
+        hals.hals_sweep(many, torch.ones_like(many), many.clone(), range(1))
+    with pytest.raises(ValueError, match="distinct places"):
+        hals.hals_sweep(W[:1].expand(2, 50, 8), G, C, range(8))
+    # nothing was launched, and W is as it was
+    before = W.clone()
+    with pytest.raises(ValueError):
+        hals.hals_sweep(W, G, C, [1] * 8)
+    assert build.launch_counts()["hals_sweep"] == 0 and torch.equal(W, before)
+
+
+def test_hals_solves_launch_one_sweep_a_half_step(card):
+    """A HALS solve with batched restarts sweeps each half-step in one
+    launch (the first solve's, then the lanes' together) and reads no
+    Hessian back to the host; on a store and on a dense X the batched
+    restarts give the bits of the restarts run one after the other."""
+    from nmf_tpu_torch.utils import spans
+
+    Xd = three_class_matrix()
+    r, c, v = coo_of(Xd)
+    X = build_tiled(r, c, v, Xd.shape, device=card, **BUILD)
+    kw = dict(alg="cd", init="random", replicates=4, maxiter=6, tol=1e-30, seed=3)
+    build.reset_launch_counts()
+    with spans.recording() as rec:
+        par = nt.nnmf(X, 5, parallel_replicates=True, **kw)
+    assert build.launch_counts()["hals_sweep"] == 2 * 6 + 2 * 6
+    halves = [s for s in rec.spans if s.name in ("half.W", "half.H")]
+    assert len(halves) == 24
+    assert sum(s.counts["host_reads"] for s in halves) == 0
+    assert all(s.counts["launches"] >= 1 for s in halves)
+    for A, batched in ((X, par), (torch.from_numpy(Xd).to(card), None)):
+        if batched is None:
+            batched = nt.nnmf(A, 5, parallel_replicates=True, **kw)
+        seq = nt.nnmf(A, 5, **kw)
+        assert torch.equal(batched.W, seq.W) and torch.equal(batched.H, seq.H)
+        assert batched.objvalue == seq.objvalue

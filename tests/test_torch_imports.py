@@ -49,6 +49,7 @@ MODULES = [
     "nmf_tpu_torch.ops.tsqr",
     "nmf_tpu_torch.ops.cuda.build",
     "nmf_tpu_torch.ops.cuda.elementwise",
+    "nmf_tpu_torch.ops.cuda.hals",
     "nmf_tpu_torch.ops.cuda.mu",
     "nmf_tpu_torch.ops.cuda.objectives",
     "nmf_tpu_torch.ops.cuda.sparse",
@@ -117,7 +118,8 @@ def test_every_source_of_the_port_is_checked():
             "tsqr.py", "linalg.py", "initialization.py", "projals.py",
             "alspgrad.py", "spa.py", "fnnls.py", "checkpoint.py",
             "loader.py", "replicates.py", "dense_shard.py", "exchange.py",
-            "precompile.py", "native.py", "nmf_host.cpp"} <= names
+            "precompile.py", "native.py", "nmf_host.cpp", "hals.cu",
+            "hals.py"} <= names
 
 
 def test_every_module_of_the_port_is_imported_by_the_check():
@@ -141,7 +143,7 @@ def test_build_lists_every_source_and_entry_point():
     assert set(build.KERNELS) == {
         "chunk_matmul", "dense_matmul", "quad_matmul", "coo_matmul", "csr_matmul",
         "chunk_sddmm", "quad_sddmm", "mu_factor_update", "wtq", "qht",
-        "dense_objective", "projectnn", "colsum", "scale_cols"}
+        "dense_objective", "projectnn", "colsum", "scale_cols", "hals_sweep"}
     for name in build.KERNELS:
         assert any(f'extern "C" int nmf_{name}(' in (build.CSRC / s).read_text()
                    for s in build.SOURCES), name

@@ -18,6 +18,7 @@ from jax.experimental.pallas import tpu as pltpu
 from nmf_tpu.ops.pallas import mu as jmu
 from nmf_tpu.ops.pallas import objectives as jobj
 from nmf_tpu_torch.ops.cuda import build
+from nmf_tpu_torch.ops.cuda import hals
 from nmf_tpu_torch.ops.cuda import mu as tmu
 from nmf_tpu_torch.ops.cuda import objectives as tobj
 from nmf_tpu_torch.ops.cuda import sparse as tsp
@@ -116,11 +117,14 @@ def test_wrappers_take_the_plain_version_on_the_cpu_and_count_no_launch():
                        tobj.dense_objective_plain(X, W, H, "mse"))
     assert torch.equal(tobj.kl_objective_kernel(X, W, H),
                        tobj.dense_objective_plain(X, W, H, "kl"))
+    Hl, Gl, Cl = H.T[None], G[None], (X.T @ W)[None]
+    assert torch.equal(hals.hals_sweep(Hl.clone(), Gl, Cl, range(6)),
+                       hals.hals_sweep_plain(Hl.clone(), Gl, Cl, range(6)))
     assert build.launch_counts() == before
     assert set(before) == {"chunk_matmul", "dense_matmul", "quad_matmul",
                            "coo_matmul", "csr_matmul", "chunk_sddmm", "quad_sddmm",
                            "mu_factor_update", "wtq", "qht", "dense_objective",
-                           "projectnn", "colsum", "scale_cols"}
+                           "projectnn", "colsum", "scale_cols", "hals_sweep"}
     assert not any(before.values())
     # float64 keeps its type through the plain versions
     Xd, Wd, Hd = X.double(), W.double(), H.double()
