@@ -111,9 +111,13 @@ def judged(cell, values: dict) -> dict:
                    "limit": limit} for name, limit in limits.items()}
 
 
-def check(cell, seed, kept, device) -> dict:
+def check(cell, seed, kept, device, data=None) -> dict:
+    """The kept answer's numbers beside their limits; ``data``, the whole
+    matrix, is drawn again from the seed unless given."""
     index, ans = kept
-    data = cell.module("generators", cell.config["generator"]).make(cell.config, seed, device)
+    if data is None:
+        data = cell.module("generators", cell.config["generator"]).make(cell.config, seed,
+                                                                         device)
     X = refc.operand(data)
     lanes = lane_starts(cell, data["shape"], seed, index, device)
     iters = ans.niters if cell.traffic["kind"] == "target" else cell.traffic["maxiter"]

@@ -91,14 +91,17 @@ def nnmf_seed(seed, *index) -> int:
 
 
 class Solver:
-    """The cell's solve through the program's front door."""
+    """The cell's solve through the program's front door; on a ``mesh``
+    (``device`` its lead) for a cell cut over one."""
 
-    def __init__(self, nt, X, k, traffic, device, xsq):
+    def __init__(self, nt, X, k, traffic, device, xsq, mesh=None):
         self.nt, self.X, self.k, self.tr, self.device, self.xsq = nt, X, k, traffic, device, xsq
+        self.mesh = mesh
 
     def __call__(self, W0, H0, seed, warm=False) -> Answer:
         tr = self.tr
-        kw = dict(alg=tr["alg"], init="custom", tol=tr["tol"], device=self.device, seed=seed,
+        kw = dict(alg=tr["alg"], init="custom", tol=tr["tol"], device=self.device,
+                  mesh=self.mesh, seed=seed,
                   replicates=tr.get("replicates", 1),
                   parallel_replicates=tr.get("parallel_replicates", False))
         if tr["kind"] == "iterations":

@@ -6,7 +6,9 @@ synchronize, so its range on the host covers all of its device work.  Busy
 time is the union of the device's activity intervals (kernels, copies,
 sets) inside those ranges, so work on several streams at once counts once;
 idle is the rest of the ranges.  Each idle gap is put down to the innermost
-operator the host was in at the gap's midpoint.
+operator the host was in at the gap's midpoint.  The time of NCCL's kernels
+(``collective_s``) is counted inside the ranges the same way: a kernel
+that waits for a peer is busy, not idle.
 """
 
 from __future__ import annotations
@@ -21,6 +23,7 @@ NOT_A_LAUNCH = ("Memcpy", "Memset")
 GAPS_NAMED = 4096  # the longest gaps are named by what the host was doing
 BETWEEN_OPS = "(no operator: Python between calls)"
 NAME_CHARS = 160  # of a kernel's or operator's name in the breakdown
+COLLECTIVE = "nccl"  # the kernels of NCCL's collectives
 
 
 def profile_solve(run_one) -> dict:
@@ -61,23 +64,10 @@ def _innermost(host, points):
     return out
 
 
-def summarize(events) -> dict:
-    marks, device, host = [], [], []
-    thread = None
-    for e in events:
-        s, name = e.start_ns(), e.name()
-        end = s + e.duration_ns()
-        if e.device_type() == torch.autograd.DeviceType.CUDA:
-            if name != MARK and not e.is_user_annotation():
-                device.append((s, end, name))
-        elif name == MARK:
-            marks.append((s, end))
-            thread = e.start_thread_id()
-        else:
-            host.append((s, end, name, e.start_thread_id()))
-    host = [(s, end, name) for s, end, name, t in host if t == thread]
+def _covered(merged, marks):
+    """The ns of the ``merged`` intervals inside the ``marks``, and the gaps
+    between them there."""
     busy_ns, gaps = 0, []
-    merged = _merge((s, e) for s, e, _ in device)
     starts = [s for s, _ in merged]
     for ms, me in marks:
         at = ms
@@ -93,6 +83,27 @@ def summarize(events) -> dict:
             at = max(at, e)
         if at < me:
             gaps.append((at, me))
+    return busy_ns, gaps
+
+
+def summarize(events) -> dict:
+    marks, device, host = [], [], []
+    thread = None
+    for e in events:
+        s, name = e.start_ns(), e.name()
+        end = s + e.duration_ns()
+        if e.device_type() == torch.autograd.DeviceType.CUDA:
+            if name != MARK and not e.is_user_annotation():
+                device.append((s, end, name))
+        elif name == MARK:
+            marks.append((s, end))
+            thread = e.start_thread_id()
+        else:
+            host.append((s, end, name, e.start_thread_id()))
+    host = [(s, end, name) for s, end, name, t in host if t == thread]
+    busy_ns, gaps = _covered(_merge((s, e) for s, e, _ in device), marks)
+    collective_ns, _ = _covered(_merge((s, e) for s, e, name in device
+                                       if name.startswith(COLLECTIVE)), marks)
     window_ns = sum(me - ms for ms, me in marks)
 
     per_op = defaultdict(int)
@@ -109,6 +120,7 @@ def summarize(events) -> dict:
     return {
         "window_s": window_ns / 1e9,
         "busy_s": busy_ns / 1e9,
+        "collective_s": collective_ns / 1e9,
         "launches": sum(1 for *_, name in device if not name.startswith(NOT_A_LAUNCH)),
         "device_events": len(device),
         "device_ops": top(per_op),

@@ -268,21 +268,7 @@ def join(rec_spans, device, launches, syncs, marks) -> dict:
                 dtoh += 1
     clock_excess = _clock(rec_spans, device, owner, [launches.get(d[3]) for d in device])
 
-    busy = profile._merge((s, e) for s, e, *_ in device)
-    gaps = []
-    for ms, me in marks:
-        at = ms
-        for s, e in busy[max(bisect.bisect_right([b[0] for b in busy], ms) - 1, 0):]:
-            if s >= me:
-                break
-            s, e = max(s, ms), min(e, me)
-            if e <= s:
-                continue
-            if s > at:
-                gaps.append((at, s))
-            at = max(at, e)
-        if at < me:
-            gaps.append((at, me))
+    _, gaps = profile._covered(profile._merge((s, e) for s, e, *_ in device), marks)
     gaps.sort(key=lambda g: g[0] + g[1])
     idle = defaultdict(int)
     for (s, e), i in zip(gaps, innermost(rec_spans, [(s + e) // 2 for s, e in gaps])):

@@ -2,6 +2,7 @@
 
     python3 portbench/readings.py --workload <cell> --seeds <a,b,...>
         [--solves N] [--control M] [--repeat 1] [--lanes 1] [--faults F]
+        [--program 0]
 
 For each seed, in one process: the cell's data, the program's solves from
 the window's first N starts (``harness.Solver``, the window's own path),
@@ -18,7 +19,9 @@ against the reference's lane from the same start: any lane may be the one
 that a solve returns.  On the first F solves of a seed, two faults at the
 cell's own size: the answer's heaviest row of W doubled (``altered``), and
 the solve again with every product with X seeing the first half of the
-shared dimension, doubled (``half_batch``).  One JSON line a solve on
+shared dimension, doubled (``half_batch``).  A cell cut over a mesh is read
+on one card (``ranks.read_seed``); with ``--program 0`` the control alone,
+where its blocks do not fit one card together.  One JSON line a solve on
 standard output, and in ``chiprun_out/readings_<cell>.jsonl``.
 """
 
@@ -94,12 +97,18 @@ def half_batch_answer(solve, W0, H0, seed):
 
 
 def read_seed(cell, seed, device, control: int, solves: int = 1, repeat: bool = False,
-              lanes_too: bool = False, faults: int = 0):
+              lanes_too: bool = False, faults: int = 0, program: bool = True):
     """The readings of ``solves`` solves of one seed's data (the window's
     solves 0, 1, ...), the control on the first ``control`` of them, the
     faults on the first ``faults``; with ``repeat``, the first solve and
     its reference are run twice and compared bit for bit; with
-    ``lanes_too``, each lane of a solve with restarts."""
+    ``lanes_too``, each lane of a solve with restarts.  A cell cut over a
+    mesh is read by ``ranks.read_seed``: the program (unless not
+    ``program``) and the control."""
+    if "mesh" in cell.config:
+        from portbench import ranks
+
+        return ranks.read_seed(cell, seed, device, control, solves, program)
     import nmf_tpu_torch as nt
 
     data = cell.module("generators", cell.config["generator"]).make(cell.config, seed, device)
@@ -162,6 +171,9 @@ def main(argv=None) -> int:
                     help="read each lane of a solve with restarts")
     ap.add_argument("--faults", type=int, default=0,
                     help="read the faults on the first this many solves of a seed")
+    ap.add_argument("--program", type=int, choices=(0, 1), default=1,
+                    help="0: the control alone, for a cell cut over a mesh whose blocks "
+                         "do not fit one card together")
     args = ap.parse_args(argv)
     cell = manifest.load_cell(args.workload)
     if not torch.cuda.is_available():
@@ -176,7 +188,8 @@ def main(argv=None) -> int:
     with open(out_dir / f"readings_{cell.name}.jsonl", "a") as f:
         for seed in (int(s) for s in args.seeds.split(",")):
             for out in read_seed(cell, seed, device, args.control, args.solves,
-                                 bool(args.repeat), bool(args.lanes), args.faults):
+                                 bool(args.repeat), bool(args.lanes), args.faults,
+                                 bool(args.program)):
                 line = json.dumps(out)
                 print(line, flush=True)
                 f.write(line + "\n")

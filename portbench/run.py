@@ -6,10 +6,11 @@ From the root of a checkout of the repository, on a machine with as many
 CUDA cards as the cell asks for.  With ``--trace 0`` the line's metrics are
 the cell's end-to-end metrics; with ``--trace 1`` its per-layer metrics,
 read from one more solve under the profiler and from timings of the
-products after the window.  The numbers that decided ``correct`` are the
-line's last key, ``checks``, and the last lines of standard error.  Exits
-with 3, printing no result, without enough cards, and with 4 when a JAX
-module was loaded.
+products after the window.  A cell whose configuration has a ``mesh`` runs
+as one process a card, which this command starts (``ranks.py``).  The
+numbers that decided ``correct`` are the line's last key, ``checks``, and
+the last lines of standard error.  Exits with 3, printing no result,
+without enough cards, and with 4 when a JAX module was loaded.
 """
 
 import time
@@ -48,7 +49,9 @@ def result_line(cell, res, device):
         "failed": res["failed"],
         "metrics": {name: {"value": v, "unit": cell.units[name]}
                     for name, v in res["metrics"].items()},
-        "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(device),
+        "device": {"platform": "gpu" if device.type == "cuda" else device.type,
+                   "kind": (torch.cuda.get_device_name(device) if device.type == "cuda"
+                            else device.type),
                    "count": cell.chips, "memory_peak_bytes": res["peak_bytes"]},
     }
     tr = res["trace"]
@@ -74,12 +77,24 @@ def main(argv=None) -> int:
         print(f"portbench: {args.workload} needs {cell.chips} CUDA card(s); found {count}",
               file=sys.stderr)
         return 3
+    if "mesh" in cell.config:
+        from portbench import ranks
+
+        return ranks.launch(args.workload, args.seed, args.seconds, args.trace, cell.chips,
+                            t_start=T_START)
     device = torch.device("cuda", 0)
     torch.cuda.set_device(device)
     torch.cuda.init()
     started = time.perf_counter() - T_START
     res = harness.run_cell(cell, args.seed, args.seconds, bool(args.trace), device,
                            t_start=T_START)
+    return report(cell, res, device, started)
+
+
+def report(cell, res, device, started) -> int:
+    """The run's lines: the set-up parts, ``correct`` and each number
+    compared beside its limit on standard error, then the result line;
+    nothing, and 4, where a JAX module was loaded."""
     found = nojax.loaded()
     if found:
         print(f"portbench: JAX modules loaded: {', '.join(found)}", file=sys.stderr)

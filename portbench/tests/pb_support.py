@@ -21,6 +21,8 @@ from portbench.manifest import Cell, _read, load_cell  # noqa: E402
 SIZES = {
     "ml25m-k128": dict(rows=2000, cols=1000, nnz=60000, rank=16),
     "dense100k-k64": dict(rows=700, cols=300, signal_rank=8, rank=8),
+    # k 128: at smaller k the control's gaps stay under the cell's limits
+    "northstar-2x2-k256": dict(rows=4000, cols=2000, nnz=200000, rank=128),
 }
 
 
@@ -45,3 +47,18 @@ def tiny_cell(name: str) -> Cell:
     config = {w["name"]: w["config"] for w in bench()["workloads"]}[name]
     cell.config = dict(cell.config, **SIZES[config])
     return cell
+
+
+def run_tiny(name: str, seed: int, seconds: float, trace: bool = False) -> dict:
+    """A run of cell ``name`` on its small matrix in this process, on the
+    CPU; a cell cut over a mesh on a mesh of one process, every cell of it
+    on the CPU."""
+    from portbench import harness, ranks
+    from nmf_tpu_torch.parallel.mesh import make_mesh
+
+    cell = tiny_cell(name)
+    if "mesh" not in cell.config:
+        return harness.run_cell(cell, seed, seconds, trace=trace, device="cpu")
+    R, C = cell.config["mesh"]
+    return ranks.run_ranks(cell, seed, seconds, trace,
+                           make_mesh((R, C), devices=["cpu"] * (R * C)))

@@ -9,16 +9,18 @@ out correct.  The faults a one-card solve can have:
 - an answer altered where it is produced (``nnmf``'s W has its heaviest row
   doubled).
 
-The exchange between cards does not exist in a one-card cell."""
+A cell cut over a mesh runs here on a mesh of one process, with no
+exchange; ``test_portbench_ranks.py`` leaves the exchange out between four
+processes."""
 
 import pytest
 
-from pb_support import cell_names, tiny_cell
+from pb_support import cell_names, run_tiny
 
 import nmf_tpu_torch as nt
 from nmf_tpu_torch.models import common
 from nmf_tpu_torch.ops import matops
-from portbench import harness, readings
+from portbench import readings
 
 SEED = 2**31 + 29
 
@@ -54,6 +56,6 @@ def altered(monkeypatch):
 def test_fault_is_not_correct(name, fault, monkeypatch):
     if fault is not None:
         fault(monkeypatch)
-    res = harness.run_cell(tiny_cell(name), SEED, 0.2, trace=False, device="cpu")
+    res = run_tiny(name, SEED, 0.2)
     assert res["attempted"] >= 1
     assert res["correct"] is (fault is None), res["checks"]

@@ -10,9 +10,11 @@ from pb_support import ROOT, SIZES, card  # noqa: F401
 from portbench.manifest import _read, load_module
 
 RATINGS = load_module(ROOT / "portbench/generators/powerlaw_ratings.py")
+BLOCKS = load_module(ROOT / "portbench/generators/powerlaw_blocks.py")
 LOWRANK = load_module(ROOT / "portbench/generators/lowrank_noisy.py")
 ML = _read(ROOT / "portbench/configs/ml25m-k128.json")
 DENSE = _read(ROOT / "portbench/configs/dense100k-k64.json")
+NORTHSTAR = _read(ROOT / "portbench/configs/northstar-2x2-k256.json")
 
 
 def check_ratings(cfg, data):
@@ -66,3 +68,26 @@ def test_lowrank_noisy():
     s = torch.linalg.svdvals(X.double())
     # rank-8 signal: the 9th singular value is at the noise's level
     assert float(s[cfg["signal_rank"]]) < 0.02 * float(s[cfg["signal_rank"] - 1])
+
+
+def test_blocks_raise_without_blocks_and_cut_the_same_draw():
+    """Called as a harness that does not cut X over a mesh would call it,
+    the generator raises; the four blocks of a 2 x 2 cut hold the whole
+    matrix's entries between them, each in row-major order."""
+    cfg = dict(NORTHSTAR, **SIZES["northstar-2x2-k256"])
+    with pytest.raises(ValueError, match="mesh"):
+        BLOCKS.make(cfg, 5, "cpu")
+    p, n = cfg["rows"], cfg["cols"]
+    whole = BLOCKS.make(cfg, 5, "cpu", [((0, p), (0, n))])
+    check_ratings(cfg, whole)
+    assert torch.equal(whole["rows"], RATINGS.make(cfg, 5, "cpu")["rows"])
+    cuts = [((0, 2048), (0, 1024)), ((0, 2048), (1024, n)), ((2048, p), (0, 1024)),
+            ((2048, p), (1024, n))]
+    parts = [BLOCKS.make(cfg, 5, "cpu", [cut]) for cut in cuts]
+    assert sum(len(b["vals"]) for b in parts) == cfg["nnz"]
+    for ((r0, r1), (c0, c1)), b in zip(cuts, parts):
+        r, c = b["rows"].long(), b["cols"].long()
+        assert bool(((r >= r0) & (r < r1) & (c >= c0) & (c < c1)).all())
+        assert bool((r * n + c).diff().gt(0).all())
+    two = BLOCKS.make(cfg, 5, "cpu", cuts[1:3])
+    assert len(two["vals"]) == len(parts[1]["vals"]) + len(parts[2]["vals"])

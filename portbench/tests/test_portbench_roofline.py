@@ -4,7 +4,7 @@ reduction of a profiler trace."""
 
 import pytest
 
-from pb_support import ROOT  # noqa: F401
+from pb_support import ROOT
 
 from portbench import profile, roofline
 from portbench.common import PEAK_BYTES_PER_S, PEAK_FP32_FLOPS
@@ -114,3 +114,31 @@ def test_trace_reduction():
     assert gaps["aten::item"] == pytest.approx(30e-9)
     assert gaps["aten::mm"] == pytest.approx(10e-9)
     assert gaps[profile.BETWEEN_OPS] == pytest.approx(15e-9)
+    assert s["collective_s"] == 0
+
+
+def test_collective_time_counts_only_nccl_kernels():
+    """On a traced solve of two ranks: NCCL's kernels, overlapping each
+    other and a product, counted once each instant and only inside the
+    solve; ``collective_pct`` is the larger rank's share of its busy time."""
+    from types import SimpleNamespace
+
+    from portbench.manifest import load_module
+
+    events = [
+        Ev(profile.MARK, 100, 200, False),
+        Ev("gemm", 100, 150, True),
+        Ev("ncclDevKernel_AllGather_RING_LL(ncclDevKernelArgsStorage<4096ul>)", 140, 170, True),
+        Ev("ncclKernel_Broadcast_RING_LL_Sum_int8_t", 160, 180, True),
+        Ev("ncclDevKernel_AllGather_RING_LL(x)", 190, 230, True),  # ends after the solve
+        Ev("ncclDevKernel_AllGather_RING_LL(x)", 20, 60, True),  # before it
+        Ev("elementwise_kernel_nccl_like", 185, 190, True),  # not NCCL's
+    ]
+    s = profile.summarize(events)
+    assert s["busy_s"] == pytest.approx(95e-9)  # [100, 180), [185, 200)
+    assert s["collective_s"] == pytest.approx(50e-9)  # [140, 180), [190, 200)
+    other = dict(s, collective_s=10e-9)
+    read = load_module(ROOT / "portbench/metrics/collective_pct.py").read
+    ctx = SimpleNamespace(trace=dict(s, ranks=[other, s]))
+    assert read(ctx) == pytest.approx(100 * 50 / 95)
+    assert read(SimpleNamespace(trace=dict(s, collective_s=0.0))) is None
