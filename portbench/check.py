@@ -3,12 +3,14 @@ plain reference, solved again from the same start on data drawn again from
 the seed.
 
 The reference solves each start that the program's solve began from: the
-solve's own start and, for ``replicates`` r > 1, the r - 1 restarts that
-``nnmf`` draws from its ``seed`` (``reference/restarts.py``), each for as
-many iterations as the program ran (``maxiter``, or the kept solve's count
-for a solve to a target), in float32, or in the ``DTYPE`` that its module
-states (HALS: float64).  Compared, each against its limit in
-``limits/<cell>.json``:
+solve's own start (the window's ``W0``, ``H0``, or, where the traffic names
+``nnmf``'s own NNDSVD ``init``, that init worked out again from the solve's
+``seed`` by ``reference/nndsvd.py``) and, for ``replicates`` r > 1, the r - 1 restarts
+that ``nnmf`` draws from its ``seed`` (``reference/restarts.py``), each for
+as many iterations as the program ran (``maxiter``, or the kept solve's
+count for a solve to a target or one that stops at ``nnmf``'s own ``tol``),
+in float32, or in the ``DTYPE`` that its module states (HALS, GreedyCD:
+float64).  Compared, each against its limit in ``limits/<cell>.json``:
 
 - ``w_gap``, ``h_gap``: ``||F - F_ref||_F / ||F_ref||_F`` of each factor,
   against the reference's lane nearest to the answer's W;
@@ -51,9 +53,19 @@ def column_gaps(a, b, dim):
             / torch.linalg.vector_norm(b, dim=dim).clamp_min(1e-300))
 
 
-def lane_starts(cell, shape, seed, index, device):
+def lane_starts(cell, shape, seed, index, device, X=None, low: bool = False):
+    """The starts of the solve named by ``index``; ``X``, the reference's
+    operand, is needed where ``nnmf`` makes the first start itself, and
+    with ``low`` that start is the control's, in the control's
+    precision."""
     k = cell.config["rank"]
-    lanes = [draw_start(shape, k, device, seed, index)]
+    init = cell.traffic.get("init", "custom")
+    if init == "custom":
+        lanes = [draw_start(shape, k, device, seed, index)]
+    else:
+        ref = cell.module("reference", "nndsvd")  # raises for an init it lacks
+        lanes = [ref.start(init, X, k, nnmf_seed(seed, index), device,
+                           zeroh=cell.traffic["alg"] == "projals", low=low)]
     reps = cell.traffic.get("replicates", 1)
     if reps > 1:
         lanes += restart_starts(nnmf_seed(seed, index), *shape, k, reps - 1, device)
@@ -72,13 +84,22 @@ def solve_target(ref, X, W, H, traffic, prod):
             return W, H, iters
 
 
+def iterations(traffic, ans) -> int:
+    """The iterations the reference runs: the kept solve's own count where
+    it decides when to stop (a target, or ``nnmf``'s own ``tol``), else
+    the traffic's ``maxiter``."""
+    if traffic["kind"] == "target" or traffic["tol"] is None:
+        return ans.niters
+    return traffic["maxiter"]
+
+
 def answers(cell, X, lanes, iters, low: bool):
     """The reference's final factors from each start: in the reference's
-    own ``DTYPE`` where it states one, and the control (``low``) in the
-    starts' float32."""
+    own ``DTYPE`` where it states one, else in float32, and the control
+    (``low``) in float32."""
     ref = cell.module("reference", cell.traffic["alg"])
     prod = refc.Products(low)
-    dtype = None if low else getattr(ref, "DTYPE", None)
+    dtype = torch.float32 if low else getattr(ref, "DTYPE", torch.float32)
     return [ref.solve(X, W.to(dtype, copy=True), H.to(dtype, copy=True), iters, prod)
             for W, H in lanes]
 
@@ -119,9 +140,8 @@ def check(cell, seed, kept, device, data=None) -> dict:
         data = cell.module("generators", cell.config["generator"]).make(cell.config, seed,
                                                                          device)
     X = refc.operand(data)
-    lanes = lane_starts(cell, data["shape"], seed, index, device)
-    iters = ans.niters if cell.traffic["kind"] == "target" else cell.traffic["maxiter"]
-    out = answers(cell, X, lanes, iters, low=False)
+    lanes = lane_starts(cell, data["shape"], seed, index, device, X)
+    out = answers(cell, X, lanes, iterations(cell.traffic, ans), low=False)
     return judged(cell, numbers(cell, X, ans.W, ans.H, out))
 
 

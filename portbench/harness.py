@@ -4,11 +4,14 @@ and the check against the plain reference.
 The window is a closed loop with one caller: whole solves back to back
 until ``seconds`` have passed; the solve under way when time runs out is
 finished and counted.  Solve i starts from its own ``W0``, ``H0``, drawn on
-the device from (seed, i) before its clock starts, and calls
+the device from (seed, i) before its clock starts, or, where the traffic
+mix names ``nnmf``'s own ``init``, from that init, which runs inside the
+timed call from the solve's own ``seed`` as it does for a user; it calls
 ``nmf_tpu_torch.nnmf`` as the traffic mix says:
 
-- ``iterations``: one call of ``maxiter`` iterations with a ``tol`` that no
-  solve meets;
+- ``iterations``: one call of ``maxiter`` iterations with the mix's ``tol``,
+  one that no solve meets, or, where it is null, ``nnmf``'s own (every mix
+  states ``tol``);
 - ``target``: calls of ``chunk`` iterations, each from where the last
   stopped, until the relative error ``sqrt(2 mse) / ||X||`` (read through
   the program's ``mse_objective`` after each call) reaches
@@ -85,6 +88,15 @@ def draw_start(shape, k, device, seed, *index):
     return W, H
 
 
+def solve_start(traffic, shape, k, device, seed, *index):
+    """The ``W0``, ``H0`` that the solve named by ``index`` hands ``nnmf``:
+    ``draw_start``'s, or (None, None) where the traffic names ``nnmf``'s
+    own ``init`` (default ``"custom"``)."""
+    if traffic.get("init", "custom") != "custom":
+        return None, None
+    return draw_start(shape, k, device, seed, *index)
+
+
 def nnmf_seed(seed, *index) -> int:
     """The ``seed`` that the solve named by ``index`` hands ``nnmf``."""
     return mix(seed, "nnmf", *index)
@@ -99,19 +111,25 @@ class Solver:
         self.mesh = mesh
 
     def __call__(self, W0, H0, seed, warm=False) -> Answer:
+        """The solve from ``W0``, ``H0``, or, where the traffic names
+        ``nnmf``'s own ``init``, from that init (``W0``, ``H0`` unused);
+        a solve to a target continues from where each call stopped."""
         tr = self.tr
-        kw = dict(alg=tr["alg"], init="custom", tol=tr["tol"], device=self.device,
+        init = tr.get("init", "custom")
+        start = dict(init="custom", W0=W0, H0=H0) if init == "custom" else dict(init=init)
+        kw = dict(alg=tr["alg"], tol=tr["tol"], device=self.device,
                   mesh=self.mesh, seed=seed,
                   replicates=tr.get("replicates", 1),
                   parallel_replicates=tr.get("parallel_replicates", False))
         if tr["kind"] == "iterations":
-            res = self.nt.nnmf(self.X, self.k, W0=W0, H0=H0,
-                               maxiter=2 if warm else tr["maxiter"], **kw)
+            res = self.nt.nnmf(self.X, self.k, maxiter=2 if warm else tr["maxiter"],
+                               **start, **kw)
             return Answer(res.W, res.H, res.niters)
-        W, H, iters, calls = W0, H0, 0, 0
+        iters, calls = 0, 0
         while True:
-            res = self.nt.nnmf(self.X, self.k, W0=W, H0=H, maxiter=tr["chunk"], **kw)
+            res = self.nt.nnmf(self.X, self.k, maxiter=tr["chunk"], **start, **kw)
             W, H = res.W, res.H
+            start = dict(init="custom", W0=W, H0=H)
             iters += res.niters
             calls += 1
             with self.nt.config.precision_scope():
@@ -168,7 +186,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     solve = Solver(nt, X, k, cell.traffic, device, xsq)
 
     t = time.perf_counter()
-    W0, H0 = draw_start(shape, k, device, seed, "warmup")
+    W0, H0 = solve_start(cell.traffic, shape, k, device, seed, "warmup")
     solve(W0, H0, nnmf_seed(seed, "warmup"), warm=True)
     del W0, H0
     sync(device)
@@ -188,7 +206,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     end = time.perf_counter() + seconds
     while True:
         ans = None
-        W0, H0 = draw_start(shape, k, device, seed, attempted)
+        W0, H0 = solve_start(cell.traffic, shape, k, device, seed, attempted)
         sync(device)
         attempted += 1
         t = time.perf_counter()
@@ -216,7 +234,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, trace: bool, device="cuda",
     if trace and ans is not None:
         from portbench.profile import profile_solve
 
-        W0, H0 = draw_start(shape, k, device, seed, "traced")
+        W0, H0 = solve_start(cell.traffic, shape, k, device, seed, "traced")
         sync(device)
 
         def one():

@@ -2,7 +2,7 @@
 ``--trace 1`` run after every other metric, and joined to the device trace.
 
 Two more solves of the cell run, each through the harness's ``Solver`` from
-the start that ``draw_start`` draws under the index ``"spans"``:
+the start that ``solve_start`` gives the index ``"spans"``:
 
 1. with the program's recording on and no profiler: host times that the
    profiler does not inflate (``host_reads_per_iter``,
@@ -40,7 +40,7 @@ import torch
 from portbench import profile
 from portbench.common import sync
 from portbench import harness
-from portbench.harness import draw_start, nnmf_seed
+from portbench.harness import nnmf_seed, solve_start
 
 OUTSIDE = "(outside the program's spans)"
 NO_LAUNCH = "(no launch call found)"
@@ -87,7 +87,7 @@ def _run(ctx):
     if spans is None or not hasattr(spans, "recording") or found is None:
         return None
     run_seed, solve = found
-    W0, H0 = draw_start(ctx.shape, ctx.k, ctx.device, run_seed, "spans")
+    W0, H0 = solve_start(ctx.cell.traffic, ctx.shape, ctx.k, ctx.device, run_seed, "spans")
     seed = nnmf_seed(run_seed, "spans")
     sync(ctx.device)
     with spans.recording() as rec:

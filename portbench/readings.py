@@ -45,7 +45,8 @@ from portbench.reference import common as refc  # noqa: E402
 
 def control_answer(cell, X, lanes, iters):
     """The control's (W, H, iterations): the lower-precision reference from
-    the same starts, its best lane by the exact objective."""
+    the control's starts (the window's own, or ``nnmf``'s init worked out in
+    the control's precision), its best lane by the exact objective."""
     ref = cell.module("reference", cell.traffic["alg"])
     if cell.traffic["kind"] == "target":
         W, H = lanes[0]
@@ -118,14 +119,14 @@ def read_seed(cell, seed, device, control: int, solves: int = 1, repeat: bool = 
     solve = harness.Solver(nt, X, k, cell.traffic, device, xsq)
     lines = []
     for index in range(solves):
-        W0, H0 = harness.draw_start(shape, k, device, seed, index)
+        W0, H0 = harness.solve_start(cell.traffic, shape, k, device, seed, index)
         t = time.perf_counter()
         ans = solve(W0, H0, harness.nnmf_seed(seed, index))
         sync(device)
         out = {"cell": cell.name, "seed": seed, "index": index,
                "program_s": time.perf_counter() - t, "program_iters": ans.niters}
-        lanes = check.lane_starts(cell, shape, seed, index, device)
-        iters = ans.niters if cell.traffic["kind"] == "target" else cell.traffic["maxiter"]
+        lanes = check.lane_starts(cell, shape, seed, index, device, Xref)
+        iters = check.iterations(cell.traffic, ans)
         t = time.perf_counter()
         exact = check.answers(cell, Xref, lanes, iters, low=False)
         out["program"] = check.numbers(cell, Xref, ans.W, ans.H, exact)
@@ -149,7 +150,8 @@ def read_seed(cell, seed, device, control: int, solves: int = 1, repeat: bool = 
             out["reference_same_bits"] = all(
                 torch.equal(a, b) for x, y in zip(exact, twice) for a, b in zip(x, y))
         if index < control:
-            Wc, Hc, it_c = control_answer(cell, Xref, lanes, iters)
+            low = check.lane_starts(cell, shape, seed, index, device, Xref, low=True)
+            Wc, Hc, it_c = control_answer(cell, Xref, low, iters)
             if it_c != iters:
                 exact = check.answers(cell, Xref, lanes, it_c, low=False)
             out["control"] = check.numbers(cell, Xref, Wc, Hc, exact)
